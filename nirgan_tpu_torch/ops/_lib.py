@@ -1,0 +1,146 @@
+"""Build, load and call the port's CUDA kernels (``nirgan_tpu_torch/csrc``).
+
+The sources are compiled at first use by ``nvcc`` into one shared library
+with a plain C interface, loaded with ``ctypes``.  The library lands in
+``nirgan_tpu_torch/_build/`` under a name keyed by a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one loads at once.
+Nothing here runs at import time: the CPU tests import every module.
+
+Every C entry point takes the device index and the stream, launches on that
+stream without synchronising, and returns ``cudaGetLastError()``;
+``check`` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+PKG_ROOT = Path(__file__).resolve().parent.parent
+CSRC = PKG_ROOT / "csrc"
+BUILD_DIR = PKG_ROOT / "_build"
+SOURCES = ("trunk_conv.cu", "instance_norm.cu", "head_conv.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# argtypes of each entry point: pointers and the stream as c_void_p (a plain
+# int would be cut to 32 bits)
+_SIGNATURES = {
+    "nirgan_trunk_conv": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _P),
+    "nirgan_instance_norm": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                             _P),
+    "nirgan_head_conv": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _P),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return path
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libnirgan_kernels_{_digest()}.so"
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile the kernels unless the keyed library exists.  Returns its
+    path, the seconds spent compiling (0 when it was already built) and the
+    compiler's report (``-Xptxas -v``: registers, shared memory, spills)."""
+    out = library_path()
+    log = out.with_suffix(".log")
+    if out.exists():
+        return out, 0.0, log.read_text() if log.exists() else ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    # compile to a private name, then rename: concurrent processes never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    report = proc.stdout + proc.stderr
+    log.write_text(report)
+    return out, time.perf_counter() - t0, report
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, args in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(args)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def route(x: torch.Tensor, name: str) -> bool:
+    """The dispatch rule of every op with a kernel: True for a CUDA tensor
+    (launch the kernel), False for a CPU tensor (the plain version); any
+    other device raises."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise RuntimeError(f"{name}: no kernel and no plain route for device "
+                       f"{x.device}")
+
+
+def require(cond: bool, name: str, what: str) -> None:
+    if not cond:
+        raise ValueError(f"{name}: {what}")
+
+
+def stream_of(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def dtype_code(x: torch.Tensor, name: str) -> int:
+    if x.dtype == torch.float32:
+        return 0
+    if x.dtype == torch.bfloat16:
+        return 1
+    raise ValueError(f"{name}: dtype {x.dtype} not supported (float32, "
+                     "bfloat16)")
+
+
+def aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)

@@ -1,0 +1,37 @@
+"""Spatial padding (NHWC), counterpart of ``nirgan_tpu/ops/pad.py``."""
+
+import torch
+import torch.nn.functional as F
+
+
+def reflect_pad2d(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Reflection padding, torch ``nn.ReflectionPad2d`` semantics, on an NHWC
+    tensor; returns a contiguous NHWC tensor."""
+    if pad == 0:
+        return x
+    y = F.pad(x.permute(0, 3, 1, 2), (pad, pad, pad, pad), mode="reflect")
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _reflect_index(n: int, size: int, device) -> torch.Tensor:
+    """Source index of each of ``size`` positions when a side of ``n`` is
+    reflect-padded at its end: a triangle wave of period 2(n - 1), which is
+    what numpy's and ``jnp.pad``'s reflect mode give for any pad, also one
+    longer than the side."""
+    j = torch.arange(size, device=device)
+    if n == 1:
+        return torch.zeros_like(j)
+    period = 2 * (n - 1)
+    i = j % period
+    return torch.where(i >= n, period - i, i)
+
+
+def reflect_pad_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Reflect-pad an NHWC tensor at the bottom and right up to (h, w), as
+    ``jnp.pad(x, ((0, 0), (0, h - H), (0, w - W), (0, 0)), "reflect")``
+    does, pads longer than the side included."""
+    H, W = x.shape[1], x.shape[2]
+    if (H, W) == (h, w):
+        return x
+    x = x.index_select(1, _reflect_index(H, h, x.device))
+    return x.index_select(2, _reflect_index(W, w, x.device)).contiguous()

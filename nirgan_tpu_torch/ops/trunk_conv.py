@@ -1,0 +1,92 @@
+"""Kernel A: the residual trunk's 3x3 convolution with the reflect border
+inside the kernel (``csrc/trunk_conv.cu``).
+
+Replaces ``nirgan_tpu/ops/pallas_trunk.py``: ``conv3x3_reflect_pallas``
+(``pad=1``: ``conv2d(reflect_pad2d(x, 1), w) + b``, no padded tensor) and
+``conv3x3_pallas`` (``pad=0``: the VALID conv of an already padded input).
+On an H100 the serving trunk conv is bound by the tensor cores (about 2300
+FLOP per byte moved); the kernel is a shared-memory implicit GEMM, WMMA on
+bf16 and SIMT f32 on float32, with f32 accumulation and the bias in the
+epilogue.  The source's header has the design.
+
+Dispatch: a CPU tensor takes ``trunk_conv_plain``; a CUDA tensor launches
+the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from nirgan_tpu_torch.ops import _lib
+from nirgan_tpu_torch.ops.pad import reflect_pad2d
+
+NAME = "trunk_conv"
+
+
+def trunk_conv_plain(x: torch.Tensor, weight: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None,
+                     pad: int = 1) -> torch.Tensor:
+    """``F.conv2d`` on the reflect-padded input.  x (B, H, W, Cin) NHWC,
+    weight (Cout, Cin, 3, 3); returns NHWC in x's dtype."""
+    xp = reflect_pad2d(x, pad) if pad else x
+    y = F.conv2d(xp.permute(0, 3, 1, 2), weight.to(x.dtype))
+    if bias is not None:
+        y = y + bias.to(y.dtype).view(1, -1, 1, 1)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def trunk_conv_cuda(x: torch.Tensor, weight: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None,
+                    pad: int = 1) -> torch.Tensor:
+    """Launch kernel A.  Takes bf16 (Cin % 32 == 0, Cout % 128 == 0) or f32
+    (Cin % 16 == 0, Cout % 64 == 0), contiguous NHWC on a CUDA device."""
+    req = _lib.require
+    req(x.is_cuda, NAME, "x must be a CUDA tensor")
+    code = _lib.dtype_code(x, NAME)
+    req(x.dim() == 4 and x.is_contiguous(), NAME,
+        "x must be a contiguous (B, H, W, C) tensor")
+    req(pad in (0, 1), NAME, f"pad must be 0 or 1, got {pad}")
+    b, hi, wi, ci = x.shape
+    co = weight.shape[0]
+    req(tuple(weight.shape) == (co, ci, 3, 3), NAME,
+        f"weight {tuple(weight.shape)} is not (Cout, {ci}, 3, 3)")
+    k_ci, k_co = (32, 128) if code == 1 else (16, 64)
+    req(ci % k_ci == 0 and co % k_co == 0, NAME,
+        f"channels {ci}->{co} need Cin % {k_ci} == 0 and Cout % {k_co} == 0")
+    if pad:
+        req(hi >= 2 and wi >= 2, NAME, "reflect padding needs H, W >= 2")
+        ho, wo = hi, wi
+    else:
+        req(hi >= 3 and wi >= 3, NAME, "a VALID 3x3 conv needs H, W >= 3")
+        ho, wo = hi - 2, wi - 2
+    # (Cout, Cin, ky, kx) -> (ky, kx, Cin, Cout), in the compute dtype
+    w = weight.to(device=x.device, dtype=x.dtype).permute(2, 3, 1, 0).contiguous()
+    bf = None
+    if bias is not None:
+        req(tuple(bias.shape) == (co,), NAME, f"bias must be ({co},)")
+        bf = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    y = torch.empty((b, ho, wo, co), device=x.device, dtype=x.dtype)
+    req(_lib.aligned(x, w, y), NAME, "tensors must be 16-byte aligned")
+    err = _lib.library().nirgan_trunk_conv(
+        x.device.index, code, x.data_ptr(), w.data_ptr(),
+        bf.data_ptr() if bf is not None else None, y.data_ptr(),
+        b, hi, wi, ci, ho, wo, co, pad, _lib.stream_of(x))
+    _lib.check(err, NAME)
+    trunk_conv_cuda.launches += 1
+    return y
+
+
+trunk_conv_cuda.launches = 0
+
+
+def trunk_conv(x: torch.Tensor, weight: torch.Tensor,
+               bias: Optional[torch.Tensor] = None,
+               pad: int = 1) -> torch.Tensor:
+    """``conv2d(reflect_pad2d(x, pad), weight) + bias`` for a 3x3 stride-1
+    conv on NHWC x (pad 0: VALID)."""
+    if _lib.route(x, NAME):
+        return trunk_conv_cuda(x, weight, bias, pad)
+    return trunk_conv_plain(x, weight, bias, pad)
