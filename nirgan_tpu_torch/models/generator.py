@@ -4,10 +4,12 @@
 
 c7s1-64, d128, d256, R256 x n, u128, u64, c7s1-out, tanh, on NHWC
 activations.  The trunk convs run through kernel A (``ops/trunk_conv.py``,
-reflect border inside the kernel), every instance norm through kernel B
-(with the following ReLU fused), and the head through kernel C
-(``ops/head_conv.py``, bias and tanh fused).  The stem, the two downsampling
-convs and the two transposed convs stay on PyTorch's convolutions.  The TPU
+reflect border inside the kernel), every instance norm through kernels B
+and B4 (with the following ReLU fused), the head through kernel C
+(``ops/head_conv.py``, bias and tanh fused), and the two transposed convs'
+backward through kernel B5.  The stem, the two downsampling convs and the
+transposed convs' forward stay on PyTorch's convolutions, as do the
+backward of every conv but the transposed ones.  The TPU
 layout variants of the JAX module (blocked stem, pad folds, the int8 trunk)
 compute the same function and are not carried over.
 """

@@ -15,7 +15,7 @@ from torch import nn
 
 from nirgan_tpu_torch.ops.conv import conv2d, conv_transpose2d
 from nirgan_tpu_torch.ops.initializers import Init
-from nirgan_tpu_torch.ops.norm import instance_norm
+from nirgan_tpu_torch.ops.instance_norm import instance_norm
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}

@@ -1,7 +1,8 @@
 """Build, load and call the port's CUDA kernels (``nirgan_tpu_torch/csrc``).
 
-The sources are compiled at first use by ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``.  The library lands in
+The sources are compiled at first use by ``nvcc``, one process per source
+started together, and linked into one shared library with a plain C
+interface, loaded with ``ctypes``.  The library lands in
 ``nirgan_tpu_torch/_build/`` under a name keyed by a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads at once.
 Nothing here runs at import time: the CPU tests import every module.
@@ -28,9 +29,11 @@ import torch
 PKG_ROOT = Path(__file__).resolve().parent.parent
 CSRC = PKG_ROOT / "csrc"
 BUILD_DIR = PKG_ROOT / "_build"
-SOURCES = ("trunk_conv.cu", "instance_norm.cu", "head_conv.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("trunk_conv.cu", "instance_norm.cu", "head_conv.cu",
+           "convt_bwd.cu")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,7 +45,11 @@ _SIGNATURES = {
                           _I, _P),
     "nirgan_instance_norm": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                              _P),
+    "nirgan_instance_norm_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _P),
     "nirgan_head_conv": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _P),
+    "nirgan_convt_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _P),
 }
 
 
@@ -80,17 +87,31 @@ def build() -> tuple[Path, float, str]:
         return out, 0.0, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # compile to a private name, then rename: concurrent processes never
+    # compile to private names, then rename: concurrent processes never
     # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    report = proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, Path(s).stem + ".o") for s in SOURCES]
+        logs = [obj + ".txt" for obj in objs]
+        procs = []
+        for src, obj, txt in zip(SOURCES, objs, logs):
+            with open(txt, "w") as sink:  # a file: no pipe to fill up
+                procs.append(subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+                    stdout=sink, stderr=subprocess.STDOUT))
+        codes = [p.wait() for p in procs]
+        outputs = [Path(txt).read_text() for txt in logs]
+        failed = [f"{src} ({rc}):\n{text}" for src, rc, text
+                  in zip(SOURCES, codes, outputs) if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = os.path.join(tmpdir, out.name)
+        link = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr}")
+        os.replace(tmp, out)
+    report = "".join(outputs)
     log.write_text(report)
     return out, time.perf_counter() - t0, report
 

@@ -1,10 +1,14 @@
 """Convolutions (NHWC activations, torch weight layouts), counterpart of
 ``nirgan_tpu/ops/conv.py``.
 
-These stay on PyTorch's own convolutions (cuDNN on a card): the JAX package
-computes them in XLA, outside any Pallas kernel.  The stem, d0, d1, u0 and
-u1 use them.  Weights are cast to the activation dtype, as the JAX ops cast
-the kernel, and the bias is added after the convolution in that dtype.
+The forwards stay on PyTorch's own convolutions (cuDNN on a card): the JAX
+package computes them in XLA, outside any Pallas kernel.  The stem, d0, d1,
+u0 and u1 use them.  Weights are cast to the activation dtype, as the JAX
+ops cast the kernel, and the bias is added after the convolution in that
+dtype.  The reference's k3/s2/p1/op1 transposed convolution (u0, u1) is one
+autograd Function whose backward is kernel B5 on a card
+(``ops/convt_bwd.py``, the counterpart of ``_convt_core_k3s2_pallas``) and
+its plain version on the CPU; the bias stays outside it, as in JAX.
 """
 
 from __future__ import annotations
@@ -13,6 +17,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from nirgan_tpu_torch.ops import _lib
+from nirgan_tpu_torch.ops import convt_bwd as _convt_bwd
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -33,14 +40,42 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
     return _nhwc(y)
 
 
+class ConvTransposeK3S2(torch.autograd.Function):
+    """The k3/s2/p1/op1 core without bias on NHWC x: forward on PyTorch's
+    convolution, backward kernel B5 on a card, its plain version on the
+    CPU.  The weight gradient comes back in f32, then in the weight's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        return _nhwc(F.conv_transpose2d(_nchw(x), weight.to(x.dtype), stride=2,
+                                        padding=1, output_padding=1))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        bwd = (_convt_bwd.convt_k3s2_bwd_cuda
+               if _lib.route(x, _convt_bwd.NAME)
+               else _convt_bwd.convt_k3s2_bwd_plain)
+        dx, dw = bwd(g.to(x.dtype).contiguous(), x.contiguous(), weight,
+                     ctx.needs_input_grad)
+        return dx, dw.to(weight.dtype) if dw is not None else None
+
+
 def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor,
                      bias: Optional[torch.Tensor] = None, stride: int = 2,
                      padding: int = 1, output_padding: int = 1) -> torch.Tensor:
     """torch ``nn.ConvTranspose2d``: x (B, H, W, Cin), weight
     (Cin, Cout, kh, kw).  The reference's k3 s2 p1 op1 gives an exact 2x
-    upsample."""
-    y = F.conv_transpose2d(_nchw(x), weight.to(x.dtype), stride=stride,
-                           padding=padding, output_padding=output_padding)
+    upsample and runs through ``ConvTransposeK3S2``."""
+    if (tuple(weight.shape[2:]) == (3, 3) and stride == 2 and padding == 1
+            and output_padding == 1):
+        y = ConvTransposeK3S2.apply(x, weight)
+    else:
+        y = _nhwc(F.conv_transpose2d(_nchw(x), weight.to(x.dtype),
+                                     stride=stride, padding=padding,
+                                     output_padding=output_padding))
     if bias is not None:
-        y = y + bias.to(y.dtype).view(1, -1, 1, 1)
-    return _nhwc(y)
+        y = y + bias.to(y.dtype)
+    return y

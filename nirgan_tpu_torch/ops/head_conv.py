@@ -9,8 +9,11 @@ arithmetic and shared-memory bandwidth, so the kernel keeps the weights and
 an input halo tile in shared memory and computes two outputs a thread.  The
 source's header has the design.
 
-Dispatch: a CPU tensor takes ``head_conv_plain``; a CUDA tensor launches the
-kernel or raises.
+``head_conv`` is one ``torch.autograd.Function``.  Forward: a CPU tensor
+takes ``head_conv_plain``; a CUDA tensor launches the kernel or raises.
+Backward: as ``pallas_head.py``'s custom VJP, tanh' = 1 - y^2 on the saved
+output, then PyTorch's own convolution gradients for dx and the weight, and
+a sum for the bias.
 """
 
 from __future__ import annotations
@@ -74,10 +77,41 @@ def head_conv_cuda(x_padded: torch.Tensor, weight: torch.Tensor,
 head_conv_cuda.launches = 0
 
 
+def head_conv_bwd(x_padded: torch.Tensor, weight: torch.Tensor,
+                  y: torch.Tensor, g: torch.Tensor, needs=(True, True, True)):
+    """Gradients of ``head_conv`` from its output y and the NHWC cotangent
+    g: (dx, dweight, dbias), each None where ``needs`` says so."""
+    gz = (g.float() * (1.0 - y.float().square())).to(x_padded.dtype)
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        gz.permute(0, 3, 1, 2), x_padded.permute(0, 3, 1, 2),
+        weight.to(x_padded.dtype), None, [1, 1], [0, 0], [1, 1], False,
+        [0, 0], 1, [needs[0], needs[1], False])
+    dx = dx.permute(0, 2, 3, 1).contiguous() if needs[0] else None
+    dw = dw.to(weight.dtype) if needs[1] else None
+    db = gz.float().sum().reshape(1) if needs[2] else None
+    return dx, dw, db
+
+
+class HeadConv(torch.autograd.Function):
+    """Forward kernel C (the plain version on the CPU), backward
+    ``head_conv_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x_padded, weight, bias):
+        fwd = head_conv_cuda if _lib.route(x_padded, NAME) else head_conv_plain
+        y = fwd(x_padded, weight, bias)
+        ctx.save_for_backward(x_padded, weight, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x_padded, weight, y = ctx.saved_tensors
+        return head_conv_bwd(x_padded, weight, y, g, ctx.needs_input_grad)
+
+
 def head_conv(x_padded: torch.Tensor, weight: torch.Tensor,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``tanh(conv2d(x_padded, weight) + bias)`` for the 7x7 one-channel
-    head on an NHWC input that is already reflect-padded by 3."""
-    if _lib.route(x_padded, NAME):
-        return head_conv_cuda(x_padded, weight, bias)
-    return head_conv_plain(x_padded, weight, bias)
+    head on an NHWC input that is already reflect-padded by 3,
+    differentiable in all three."""
+    return HeadConv.apply(x_padded, weight, bias)

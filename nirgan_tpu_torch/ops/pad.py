@@ -13,6 +13,33 @@ def reflect_pad2d(x: torch.Tensor, pad: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def reflect_pad2d_adjoint(g: torch.Tensor, pad: int) -> torch.Tensor:
+    """The adjoint of ``reflect_pad2d`` (pad smaller than each side) on an
+    NHWC cotangent of the padded shape: a copy of the interior, then each
+    mirrored row, column and corner added onto its source in a fixed order.
+    torch's ``reflection_pad2d_backward`` adds with atomics on a card, so
+    its result changes from run to run; this one does not."""
+    if pad == 0:
+        return g
+    p = pad
+    h, w = g.shape[1] - 2 * p, g.shape[2] - 2 * p
+
+    def edges(n):
+        # (padded index, source index): i mirrors p - i, n + p + i mirrors n - 2 - i
+        return ([(i, p - i) for i in range(p)]
+                + [(n + p + i, n - 2 - i) for i in range(p)])
+
+    out = g[:, p:p + h, p:p + w].clone()
+    for r, s in edges(h):
+        out[:, s] += g[:, r, p:p + w]
+    for c, s in edges(w):
+        out[:, :, s] += g[:, p:p + h, c]
+    for r, sr in edges(h):
+        for c, sc in edges(w):
+            out[:, sr, sc] += g[:, r, c]
+    return out
+
+
 def _reflect_index(n: int, size: int, device) -> torch.Tensor:
     """Source index of each of ``size`` positions when a side of ``n`` is
     reflect-padded at its end: a triangle wave of period 2(n - 1), which is

@@ -9,8 +9,12 @@ FLOP per byte moved); the kernel is a shared-memory implicit GEMM, WMMA on
 bf16 and SIMT f32 on float32, with f32 accumulation and the bias in the
 epilogue.  The source's header has the design.
 
-Dispatch: a CPU tensor takes ``trunk_conv_plain``; a CUDA tensor launches
-the kernel or raises.
+``trunk_conv`` is one ``torch.autograd.Function``.  Forward: a CPU tensor
+takes ``trunk_conv_plain``; a CUDA tensor launches the kernel or raises.
+Backward: PyTorch's own convolution gradients on the reflect-padded input,
+then the adjoint of the pad (fixed-order adds, so a step's gradients repeat
+bit for bit), as the JAX package trains the trunk through XLA's
+convolutions (``pallas_trunk.py`` has no backward kernel).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from nirgan_tpu_torch.ops import _lib
-from nirgan_tpu_torch.ops.pad import reflect_pad2d
+from nirgan_tpu_torch.ops.pad import reflect_pad2d, reflect_pad2d_adjoint
 
 NAME = "trunk_conv"
 
@@ -82,11 +86,47 @@ def trunk_conv_cuda(x: torch.Tensor, weight: torch.Tensor,
 trunk_conv_cuda.launches = 0
 
 
+def trunk_conv_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
+                   pad: int, needs=(True, True, True)):
+    """Gradients of ``trunk_conv`` for the NHWC cotangent g: (dx, dweight,
+    dbias), each None where ``needs`` says so.  The weight gradient is
+    taken in x's dtype, as the JAX convolution casts the weight, then
+    returned in the weight's dtype; the bias gradient is an f32 sum."""
+    xp = reflect_pad2d(x, pad) if pad else x
+    gn = g.permute(0, 3, 1, 2)
+    dxp, dw, _ = torch.ops.aten.convolution_backward(
+        gn, xp.permute(0, 3, 1, 2), weight.to(x.dtype), None, [1, 1], [0, 0],
+        [1, 1], False, [0, 0], 1, [needs[0], needs[1], False])
+    dx = None
+    if needs[0]:
+        dx = reflect_pad2d_adjoint(dxp.permute(0, 2, 3, 1), pad).contiguous()
+    dw = dw.to(weight.dtype) if needs[1] else None
+    db = g.float().sum(dim=(0, 1, 2)) if needs[2] else None
+    return dx, dw, db
+
+
+class TrunkConv(torch.autograd.Function):
+    """Forward kernel A (the plain version on the CPU), backward
+    ``trunk_conv_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, pad):
+        fwd = trunk_conv_cuda if _lib.route(x, NAME) else trunk_conv_plain
+        ctx.pad = pad
+        ctx.save_for_backward(x, weight)
+        return fwd(x, weight, bias, pad)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw, db = trunk_conv_bwd(x, weight, g.contiguous(), ctx.pad,
+                                    ctx.needs_input_grad[:3])
+        return dx, dw, db, None
+
+
 def trunk_conv(x: torch.Tensor, weight: torch.Tensor,
                bias: Optional[torch.Tensor] = None,
                pad: int = 1) -> torch.Tensor:
     """``conv2d(reflect_pad2d(x, pad), weight) + bias`` for a 3x3 stride-1
-    conv on NHWC x (pad 0: VALID)."""
-    if _lib.route(x, NAME):
-        return trunk_conv_cuda(x, weight, bias, pad)
-    return trunk_conv_plain(x, weight, bias, pad)
+    conv on NHWC x (pad 0: VALID), differentiable in x, weight and bias."""
+    return TrunkConv.apply(x, weight, bias, pad)

@@ -5,8 +5,10 @@ state_dict.
 onto the port's names: conv kernels HWIO -> OIHW, conv-transpose kernels
 HWIO -> IOHW with no flip (the inverse of ``_conv`` / ``_convT`` in
 ``nirgan_tpu/train/torch_convert.py``; its ``_rev_conv`` / ``_rev_convT``
-do the same).  ``load_reference_ckpt`` reads a reference Lightning ``.ckpt``
-through that jax-free converter.
+do the same).  ``d_params_from_jax`` does the same for the
+``NLayerDiscriminator`` tree.  ``load_reference_weights`` and
+``load_reference_ckpt`` read a reference Lightning ``.ckpt`` (``netG.*``,
+``netD.*``) through that jax-free converter.
 """
 
 from __future__ import annotations
@@ -50,11 +52,41 @@ def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
-def load_reference_ckpt(path: str, config) -> dict[str, torch.Tensor]:
-    """Generator state_dict from a reference ``Px2Px_PL`` ``.ckpt``."""
+def d_params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """Flax params of ``NLayerDiscriminator`` (``conv0`` ... ``conv{n+1}``)
+    -> the port's state_dict."""
+    names = sorted(params, key=lambda k: int(k[4:]) if k[4:].isdigit() else -1)
+    if not names or any(not (k.startswith("conv") and k[4:].isdigit())
+                        for k in names):
+        raise ValueError(f"params of NLayerDiscriminator expected, got "
+                         f"{sorted(params)}")
+    out: dict[str, torch.Tensor] = {}
+    for name in names:
+        _put(out, name, params[name], (3, 2, 0, 1))
+    return out
+
+
+def load_reference_weights(path: str, config) -> dict[str, dict]:
+    """The towers of a reference ``Px2Px_PL`` ``.ckpt`` as the port's
+    state_dicts: ``{"netG": ..., "netD": ...}``, each key present only when
+    the checkpoint holds that network (strict=False warm starts)."""
     from nirgan_tpu.train.torch_convert import convert_px2px_checkpoint
 
     converted = convert_px2px_checkpoint(path, config)
-    if "params_g" not in converted:
+    out = {}
+    if "params_g" in converted:
+        out["netG"] = params_from_jax(converted["params_g"])
+    if "params_d" in converted:
+        if config.base_configs.netD == "pixel":
+            raise NotImplementedError("the pixel discriminator is not ported "
+                                      "yet")
+        out["netD"] = d_params_from_jax(converted["params_d"])
+    return out
+
+
+def load_reference_ckpt(path: str, config) -> dict[str, torch.Tensor]:
+    """Generator state_dict from a reference ``Px2Px_PL`` ``.ckpt``."""
+    loaded = load_reference_weights(path, config)
+    if "netG" not in loaded:
         raise ValueError(f"{path}: no netG.* weights in the checkpoint")
-    return params_from_jax(converted["params_g"])
+    return loaded["netG"]

@@ -1,11 +1,13 @@
 """The port's plain ops against the JAX package's, in f32 on the CPU, with
-the same seeded numpy inputs: reflect padding, conv and transposed conv,
-the matrix-form bilinear resize and skimage-exact histogram matching."""
+the same seeded numpy inputs: reflect padding and its adjoint, conv and
+transposed conv, the matrix-form bilinear resize and skimage-exact
+histogram matching."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from nirgan_tpu.inference.histogram import histogram_match as jax_histogram_match
@@ -16,7 +18,7 @@ from nirgan_tpu.ops.resize import resize_bilinear as jax_resize_bilinear
 from nirgan_tpu_torch.inference.histogram import histogram_match
 from nirgan_tpu_torch.ops.conv import conv2d, conv_transpose2d
 from nirgan_tpu_torch.ops.initializers import get_initializer
-from nirgan_tpu_torch.ops.pad import reflect_pad2d, reflect_pad_to
+from nirgan_tpu_torch.ops.pad import reflect_pad2d, reflect_pad2d_adjoint, reflect_pad_to
 from nirgan_tpu_torch.ops.resize import resize_bilinear
 from tests.test_inference import _skimage_match_cumulative_cdf
 
@@ -32,6 +34,21 @@ def test_reflect_pad2d_matches_jax(pad):
     np.testing.assert_array_equal(got.numpy(),
                                   np.asarray(jax_reflect_pad2d(jnp.asarray(x), pad)))
     assert got.is_contiguous()
+
+
+@pytest.mark.parametrize("pad", [1, 3, 10])
+def test_reflect_pad2d_adjoint_matches_jax_vjp(pad):
+    """The trunk conv's backward folds the padded cotangent back with it:
+    against jax.vjp of the JAX reflect pad; a corner entry sums up to four
+    terms in another order, so atol 1e-6."""
+    rng = np.random.default_rng(pad)
+    x = rng.standard_normal((2, 13, 17, 3)).astype(np.float32)
+    g = rng.standard_normal((2, 13 + 2 * pad, 17 + 2 * pad, 3)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: jax_reflect_pad2d(a, pad), jnp.asarray(x))
+    ref = np.asarray(vjp(jnp.asarray(g))[0])
+    got = reflect_pad2d_adjoint(_t(g), pad)
+    assert tuple(got.shape) == x.shape
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("hw,size", [((50, 60), 64), ((64, 64), 256),
