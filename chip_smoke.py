@@ -10,10 +10,14 @@ never prints the final ``"ok": true`` line:
    limit.
 1. build: compiles the hand-written kernels (``nirgan_tpu_torch/csrc``).
 2. kernels: each kernel against its plain PyTorch version, f32 and bf16,
-   with the time of both: the forward kernels at the serving path's shapes
-   (batch 4 of 512^2 tiles padded to 532^2), and every kernel at the train
-   step's (batch 16 of 256^2 tiles padded to 276^2; the instance norm at
-   all six, C = 512 included).
+   with the time of both, of the one PyTorch call that computes the same
+   function where there is one (``library_ms``; the port never calls it)
+   and the least time the card could take (``bound_ms``): the forward
+   kernels at the serving path's shapes (batch 4 of 512^2 tiles padded to
+   532^2), and every kernel at the train step's (batch 16 of 256^2 tiles
+   padded to 276^2; the instance norm at all six, C = 512 included).  The
+   trunk conv and the transposed conv's backward are also held at a shape
+   that their wgmma kernels do not take, where the WMMA kernels run.
 3. generator: the full-width ``resnet_9blocks`` (ngf 64), random weights
    from a seed, batch 4 at 532^2 in bf16: kernel path against the plain
    path, launches per forward, forward time; then ``predict_step`` in f32
@@ -31,10 +35,17 @@ never prints the final ``"ok": true`` line:
    then ``python -m nirgan_tpu_torch.train`` for 8 steps on the fake data
    (two validations, ``last`` and ``best``) and a resume for 2 more.
 
+``python3 chip_smoke.py --profile`` instead prints, after phases 0 and 1,
+the device time of the serving forward and of the train step by group of
+kernels under ``torch.profiler`` (no checks, no ``ok`` line).
+
 Before the last line it prints one JSON object with every kernel's route,
-source, launches in the training CLI's run, error, and times at the train
-step's ``shape``; a forward kernel's ``serving`` entry holds the serving
-path's shape, times and launches.  The last line is
+source, launches in the training CLI's run (``per_step``: in one fused
+step), error, and times and bound at the train step's ``shape``; a forward
+kernel's ``serving`` entry holds the serving path's shape, times, bound and
+launches (``per_forward``: in one generator forward); the instance norm's
+backward also has its times without the fused ReLU (``no_relu``).  The last
+line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -45,6 +56,7 @@ import json
 import math
 import os
 import subprocess
+import sys
 import tempfile
 import time
 from unittest import mock
@@ -72,20 +84,30 @@ EVAL_LAUNCHES = {"trunk_conv": 18, "instance_norm": 23, "instance_norm_bwd": 0,
                  "head_conv": 1, "convt_bwd": 0}
 
 RESULTS: dict = {}  # kernel name -> its JSON entry
+# published peaks of one H100 SXM: dense bf16 tensor-core rate and HBM3 rate
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events around ``iters``
-    calls after ``warmup``."""
+def time_ms(fn, iters: int = 20, warmup: int = 3, run_ahead: bool = False) -> float:
+    """Mean time of one call, from CUDA events around ``iters`` calls after
+    ``warmup``: the larger of what the card and what the host take for a
+    call.  With ``run_ahead`` (the single kernels) the card first spins for
+    a few milliseconds, so the host has the calls queued when the clock
+    starts and a wrapper's host time does not pass for device time.  The
+    whole forward and the whole step are timed without it: there the host's
+    time is part of what a user waits for."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if run_ahead:
+        torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -94,12 +116,31 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare_ms(kernel_fn, plain_fn, iters: int = 20) -> tuple[float, float]:
-    """Kernel and plain times taken in turns (kernel, plain, plain, kernel)
-    and averaged, so drift on the card weighs on both alike."""
-    k1, p1 = time_ms(kernel_fn, iters), time_ms(plain_fn, iters)
-    p2, k2 = time_ms(plain_fn, iters), time_ms(kernel_fn, iters)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+def compare_ms(*fns, iters: int = 20, run_ahead: bool = False) -> tuple:
+    """The times of the given functions (kernel, plain, and the library
+    call where there is one; None stays None) taken in turns, forth and
+    back (kernel, plain, plain, kernel) and averaged, so drift on the card
+    weighs on all alike."""
+    def one(fn):
+        return time_ms(fn, iters, run_ahead=run_ahead) if fn else None
+
+    forth = [one(fn) for fn in fns]
+    back = [one(fn) for fn in reversed(fns)][::-1]
+    return tuple((a + b) / 2 if a is not None else None
+                 for a, b in zip(forth, back))
+
+
+def least_time(flops: float, moved: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the operations over the bf16 tensor-core peak and the bytes that must
+    move (each input read once, each output written once) over the memory
+    rate."""
+    by_ops, by_bytes = flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def kernels():
@@ -167,35 +208,68 @@ def phase_build() -> None:
     for line in report.splitlines():
         if "registers" in line or "spill" in line:
             log("build", line.strip())
+    spills = [line for line in report.splitlines()
+              if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    if spills:
+        raise AssertionError(f"a kernel spills registers: {spills}")
+    # the redesigned kernels must reach the tensor cores through wgmma:
+    # HGMMA is its machine instruction
+    dump = subprocess.run(
+        [os.path.join(os.path.dirname(_lib.nvcc()), "cuobjdump"), "-sass", str(path)],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    per_kernel, name = {}, None
+    for line in dump.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+        elif "HGMMA" in line and name:
+            per_kernel[name] = per_kernel.get(name, 0) + 1
+    found = {want: sum(v for k, v in per_kernel.items() if want in k)
+             for want in ("igemm_wgmma_kernelILi256", "igemm_wgmma_kernelILi128",
+                          "convt_dw_wgmma_kernel")}
+    log("build", f"HGMMA (wgmma) instructions: {found}")
+    if not all(found.values()):
+        raise AssertionError(f"a kernel without wgmma: {found}")
 
 
 def entry(name: str, source: str, replaces: str, err: float, train: tuple,
-          serving: tuple | None = None) -> dict:
+          serving: tuple | None = None, **others: tuple) -> dict:
     """A kernel's JSON entry.  ``train`` and ``serving`` are (shape, ms,
-    plain_ms).  ``ms`` and ``plain_ms`` are at the train step's shape,
-    since ``launches`` are the training CLI's; the serving path's shape and
-    times sit under ``serving``, beside that run's launches."""
-    shape, ms, plain_ms = train
+    plain_ms, library_ms, (bound_ms, bound_by)).  The top-level times are at
+    the train step's shape, since ``launches`` are the training CLI's; the
+    serving path's shape, times and bound sit under ``serving``, beside that
+    run's launches, and a further train shape under its own name."""
+    def times(shape, ms, plain_ms, library_ms, bound_):
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_[0],
+                    bound_by=bound_[1], library_ms=library_ms, shape=str(shape))
+
     out = dict(name=name, route="cuda", source=f"nirgan_tpu_torch/csrc/{source}",
-               replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               shape=str(shape))
+               replaces=replaces, max_abs_err=err, **times(*train))
     if serving is not None:
-        shape, ms, plain_ms = serving
-        out["serving"] = dict(shape=str(shape), ms=ms, plain_ms=plain_ms)
+        out["serving"] = times(*serving)
+    out.update({key: times(*val) for key, val in others.items()})
     return out
 
 
-def check_trunk(g: torch.Generator, shape: tuple) -> tuple[float, float, float]:
-    """Kernel A against its plain version on x of ``shape`` (B, H, W, 256),
-    f32 and bf16, both pad modes.  Returns the worst bf16 max |err| and the
-    bf16 kernel and plain ms."""
+def check_trunk(g: torch.Generator, shape: tuple, co: int = 256,
+                timed: bool = True) -> tuple:
+    """Kernel A against its plain version on x of ``shape`` (B, H, W, Cin)
+    with ``co`` output channels, f32 and bf16, both pad modes.  Returns the
+    worst bf16 max |err| and, if ``timed``, the bf16 kernel, plain and
+    library ms and the bound."""
+    import torch.nn.functional as F
+
     from nirgan_tpu_torch.ops.pad import reflect_pad2d
-    from nirgan_tpu_torch.ops.trunk_conv import trunk_conv_cuda, trunk_conv_plain
+    from nirgan_tpu_torch.ops.trunk_conv import (
+        pack_weight,
+        trunk_conv_cuda,
+        trunk_conv_plain,
+    )
 
     dev = torch.device("cuda")
+    ci = shape[3]
     x = torch.randn(shape, device=dev, generator=g)
-    w = torch.randn((256, 256, 3, 3), device=dev, generator=g) / 48.0
-    b = torch.randn((256,), device=dev, generator=g) * 0.1
+    w = torch.randn((co, ci, 3, 3), device=dev, generator=g) / (3 * math.sqrt(ci))
+    b = torch.randn((co,), device=dev, generator=g) * 0.1
     worst = 0.0
     for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
         # f32: 2304-term sums run in another order than cuDNN's, so
@@ -208,27 +282,51 @@ def check_trunk(g: torch.Generator, shape: tuple) -> tuple[float, float, float]:
             got = trunk_conv_cuda(xin, w, b, pad=pad).float()
             err = float((got - ref).abs().max())
             rel = err / scale
-            log("kernels", f"trunk_conv {dtype} {shape} pad={pad}: max|err| "
+            log("kernels", f"trunk_conv {dtype} {shape}->{co} pad={pad}: max|err| "
                 f"{err:.3e}, relative {rel:.3e} (bound {bound:.0e})")
             if not rel <= bound:
                 raise AssertionError(f"trunk_conv {dtype} {shape} pad={pad}: "
                                      f"{rel} > {bound}")
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
+    # the wrapper keeps a weight's kernel layout until the weight changes:
+    # an in-place write, as an optimizer's, must reach the next launch
     xb = x.bfloat16()
-    ms, plain_ms = compare_ms(lambda: trunk_conv_cuda(xb, w, b),
-                              lambda: trunk_conv_plain(xb, w, b))
-    n, h, wd, c = shape
-    tflops = 2 * n * h * wd * 9 * c * c / (ms * 1e-3) / 1e12
+    w.mul_(-0.5)
+    ref = trunk_conv_plain(xb, w, b).float()
+    rel = float((trunk_conv_cuda(xb, w, b).float() - ref).abs().max() / ref.abs().max())
+    log("kernels", f"trunk_conv bf16 {shape}->{co} after an in-place write to the "
+        f"weight: relative {rel:.3e} (bound 1e-02)")
+    if not rel <= 1e-2:
+        raise AssertionError(f"trunk_conv {shape}: a stale weight layout, {rel}")
+    if not timed:
+        return (worst,)
+    # the library call: cuDNN's convolution on the input padded beforehand,
+    # weight and bias already in bf16
+    xp = reflect_pad2d(xb, 1).permute(0, 3, 1, 2)
+    wb, bb = w.bfloat16().contiguous(memory_format=torch.channels_last), b.bfloat16()
+    ms, plain_ms, lib_ms = compare_ms(lambda: trunk_conv_cuda(xb, w, b),
+                                      lambda: trunk_conv_plain(xb, w, b),
+                                      lambda: F.conv2d(xp, wb, bb), run_ahead=True)
+    # the wrapper's call as the host paces it, and the weight's packing,
+    # which a call pays only after the weight has changed
+    paced_ms = time_ms(lambda: trunk_conv_cuda(xb, w, b))
+    pack_ms = time_ms(lambda: pack_weight(w.bfloat16()), run_ahead=True)
+    n, h, wd, _ = shape
+    flops = 2 * n * h * wd * 9 * ci * co
+    least = least_time(flops, nbytes(xb, w, b) + n * h * wd * co * 2)
     log("kernels", f"trunk_conv bf16 {shape}: kernel {ms:.4f} ms "
-        f"({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms")
-    return worst, ms, plain_ms
+        f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, F.conv2d on "
+        f"the padded input {lib_ms:.4f} ms, bound {least[0]:.4f} ms ({least[1]}); "
+        f"paced by the host {paced_ms:.4f} ms a call; packing a changed weight "
+        f"{pack_ms:.4f} ms")
+    return worst, ms, plain_ms, lib_ms, least
 
 
-def check_head(g: torch.Generator, shape: tuple) -> tuple[float, float, float]:
+def check_head(g: torch.Generator, shape: tuple) -> tuple:
     """Kernel C against its plain version on x of ``shape`` (B, H, W, 64),
-    f32 and bf16.  Returns the bf16 max |err| and the bf16 kernel and plain
-    ms."""
+    f32 and bf16.  Returns the bf16 max |err|, the bf16 kernel, plain and
+    library ms and the bound."""
     from nirgan_tpu_torch.ops.head_conv import head_conv_cuda, head_conv_plain
 
     dev = torch.device("cuda")
@@ -248,10 +346,14 @@ def check_head(g: torch.Generator, shape: tuple) -> tuple[float, float, float]:
             raise AssertionError(f"head_conv {dtype} {shape}: {err} > {bound}")
     xb = x.bfloat16()
     ms, plain_ms = compare_ms(lambda: head_conv_cuda(xb, w, b),
-                              lambda: head_conv_plain(xb, w, b))
+                              lambda: head_conv_plain(xb, w, b), run_ahead=True)
+    n, h, wd, c = shape
+    # no single PyTorch call is conv + bias + tanh: library_ms is null
+    least = least_time(2 * n * (h - 6) * (wd - 6) * 49 * c,
+                  nbytes(xb, w, b) + n * (h - 6) * (wd - 6) * 2)
     log("kernels", f"head_conv bf16 {shape}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+        f"plain {plain_ms:.4f} ms, bound {least[0]:.4f} ms ({least[1]})")
+    return err, ms, plain_ms, None, least
 
 
 def check_norm(x: torch.Tensor, relu: bool) -> float:
@@ -286,19 +388,29 @@ def check_norm(x: torch.Tensor, relu: bool) -> float:
     return err
 
 
-def norm_times(xb: torch.Tensor, relu: bool) -> tuple[float, float]:
-    """bf16 kernel B and plain ms on xb."""
+def norm_times(xb: torch.Tensor, relu: bool) -> tuple:
+    """bf16 kernel B, plain and library ms on xb, and the bound.  The
+    library call is ``F.instance_norm`` on the NCHW view: the norm alone,
+    without the ReLU that the kernel fuses where ``relu``."""
+    import torch.nn.functional as F
+
     from nirgan_tpu_torch.ops.instance_norm import (
         instance_norm_cuda,
         instance_norm_plain,
     )
 
-    per = compare_ms(lambda: instance_norm_cuda(xb, relu=relu),
-                     lambda: instance_norm_plain(xb, relu=relu), iters=10)
-    gbs = 3 * xb.numel() * 2 / (per[0] * 1e-3) / 1e9
+    xn = xb.permute(0, 3, 1, 2)
+    ms, plain_ms, lib_ms = compare_ms(
+        lambda: instance_norm_cuda(xb, relu=relu),
+        lambda: instance_norm_plain(xb, relu=relu),
+        lambda: F.instance_norm(xn, eps=1e-5), iters=10, run_ahead=True)
+    # one read, one write; about 8 f32 operations an element
+    least = least_time(0, 2 * nbytes(xb))
+    gbs = 3 * xb.numel() * 2 / (ms * 1e-3) / 1e9
     log("kernels", f"instance_norm bf16 {tuple(xb.shape)} relu={relu}: kernel "
-        f"{per[0]:.4f} ms ({gbs:.0f} GB/s at 3 passes), plain {per[1]:.4f} ms")
-    return per
+        f"{ms:.4f} ms ({gbs:.0f} GB/s at 3 passes), plain {plain_ms:.4f} ms, "
+        f"F.instance_norm {lib_ms:.4f} ms, bound {least[0]:.4f} ms ({least[1]})")
+    return ms, plain_ms, lib_ms, least
 
 
 def phase_kernels() -> None:
@@ -315,6 +427,9 @@ def phase_kernels() -> None:
     train = (TRAIN_BATCH, TRAIN_SIDE // 4, TRAIN_SIDE // 4, 256)
     e1, *s_times = check_trunk(g, serving)
     e2, *t_times = check_trunk(g, train)
+    # bf16 shapes the wgmma kernel does not take run the WMMA kernel
+    check_trunk(g, (2, 40, 40, 128), co=128, timed=False)
+    check_trunk(g, (2, 40, 40, 32), co=256, timed=False)
     RESULTS["trunk_conv"] = entry(
         "trunk_conv", "trunk_conv.cu", "nirgan_tpu/ops/pallas_trunk.py:240",
         max(e1, e2), (train, *t_times), (serving, *s_times))
@@ -387,44 +502,64 @@ def phase_norms(g: torch.Generator) -> None:
                 if not ok:
                     raise AssertionError(f"instance_norm_bwd {dtype} {shape} "
                                          f"relu={relu}: {float(err.max())}")
+        xb, gb = x.bfloat16(), dy.bfloat16()
+
+        def bwd_times(relu: bool) -> tuple:
+            y, stats = instance_norm_cuda(xb, relu=relu, return_stats=True)
+            out = y if relu else None
+            ms, plain_ms = compare_ms(
+                lambda: instance_norm_bwd_cuda(xb, gb, stats, out),
+                lambda: instance_norm_bwd_plain(xb, gb, stats, out),
+                iters=10, run_ahead=True)
+            # the function needs x, the cotangent and the statistics in and
+            # dx out, with or without the ReLU, whose mask follows from x
+            # and the mean; that the kernel reads the saved output for it
+            # is its design's cost, not the bound's.  No single PyTorch
+            # call does this
+            least = least_time(0, nbytes(xb, gb, stats) + nbytes(xb))
+            gbs = (5 + relu) * xb.numel() * 2 / (ms * 1e-3) / 1e9
+            log("kernels", f"instance_norm_bwd bf16 {shape} relu={relu}: kernel "
+                f"{ms:.4f} ms ({gbs:.0f} GB/s at {5 + relu} passes), plain "
+                f"{plain_ms:.4f} ms, bound {least[0]:.4f} ms ({least[1]})")
+            return ms, plain_ms, None, least
+
         # time each shape with the ReLU flag the step uses there
         relu = i < 3
-        xb, gb = x.bfloat16(), dy.bfloat16()
-        fwd = norm_times(xb, relu)
-        y, stats = instance_norm_cuda(xb, relu=relu, return_stats=True)
-        out = y if relu else None
-        bwd = compare_ms(lambda: instance_norm_bwd_cuda(xb, gb, stats, out),
-                         lambda: instance_norm_bwd_plain(xb, gb, stats, out),
-                         iters=10)
-        gbs = (5 + relu) * xb.numel() * 2 / (bwd[0] * 1e-3) / 1e9
-        log("kernels", f"instance_norm_bwd bf16 {shape} relu={relu}: kernel "
-            f"{bwd[0]:.4f} ms ({gbs:.0f} GB/s at {5 + relu} passes), plain "
-            f"{bwd[1]:.4f} ms")
-        if i == 2:  # the shape of 19 of the 32 calls a step makes
+        fwd, bwd = norm_times(xb, relu), bwd_times(relu)
+        if i == 2:
+            # the shape of 19 of the 32 calls a step makes: 10 with the
+            # ReLU fused (nd1 and each block's norm1), 9 without (norm2)
             train_fwd, train_bwd = (shape, *fwd), (shape, *bwd)
+            train_bwd_no_relu = (shape, *bwd_times(False))
     source, replaces = "instance_norm.cu", "nirgan_tpu/ops/pallas_kernels.py:130"
     RESULTS["instance_norm"] = entry("instance_norm", source, replaces, worst,
                                      train_fwd, serving)
     RESULTS["instance_norm_bwd"] = entry("instance_norm_bwd", source, replaces,
-                                         worst_bwd, train_bwd)
+                                         worst_bwd, train_bwd,
+                                         no_relu=train_bwd_no_relu)
 
 
 def phase_convt_bwd(g: torch.Generator) -> None:
-    """B5 against its plain version at the train step's u1 and u0."""
+    """B5 against its plain version at the train step's u1 and u0 (the
+    wgmma kernels in bf16) and at a small shape that they do not take (the
+    WMMA kernels)."""
     from nirgan_tpu_torch.ops.convt_bwd import (
         convt_k3s2_bwd_cuda,
         convt_k3s2_bwd_plain,
     )
 
     dev = torch.device("cuda")
-    n, s = TRAIN_BATCH, TRAIN_SIDE
+    nb, s = TRAIN_BATCH, TRAIN_SIDE
     # u1: z (16,138,138,128), ct (16,276,276,64); u0: z (16,69,69,256), ct
     # (16,138,138,128); errors relative to the largest entry.  f32 (TF32
     # off): sums of 9 Co terms (dx) and of B H W terms (dW) in other
     # orders: dx 1e-5, dW 1e-4.  bf16: both round dx to bf16 after f32
     # sums, and the plain dW comes back in bf16: 1e-2 each
     worst = 0.0
-    for name, hi, ci, co in (("u1", s // 2, 128, 64), ("u0", s // 4, 256, 128)):
+    timed = {}
+    for name, n, hi, ci, co in (("u1", nb, s // 2, 128, 64),
+                                ("u0", nb, s // 4, 256, 128),
+                                ("small", 2, 20, 64, 32)):
         z = torch.randn((n, hi, hi, ci), device=dev, generator=g)
         ct = torch.randn((n, 2 * hi, 2 * hi, co), device=dev, generator=g)
         w = torch.randn((ci, co, 3, 3), device=dev, generator=g) / math.sqrt(9 * co)
@@ -444,21 +579,35 @@ def phase_convt_bwd(g: torch.Generator) -> None:
                 raise AssertionError(f"convt_bwd {name} {dtype}: {relx}, {relw}")
             if dtype == torch.bfloat16:
                 worst = max(worst, ex)
+        if name == "small":
+            continue
         zb, cb = z.bfloat16(), ct.bfloat16()
-        ms, plain_ms = compare_ms(lambda: convt_k3s2_bwd_cuda(cb, zb, w),
-                                  lambda: convt_k3s2_bwd_plain(cb, zb, w),
-                                  iters=10)
-        tflops = 2 * 2 * n * hi * hi * 9 * ci * co / (ms * 1e-3) / 1e12
+        # the library call: both gradients from cuDNN in one call, on NCHW
+        # views, the weight already in bf16
+        cn, zn, wb = cb.permute(0, 3, 1, 2), zb.permute(0, 3, 1, 2), w.bfloat16()
+        ms, plain_ms, lib_ms = compare_ms(
+            lambda: convt_k3s2_bwd_cuda(cb, zb, w),
+            lambda: convt_k3s2_bwd_plain(cb, zb, w),
+            lambda: torch.ops.aten.convolution_backward(
+                cn, zn, wb, None, [2, 2], [1, 1], [1, 1], True, [1, 1], 1,
+                [True, True, False]), iters=10, run_ahead=True)
+        paced_ms = time_ms(lambda: convt_k3s2_bwd_cuda(cb, zb, w), iters=10)
+        flops = 2 * 2 * n * hi * hi * 9 * ci * co
+        # ct, z and the weight in; dx in bf16 and dW in f32 out
+        least = least_time(flops, nbytes(cb, zb, w) + nbytes(zb) + w.numel() * 4)
         log("kernels", f"convt_bwd {name} bf16 dx+dW: kernel {ms:.4f} ms "
-            f"({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms")
-        if name == "u1":
-            u1 = (f"u1: z {tuple(z.shape)}, ct {tuple(ct.shape)}", ms, plain_ms)
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"aten.convolution_backward {lib_ms:.4f} ms, bound {least[0]:.4f} ms "
+            f"({least[1]}); paced by the host {paced_ms:.4f} ms a call")
+        timed[name] = (f"{name}: z {tuple(z.shape)}, ct {tuple(ct.shape)}", ms,
+                       plain_ms, lib_ms, least)
     RESULTS["convt_bwd"] = entry(
         "convt_bwd", "convt_bwd.cu", "nirgan_tpu/ops/pallas_convt_bwd.py:170",
-        worst, u1)
+        worst, timed["u1"], u0=timed["u0"])
 
 
-def phase_generator() -> None:
+def phase_generator() -> dict:
+    """Returns the launches of one forward."""
     from nirgan_tpu_torch.config import load_config
     from nirgan_tpu_torch.models import define_G
     from nirgan_tpu_torch.tasks import Px2PxTask
@@ -518,6 +667,7 @@ def phase_generator() -> None:
         raise AssertionError(f"predict_step card vs CPU: {got.shape}, {err}")
     if min(on_card[k] for k in SERVING_KERNELS) == 0:
         raise AssertionError(f"predict_step on the card skipped a kernel: {on_card}")
+    return per_forward
 
 
 def write_tiles(root: str, n: int = 8) -> tuple[np.ndarray, np.ndarray]:
@@ -618,7 +768,8 @@ def first_batch(cfg) -> dict:
     return {k: np.stack([it[k] for it in items]) for k in ("rgb", "nir")}
 
 
-def phase_train(tmp: str) -> dict:
+def phase_train(tmp: str) -> tuple[dict, dict]:
+    """Returns the launches of the training CLI's run and of one step."""
     from nirgan_tpu_torch.config import load_config
     from nirgan_tpu_torch.tasks import Px2PxTask
     from nirgan_tpu_torch.train import cli
@@ -739,7 +890,112 @@ def phase_train(tmp: str) -> dict:
     log("train", f"CLI resume: {resumed.step} steps, val rows at {val}")
     if resumed.step != 10 or val != [4, 8, 10]:
         raise AssertionError(f"resume: step {resumed.step}, val rows {val}")
-    return launches
+    return launches, per_step
+
+
+# kernel-name fragments -> the rows of the profile's breakdown, first match
+PROFILE_GROUPS = (
+    ("igemm_wgmma_kernel<256>", "wgmma implicit GEMM, N = 256 (kernel A; B5 dx at u0)"),
+    ("igemm_wgmma_kernel<128>", "wgmma implicit GEMM, N = 128 (B5 dx at u1)"),
+    ("trunk_conv_", "kernel A, WMMA / SIMT"),
+    ("convt_dw_", "B5 dW and its reduce"),
+    ("convt_dx_", "B5 dx, WMMA / SIMT"),
+    ("in_backward", "B4 IN backward"),
+    ("in_partial", "B and B4 partial sums"),
+    ("in_finalize", "B and B4 finalize"),
+    ("in_normalize", "B IN normalize"),
+    ("head_conv_kernel", "C head"),
+    ("reflection_pad", "reflect pad"),
+    ("multi_tensor_apply", "Adam"),
+    ("cudnn", "cuDNN convs"), ("xmma", "cuDNN convs"), ("cutlass", "cuDNN convs"),
+    ("convolve", "cuDNN convs"), ("wgrad", "cuDNN convs"), ("dgrad", "cuDNN convs"),
+    ("nchwToNhwc", "cuDNN layout"), ("nhwcToNchw", "cuDNN layout"),
+    ("copy", "copies (layout, casts)"),
+    ("reduce_kernel", "PyTorch reductions"),
+    ("elementwise", "PyTorch elementwise"),
+)
+
+
+def profile_window(what: str, fn, iters: int) -> None:
+    """``iters`` calls of ``fn`` under ``torch.profiler`` after a warm-up;
+    prints the device time per call of each group of kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    groups: dict = {}
+    for ev in prof.key_averages():
+        # kernels and device copies only: a host op's device time is its
+        # kernels' over again, and so is an annotation's (Optimizer.step)
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or ev.is_user_annotation or not ev.device_time_total):
+            continue
+        total = ev.device_time_total
+        label = next((g for frag, g in PROFILE_GROUPS if frag in ev.key),
+                     "other: " + ev.key[:60])
+        ms, n = groups.get(label, (0.0, 0))
+        groups[label] = (ms + total / 1e3, n + ev.count)
+    busy = sum(ms for ms, _ in groups.values())
+    log("profile", f"{what}: device busy {busy / iters:.3f} ms a call")
+    for label, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log("profile", f"  {ms / iters:8.3f} ms  {n / iters:7.1f} launches  {label}")
+
+
+def phase_profile() -> None:
+    """Where the time goes (``python3 chip_smoke.py --profile``): the
+    serving forward and the fused train step of the full-width config under
+    ``torch.profiler``, on the kernels and on the plain route."""
+    from nirgan_tpu_torch.config import load_config
+    from nirgan_tpu_torch.models import define_G
+    from nirgan_tpu_torch.tasks import Px2PxTask
+
+    dev = torch.device("cuda")
+    G = define_G(3, 1, 64, "resnet_9blocks", "instance",
+                 compute_dtype=torch.bfloat16,
+                 generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
+    x = (torch.rand((BATCH, SIDE, SIDE, 3),
+                    generator=torch.Generator().manual_seed(1)) * 0.3).to(dev)
+
+    def forward():
+        with torch.inference_mode():
+            G(x)
+
+    def plain(fn):
+        def run():
+            with plain_route():
+                fn()
+        return run
+
+    cfg = load_config(CONFIG)
+    task = Px2PxTask(cfg, device="cuda", seed=SEED)
+    state = task.init_state()
+    ex = task.extract_batch(first_batch(cfg))
+
+    def step():
+        task.train_step(state, ex)
+
+    # both event timings first: once the profiler has attached, every
+    # launch costs the host more, and the step is close to host-bound
+    ms, plain_ms = compare_ms(forward, plain(forward), iters=10)
+    log("profile", f"serving forward, CUDA events before the profiler: kernels "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+    ms, plain_ms = compare_ms(step, plain(step), iters=5)
+    log("profile", f"train step, CUDA events before the profiler: kernels "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+    # how much of that is the host's: the same with the calls queued ahead
+    ahead = time_ms(forward, 10, run_ahead=True)
+    step_ahead = time_ms(step, 5, run_ahead=True)
+    log("profile", f"with the card's head start: forward {ahead:.3f} ms, step "
+        f"{step_ahead:.3f} ms")
+    profile_window("serving forward, kernels", forward, 5)
+    profile_window("serving forward, plain route", plain(forward), 5)
+    profile_window("train step, kernels", step, 5)
+    profile_window("train step, plain route", plain(step), 5)
 
 
 def main() -> None:
@@ -750,19 +1006,24 @@ def main() -> None:
 
     device = phase_device()
     phase_build()
+    if sys.argv[1:] == ["--profile"]:
+        phase_profile()
+        return
     phase_kernels()
-    phase_generator()
+    per_forward = phase_generator()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         serving = phase_serving(tmp)
-        launches = phase_train(tmp)
+        launches, per_step = phase_train(tmp)
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the training path was not launched: "
                              f"{launches}")
     entries = []
     for name in STEP_LAUNCHES:
-        kernel = {**RESULTS[name], "launches": launches[name]}
+        kernel = {**RESULTS[name], "launches": launches[name],
+                  "per_step": per_step[name]}
         if name in SERVING_KERNELS:
             kernel["serving"]["launches"] = serving[name]
+            kernel["serving"]["per_forward"] = per_forward[name]
         entries.append(kernel)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

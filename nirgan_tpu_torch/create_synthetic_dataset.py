@@ -48,8 +48,8 @@ def main(argv=None) -> int:
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to run the plain versions)")
 
-    from nirgan_tpu.data.datasets import SRPairedDataset
     from nirgan_tpu_torch.config import load_config
+    from nirgan_tpu_torch.data.datasets import SRPairedDataset
     from nirgan_tpu_torch.inference import synthesize_dataset
     from nirgan_tpu_torch.tasks import Px2PxTask
     from nirgan_tpu_torch.weights import load_reference_ckpt

@@ -10,30 +10,45 @@
 // where z is the forward's input and a row or column of -1 reads as zero.
 //
 // What bounds it on an H100: at the train shape u1 is 2 * 16 * 138^2 * 9 *
-// 128 * 64 = 45 GFLOP for each gradient against 156 MB of bf16 cotangent,
-// about 290 FLOP/byte for the two together, so the tensor cores bound it.
-// The TPU kernel made one pass over the cotangent for both gradients with a
-// 295 KB f32 dW accumulator resident in VMEM across its sequential grid; no
-// Hopper block holds that, and blocks run in no order, so the two gradients
-// are two GEMMs here and the cotangent is read twice:
-//   * dx is an implicit GEMM, M = B*Hi*Wi pixels, N = Ci, K = 9*Co.  A block
-//     owns a 128-pixel x 128-channel tile and walks K in 32-wide slices; each
-//     8-channel chunk of a slice gathers its stride-2 tap with cp.async, the
-//     -1 border zero-filled by a source size of 0 (kernel A's scheme).
-//   * dW is a split-K GEMM, (Ci) x (9*Co) over the M pixels.  The grid's
-//     third axis cuts M into S slabs (about two blocks per SM in all); each
-//     block writes its f32 partial tile to scratch, and a reduce kernel adds
-//     the S partials in a fixed order and writes dW in f32, so the result
-//     does not change from run to run and needs no atomics.
-// bf16 multiplies on the tensor cores through WMMA (16x16x16, f32
-// accumulators), two cp.async stages; f32 is a register-tiled SIMT GEMM in
-// full f32.  Every tile edge is masked, so any Ci and Co that are multiples
-// of 8 are taken.  wgmma/TMA and a fused single pass are left for later work.
+// 128 * 64 = 45 GFLOP for each gradient (nine real taps each: the zero taps
+// of a stride-2 transposed conv belong to its forward) against 312 MB that
+// must move (the cotangent once, z, dx), so 0.093 ms of memory time against
+// 0.091 ms of tensor-core time: the two bounds meet.  The TPU kernel made
+// one pass over the cotangent for both gradients with a 295 KB f32 dW
+// accumulator resident in VMEM across its sequential grid; no Hopper block
+// holds that (a block's registers hold 128 KB of accumulators), and blocks
+// run in no order, so the two gradients are two GEMMs here and the
+// cotangent is read twice.  On the generator's shapes (bf16, Ci 128 or 256,
+// Co % 64 == 0) both run on wgmma:
+//   * dx is the gathered implicit GEMM of igemm_wgmma.cu, M = B*Hi*Wi
+//     pixels, N = Ci, K = 9*Co: a row of a tap slice is 64 contiguous
+//     channels of ct[b, 2i-1+ky, 2j-1+kx, :], one 128-byte line, so the
+//     stride-2 gather keeps full lines; the -1 border is a zero-filled copy.
+//     The weights arrive packed per (tap, slice) as for kernel A.
+//   * dW is convt_dw_wgmma_kernel below, with both operands fed as
+//     they lie in memory through the transpose bits of the wgmma descriptor
+//     (A = the z tile [pixel][ci], M-major; B = the gathered ct tiles
+//     [pixel][co], N-major), so no transposing store into shared memory is
+//     needed.  A block owns 128 ci x (one ky row: 3 taps x 64 co = 192
+//     columns) of dW as f32 accumulators (96 a thread) and walks a slab of
+//     pixels in slices of 64 through a four-stage mbarrier ring; the grid's
+//     second axis cuts the pixels into slabs (one block an SM in all), each
+//     block writes its f32 partial, and the reduce kernel adds the partials
+//     in a fixed order, so the result repeats bit for bit without atomics.
+// What holds both back is the L2 cache rather than the tensor cores: the
+// stride-2 taps overlap, so each gradient pulls every cotangent element
+// through L2 2.25 times.
+// Other bf16 shapes (any Ci, Co that are multiples of 8) take the WMMA
+// kernels (16x16x16, two cp.async stages, every tile edge masked), f32 a
+// register-tiled SIMT GEMM in full f32; nirgan_convt_bwd chooses by shape.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
+#include "igemm_wgmma.h"
 
 namespace {
 
@@ -315,6 +330,142 @@ convt_dw_bf16_kernel(const __nv_bfloat16* __restrict__ ct,
   }
 }
 
+// --------------------------------------------------------------- wgmma dW
+// Block (group, slab): group = ((ky * (Co / 64) + co block) * (Ci / 128) + ci
+// block); the partial of part[slab][ci0 .. ci0 + 127][(ky * 3 + kx) * Co +
+// co0 .. + 63] for kx = 0, 1, 2, summed over the slab's pixels.
+namespace dw {
+
+using namespace hopper;
+
+constexpr int STAGES = 4;
+constexpr int THREADS = 384;  // consumer warpgroups 0 and 1, producer 2
+constexpr int PX = 64;        // pixels (K) of a stage
+constexpr int TILE_BYTES = PX * 128;            // [64 pixels][64 channels]
+constexpr int Z_BYTES = 2 * TILE_BYTES;         // ci 0..63 and 64..127
+constexpr int STAGE_BYTES = Z_BYTES + 3 * TILE_BYTES;  // + one ct tile a tap
+constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+
+__global__ void __launch_bounds__(THREADS, 1)
+convt_dw_wgmma_kernel(const __nv_bfloat16* __restrict__ ct,
+                      const __nv_bfloat16* __restrict__ z,
+                      float* __restrict__ part, Geo g, int slab) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + STAGES * STAGE_BYTES;
+
+  const int tid = threadIdx.x;
+  const int ci_blocks = g.Ci >> 7, co_blocks = g.Co >> 6;
+  int grp = blockIdx.x;
+  const int ci0 = (grp % ci_blocks) * 128;
+  grp /= ci_blocks;
+  const int co0 = (grp % co_blocks) * 64;
+  const int ky = grp / co_blocks;
+  const long long M = g.M();
+  const long long p0 = (long long)blockIdx.y * slab;
+  const long long p1 = p0 + slab < M ? p0 + slab : M;
+  const int KT = p1 > p0 ? (int)((p1 - p0 + PX - 1) / PX) : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, 128);           // the producers' copies
+      mbar_init(bars + 8 * (STAGES + s), 8);  // one lane of a consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = tid >> 7;
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    reg_dec<56>();
+    const int t = tid & 127, chunk = t & 7, r0 = t >> 3;
+    int s = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < KT; ++it) {
+      mbar_wait(bars + 8 * (STAGES + s), phase ^ 1);
+      const uint32_t z_s = base + s * STAGE_BYTES;
+      const uint32_t c_s = z_s + Z_BYTES;
+#pragma unroll
+      for (int i = 0; i < PX / 16; ++i) {
+        const int row = r0 + 16 * i;
+        const long long m = p0 + (long long)it * PX + row;
+        const bool ok = m < p1;
+        const uint32_t off = swizzled(row, chunk);
+        const __nv_bfloat16* zp = z + (ok ? m : 0) * g.Ci + ci0 + chunk * 8;
+        hopper::cp_async16(z_s + off, zp, ok);
+        hopper::cp_async16(z_s + TILE_BYTES + off, zp + 64, ok);
+        int b, pi, pj;
+        g.pixel(ok ? m : 0, b, pi, pj);
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const long long o = ok ? g.ct_off(b, pi, pj, ky, kx, co0 + chunk * 8)
+                                 : -1;
+          hopper::cp_async16(c_s + kx * TILE_BYTES + off, ct + (o < 0 ? 0 : o), o >= 0);
+        }
+      }
+      cp_async_arrive(bars + 8 * s);
+      if (++s == STAGES) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    reg_inc<224>();
+    const int warp = (tid & 127) >> 5, lane = tid & 31;
+    float d[96];
+#pragma unroll
+    for (int i = 0; i < 96; ++i) d[i] = 0.f;
+
+    int s = 0, prev = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < KT; ++it) {
+      mbar_wait(bars + 8 * s, phase);
+      const uint32_t z_s = base + s * STAGE_BYTES + wg * TILE_BYTES;
+      const uint32_t c_s = base + s * STAGE_BYTES + Z_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < PX / 16; ++k) {
+        // 16 pixels further is 16 rows = 2048 bytes in both tiles; the
+        // next tap's 64 columns of B start one tile further (LBO)
+        const uint64_t da = smem_desc(z_s + 2048 * k, TILE_BYTES, 1024);
+        const uint64_t db = smem_desc(c_s + 2048 * k, TILE_BYTES, 1024);
+        wgmma_k16<192, 1, 1>(d, da, db, (it | k) != 0);
+      }
+      wgmma_commit();
+      if (it > 0) {
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(bars + 8 * (STAGES + prev));
+      }
+      prev = s;
+      if (++s == STAGES) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    settle(d);
+
+    // lane l of warp w holds rows 16 w + l / 4 and + 8, columns 8 j + 2 (l %
+    // 4) and + 1 of each 8-wide block j; 8 blocks make one tap's 64 co
+    const int N = 9 * g.Co;
+    const int ci = ci0 + wg * 64 + warp * 16 + (lane >> 2);
+    float* o0 = part + ((long long)blockIdx.y * g.Ci + ci) * N + co0 +
+                2 * (lane & 3);
+    float* o1 = o0 + 8LL * N;
+#pragma unroll
+    for (int j = 0; j < 24; ++j) {
+      const int col = (ky * 3 + (j >> 3)) * g.Co + 8 * (j & 7);
+      *reinterpret_cast<float2*>(o0 + col) = make_float2(d[4 * j], d[4 * j + 1]);
+      *reinterpret_cast<float2*>(o1 + col) =
+          make_float2(d[4 * j + 2], d[4 * j + 3]);
+    }
+  }
+}
+
+}  // namespace dw
+
 // ----------------------------------------------------------------- f32 path
 constexpr int FBM = 64, FBN = 64, FBK = 16;
 
@@ -464,16 +615,21 @@ __global__ void convt_dw_reduce_kernel(const float* __restrict__ part,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  ct (B, 2Hi, 2Wi, Co), z (B, Hi, Wi, Ci)
-// and dx (B, Hi, Wi, Ci) are contiguous NHWC in that dtype; w is the weight
-// as (3, 3, Co, Ci) in that dtype.  dw (Ci, Co, 3, 3) is f32, part f32
-// scratch of S * Ci * 9 * Co, and slab the pixels of one split-K slab, so
-// that S * slab covers B * Hi * Wi.  need_dx / need_dw pick the gradients.
-// Ci and Co are multiples of 8.  Returns a cudaError_t.
+// and dx (B, Hi, Wi, Ci) are contiguous NHWC in that dtype.  dw (Ci, Co, 3,
+// 3) is f32, part f32 scratch of S * Ci * 9 * Co, and slab the pixels of one
+// split-K slab, so that S * slab covers B * Hi * Wi.  need_dx / need_dw pick
+// the gradients.  Ci and Co are multiples of 8.  The caller chooses the
+// kernels by shape (ops/convt_bwd.py: takes_wgmma, the one place that rule
+// is written) and says so with packed: 1 runs the wgmma kernels on w laid
+// out as the swizzled images of ops/_pack.py (rows ci, 64-wide slices of
+// co), and is refused unless they take the shape (bf16, igemm::takes(Ci,
+// Co)); 0 runs the WMMA or SIMT kernels on w as (3, 3, Co, Ci) in that
+// dtype.  Returns a cudaError_t.
 extern "C" int nirgan_convt_bwd(int device, int dtype, const void* ct,
                                 const void* z, const void* w, void* dx,
                                 void* part, void* dw, int B, int Hi, int Wi,
                                 int Ci, int Co, int S, int slab, int need_dx,
-                                int need_dw, void* stream) {
+                                int need_dw, int packed, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || Hi <= 0 || Wi <= 0 || Ci <= 0 || Co <= 0 || Ci % 8 ||
@@ -485,7 +641,26 @@ extern "C" int nirgan_convt_bwd(int device, int dtype, const void* ct,
   const long long M = (long long)B * Hi * Wi;
   const int N = 9 * Co;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (packed && (dtype != 1 || !igemm::takes(Ci, Co) || slab % 64))
+    return (int)cudaErrorInvalidValue;
+  if (packed) {
+    using T = __nv_bfloat16;
+    if (need_dx) {
+      const igemm::Shape sh{B, 2 * Hi, 2 * Wi, Co, Hi, Wi, igemm::CONVT_BWD};
+      err = igemm::launch(Ci, ct, w, nullptr, dx, sh, st);
+      if (err != cudaSuccess) return (int)err;
+    }
+    if (need_dw) {
+      err = cudaFuncSetAttribute(dw::convt_dw_wgmma_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 dw::SMEM_BYTES);
+      if (err != cudaSuccess) return (int)err;
+      dim3 grid(3 * (Co / 64) * (Ci / 128), S);
+      dw::convt_dw_wgmma_kernel<<<grid, dw::THREADS, dw::SMEM_BYTES, st>>>(
+          static_cast<const T*>(ct), static_cast<const T*>(z),
+          static_cast<float*>(part), g, slab);
+    }
+  } else if (dtype == 1) {
     using T = __nv_bfloat16;
     if (need_dx) {
       dim3 grid((unsigned)((M + BM - 1) / BM), (Ci + BN - 1) / BN);

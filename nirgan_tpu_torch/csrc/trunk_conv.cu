@@ -8,22 +8,27 @@
 // What bounds it on an H100: the serving trunk conv (4 x 133 x 133 pixels,
 // 256 -> 256 channels, 9 taps) is 83.5 GFLOP against 36 MB in and out, about
 // 2300 FLOP/byte, far above the card's ~295 FLOP/byte ridge: it is bound by
-// the tensor cores.  The design is a plain implicit GEMM: M = output pixels,
-// N = output channels, K = 9 taps x Cin.  A block owns a 128-pixel x
-// 128-channel output tile and walks K in 32-channel slices of one tap; the
-// slices stream into shared memory with cp.async (two stages, so the next
-// slice loads while the current one multiplies).  The bf16 path multiplies on
-// the tensor cores through WMMA (16x16x16, f32 accumulators); the f32 path
-// is a register-tiled SIMT GEMM in full f32.  No padded tensor exists: each
-// A row reads its source pixel through reflect_idx, and rows past the last
-// pixel are zero-filled by cp.async.  The bias is added in f32 in the
-// epilogue, then the result is rounded once to the input dtype.
-// wgmma, TMA and IN statistics in the epilogue are left for later work.
+// the tensor cores, 0.084 ms at their bf16 peak (0.091 ms at the train
+// step's 16 x 69 x 69).  It is an implicit GEMM, M = output pixels, N =
+// output channels, K = 9 taps x Cin, and no padded tensor exists: each A row
+// reads its source pixel through reflect index math.  Three kernels, chosen
+// by dtype and shape in nirgan_trunk_conv:
+//   * bf16, Cin % 64 == 0, Cout == 256 (the generator's trunk): the wgmma
+//     kernel of igemm_wgmma.cu (128 x 256 block tile, 64-channel K slices in
+//     a four-stage mbarrier ring, weights pre-packed into swizzled images);
+//     its header has the design.
+//   * other bf16 shapes (Cin % 32 == 0, Cout % 128 == 0): the WMMA kernel
+//     below, 128 x 128 tiles, 32-channel slices, two cp.async stages.
+//   * f32: a register-tiled SIMT GEMM in full f32.
+// The bias is added in f32 in the epilogue, then the result is rounded once
+// to the input dtype.  IN statistics in the epilogue are left for later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "igemm_wgmma.h"
 
 namespace {
 
@@ -274,17 +279,29 @@ trunk_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  x (B, Hi, Wi, Ci) and y (B, Ho, Wo, Co)
-// are contiguous NHWC; w is (3, 3, Ci, Co) in x's dtype; bias is f32 (Co,)
-// or null.  pad = 1: Ho = Hi, Wo = Wi, reflect border; pad = 0: VALID,
-// Ho = Hi - 2, Wo = Wi - 2.  Returns a cudaError_t.
+// are contiguous NHWC; bias is f32 (Co,) or null.  pad = 1: Ho = Hi, Wo = Wi,
+// reflect border; pad = 0: VALID, Ho = Hi - 2, Wo = Wi - 2.  The caller
+// chooses the kernel by shape (ops/trunk_conv.py: takes_wgmma, the one place
+// that rule is written) and says so with packed: 1 runs the wgmma kernel on
+// w laid out as the swizzled images of ops/_pack.py, and is refused unless
+// that kernel takes the shape (bf16, igemm::takes(Co, Ci)); 0 runs the WMMA
+// or SIMT kernel on w as (3, 3, Ci, Co) in x's dtype.  Returns a
+// cudaError_t.
 extern "C" int nirgan_trunk_conv(int device, int dtype, const void* x,
                                  const void* w, const void* bias, void* y,
                                  int B, int Hi, int Wi, int Ci, int Ho, int Wo,
-                                 int Co, int pad, void* stream) {
+                                 int Co, int pad, int packed, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const long long M = (long long)B * Ho * Wo;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (packed) {
+    if (dtype != 1 || !igemm::takes(Co, Ci)) return (int)cudaErrorInvalidValue;
+    const igemm::Shape g{B, Hi, Wi, Ci, Ho, Wo,
+                         pad ? igemm::CONV_REFLECT : igemm::CONV_VALID};
+    return (int)igemm::launch(Co, x, w, static_cast<const float*>(bias), y, g,
+                              s);
+  }
   if (dtype == 1) {
     if (Ci % BK || Co % BN) return (int)cudaErrorInvalidValue;
     dim3 grid((unsigned)((M + BM - 1) / BM), Co / BN);

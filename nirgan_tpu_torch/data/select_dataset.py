@@ -1,20 +1,83 @@
 """Dataset selection from config, counterpart of
 ``nirgan_tpu/data/select_dataset.py`` for one process.
 
-The datasets, their construction from config and the host loader are the
-JAX package's own (``build_dataset``, ``MixedDataset``, the held-out split
-and ``Loader`` are numpy only); only the DataModule differs, because the
-JAX one asks jax for the process index.  This one is process 0 of 1.  The
-C++ ``native_loader`` fast path is not ported yet.
+``build_dataset``, the settings keys and the held-out split are the port's
+own copies of the JAX package's; the DataModule differs, because the JAX
+one asks its runtime for the process index.  This one is process 0 of 1.
+The C++ ``native_loader`` fast path is not ported yet.
 """
 
 from __future__ import annotations
 
-from nirgan_tpu.data.datasets import MixedDataset
-from nirgan_tpu.data.pipeline import Loader
-from nirgan_tpu.data.select_dataset import _holdout_split, build_dataset
+import numpy as np
 
-__all__ = ["DataModule", "dataset_selector"]
+from nirgan_tpu_torch.data.datasets import (
+    FakeDataset,
+    GeoTiffFolderDataset,
+    MixedDataset,
+    NpzFolderDataset,
+)
+from nirgan_tpu_torch.data.pipeline import Loader
+
+__all__ = ["DataModule", "dataset_selector", "build_dataset"]
+
+_SETTINGS_KEY = {
+    "SEN2NAIP": "sen2naip_settings",
+    "S2NAIP": "sen2naip_settings",
+    "S2_rand": "S2_rand_settings",
+    "S2_75k": "S2_75k_settings",
+    "S2_100k": "S2_100k_settings",
+    "worldstrat": "worldstrat_settings",
+    "L8_15k": "L8_15k_settings",
+    "fake": "fake_settings",
+}
+
+
+def build_dataset(name: str, data_cfg, split: str = "train"):
+    """One dataset by reference type name.  File-backed types auto-pick the
+    reader by what's on disk (.npz/.npy first, GeoTIFF fallback)."""
+    key = _SETTINGS_KEY.get(name)
+    if key is None:
+        raise NotImplementedError(f"dataset_type '{name}' is not recognised")
+    st = data_cfg.get(key, {})
+    image_size = int(st.get("image_size", 256))
+    return_coords = bool(st.get("return_coords", False))
+
+    if name == "fake":
+        length = int(st.get("length", 64))
+        if split == "val":
+            length = max(8, length // 8)
+        return FakeDataset(image_size=image_size, length=length,
+                           return_coords=return_coords,
+                           seed=0 if split == "train" else 1,
+                           mode=st.get("mode", "rgb"))
+
+    base = st.get("base_path", None)
+    if base is None:
+        raise ValueError(f"dataset '{name}' needs {key}.base_path")
+    try:
+        return NpzFolderDataset(base, image_size=image_size, return_coords=return_coords)
+    except FileNotFoundError:
+        return GeoTiffFolderDataset(base, image_size=image_size,
+                                    return_coords=return_coords)
+
+
+class _Subset:
+    def __init__(self, ds, indices):
+        self.ds, self.indices = ds, indices
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        return self.ds[int(self.indices[i])]
+
+
+def _holdout_split(ds, every: int = 17):
+    idx = np.arange(len(ds))
+    val_idx = idx[::every]
+    train_idx = np.setdiff1d(idx, val_idx)
+    return _Subset(ds, train_idx), _Subset(ds, val_idx)
 
 
 class DataModule:

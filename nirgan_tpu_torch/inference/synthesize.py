@@ -76,7 +76,7 @@ def synthesize_dataset(task, dataset, out_path: str, batch_size: int = 8,
     previous one is copied back, so the copy and the writes overlap device
     work.
     """
-    from nirgan_tpu.data.pipeline import Loader
+    from nirgan_tpu_torch.data.pipeline import Loader
 
     os.makedirs(out_path, exist_ok=True)
     loader = Loader(dataset, batch_size, shuffle=False, num_workers=num_workers,

@@ -30,7 +30,8 @@ PKG_ROOT = Path(__file__).resolve().parent.parent
 CSRC = PKG_ROOT / "csrc"
 BUILD_DIR = PKG_ROOT / "_build"
 SOURCES = ("trunk_conv.cu", "instance_norm.cu", "head_conv.cu",
-           "convt_bwd.cu")
+           "convt_bwd.cu", "igemm_wgmma.cu")
+HEADERS = ("hopper.cuh", "igemm_wgmma.h")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
@@ -42,18 +43,18 @@ _F = ctypes.c_float
 # int would be cut to 32 bits)
 _SIGNATURES = {
     "nirgan_trunk_conv": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _P),
+                          _I, _I, _P),
     "nirgan_instance_norm": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                              _P),
     "nirgan_instance_norm_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _P),
     "nirgan_head_conv": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _P),
     "nirgan_convt_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _P),
+                         _I, _I, _I, _I, _I, _P),
 }
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -67,7 +68,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -96,7 +97,7 @@ def build() -> tuple[Path, float, str]:
         for src, obj, txt in zip(SOURCES, objs, logs):
             with open(txt, "w") as sink:  # a file: no pipe to fill up
                 procs.append(subprocess.Popen(
-                    [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+                    [nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
                     stdout=sink, stderr=subprocess.STDOUT))
         codes = [p.wait() for p in procs]
         outputs = [Path(txt).read_text() for txt in logs]
@@ -105,7 +106,7 @@ def build() -> tuple[Path, float, str]:
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp = os.path.join(tmpdir, out.name)
-        link = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", tmp, *objs],
+        link = subprocess.run([nvcc(), *ARCH, "-shared", "-o", tmp, *objs],
                               capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"

@@ -7,15 +7,13 @@
   * ``last`` and ``best`` checkpoints on the monitored metric
     (``train/checkpoint.py``), resume from a run dir, weights-only warm
     start from a reference ``.ckpt``
-  * two ``ReduceLROnPlateau`` from the JAX package (jax-free), with the
-    factor left at 0.1 as the reference's quirk, and their counters in
-    ``sched_state_{last,best}.json``
+  * two ``ReduceLROnPlateau`` (``train/scheduler.py``), with the factor
+    left at 0.1 as the reference's quirk, and their counters in
+    ``sched_state_{last,best}.json``, the JAX package's format
   * the finite-loss guard, ``perf/images_per_sec`` and ``perf/step_ms``
   * a SIGTERM checkpoints ``last`` at the next step boundary and returns
-  * JSONL logging through the JAX package's ``ExperimentLogger``, with its
-    TensorBoard and Weights & Biases backends off: ``torch.utils.tensorboard``
-    loads TensorFlow where that is installed, which may load jax, and the
-    port needs no network
+  * JSONL logging (``utils/loggers.py``); the JAX package's TensorBoard
+    and Weights & Biases backends are not ported
 
 Not ported yet: the val image panels, the spider callback and the profiler
 hook.
@@ -33,10 +31,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from nirgan_tpu.config import save_config
-from nirgan_tpu.train.scheduler import ReduceLROnPlateau
-from nirgan_tpu.utils.loggers import ExperimentLogger
+from nirgan_tpu_torch.config import save_config
 from nirgan_tpu_torch.train.checkpoint import CheckpointManager, merge_state_dict
+from nirgan_tpu_torch.train.scheduler import ReduceLROnPlateau
+from nirgan_tpu_torch.utils.loggers import ExperimentLogger
 
 __all__ = ["Trainer"]
 
@@ -85,8 +83,7 @@ class Trainer:
             stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
             logdir = os.path.join("logs", project, stamp)
         self.logdir = logdir
-        self.logger = ExperimentLogger(logdir, project=project,
-                                       use_tensorboard=False, use_wandb=False)
+        self.logger = ExperimentLogger(logdir)
         self.ckpt = CheckpointManager(logdir, monitor=config.Schedulers.metric)
         sch = config.Schedulers
         # quirk kept: factor_g/factor_d are configured, the torch default

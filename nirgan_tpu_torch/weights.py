@@ -8,7 +8,8 @@ HWIO -> IOHW with no flip (the inverse of ``_conv`` / ``_convT`` in
 do the same).  ``d_params_from_jax`` does the same for the
 ``NLayerDiscriminator`` tree.  ``load_reference_weights`` and
 ``load_reference_ckpt`` read a reference Lightning ``.ckpt`` (``netG.*``,
-``netD.*``) through that jax-free converter.
+``netD.*``) directly: its tensors are torch's layout already, so only the
+``nn.Sequential`` indices are mapped onto the port's layer names.
 """
 
 from __future__ import annotations
@@ -66,21 +67,84 @@ def d_params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
-def load_reference_weights(path: str, config) -> dict[str, dict]:
-    """The towers of a reference ``Px2Px_PL`` ``.ckpt`` as the port's
-    state_dicts: ``{"netG": ..., "netD": ...}``, each key present only when
-    the checkpoint holds that network (strict=False warm starts)."""
-    from nirgan_tpu.train.torch_convert import convert_px2px_checkpoint
+def load_torch_state_dict(path: str) -> dict[str, np.ndarray]:
+    """A torch or Lightning ``.ckpt`` as a flat {key: array} dict (the
+    port's copy of ``load_torch_state_dict`` in
+    ``nirgan_tpu/train/torch_convert.py``)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    return {k: np.asarray(v.detach().cpu().numpy()) for k, v in sd.items()
+            if hasattr(v, "detach")}
 
-    converted = convert_px2px_checkpoint(path, config)
+
+def _resnet_generator_keys(n_blocks: int, use_dropout: bool) -> dict[str, str]:
+    """The port's layer names -> the reference ``ResnetGenerator``'s
+    ``nn.Sequential`` indices (``model/networks.py:341-370``, instance norm:
+    1 stem conv7, 4 and 7 the stride-2 convs, 10.. the blocks with convs at
+    ``conv_block.1`` and ``.5`` (``.6`` with dropout), then the two
+    transposed convs and the head conv7), as ``convert_resnet_generator``
+    maps them."""
+    blk0 = 10
+    up0 = blk0 + n_blocks
+    conv2 = 6 if use_dropout else 5
+    keys = {"c0": "model.1", "d0": "model.4", "d1": "model.7",
+            "c1": f"model.{up0 + 7}", "u0": f"model.{up0}",
+            "u1": f"model.{up0 + 3}"}  # the order of ``params_from_jax``
+    for i in range(n_blocks):
+        keys[f"r{i}.conv1"] = f"model.{blk0 + i}.conv_block.1"
+        keys[f"r{i}.conv2"] = f"model.{blk0 + i}.conv_block.{conv2}"
+    return keys
+
+
+def _nlayer_discriminator_keys(n_layers: int) -> dict[str, str]:
+    """The port's ``conv{k}`` -> the reference ``NLayerDiscriminator``'s
+    indices (``model/networks.py:557-580``), as
+    ``convert_nlayer_discriminator`` maps them."""
+    keys = {"conv0": "model.0"}
+    for n in range(1, n_layers + 1):
+        keys[f"conv{n}"] = f"model.{2 + 3 * (n - 1)}"
+    keys[f"conv{n_layers + 1}"] = f"model.{2 + 3 * n_layers}"
+    return keys
+
+
+def _tower(sd: Mapping, prefix: str, keys: Mapping[str, str]) -> dict:
+    """Rename one network's conv weights and biases.  The reference's
+    tensors are torch's layout already (OIHW, and IOHW for the transposed
+    convs), which is the port's: keys change, tensors do not."""
+    out: dict[str, torch.Tensor] = {}
+    for name, ref in keys.items():
+        out[f"{name}.weight"] = _tensor(sd[f"{prefix}{ref}.weight"])
+        if f"{prefix}{ref}.bias" in sd:
+            out[f"{name}.bias"] = _tensor(sd[f"{prefix}{ref}.bias"])
+    return out
+
+
+def load_reference_weights(path_or_sd, config) -> dict[str, dict]:
+    """The towers of a reference ``Px2Px_PL`` ``.ckpt`` (a path, or its
+    flat state_dict) as the port's state_dicts: ``{"netG": ..., "netD":
+    ...}``, each key present only when the checkpoint holds that network
+    (strict=False warm starts)."""
+    sd = (load_torch_state_dict(path_or_sd) if isinstance(path_or_sd, str)
+          else path_or_sd)
+    bc = config.base_configs
     out = {}
-    if "params_g" in converted:
-        out["netG"] = params_from_jax(converted["params_g"])
-    if "params_d" in converted:
-        if config.base_configs.netD == "pixel":
+    if any(k.startswith("netG.") for k in sd):
+        if bc.netG.startswith("unet"):
+            raise NotImplementedError("the U-Net generator is not ported yet")
+        extras = [k for k in ("fc.weight", "scale_param",
+                              "post_correction_param") if f"netG.{k}" in sd]
+        if extras:
+            raise ValueError(f"weights of the plain generator expected; the "
+                             f"checkpoint has netG.{extras} (SatCLIP inject "
+                             "is not ported)")
+        out["netG"] = _tower(sd, "netG.", _resnet_generator_keys(
+            9 if bc.netG == "resnet_9blocks" else 6, not bc.no_dropout))
+    if any(k.startswith("netD.") for k in sd):
+        if bc.netD == "pixel":
             raise NotImplementedError("the pixel discriminator is not ported "
                                       "yet")
-        out["netD"] = d_params_from_jax(converted["params_d"])
+        out["netD"] = _tower(sd, "netD.", _nlayer_discriminator_keys(
+            3 if bc.netD == "basic" else bc.n_layers_D))
     return out
 
 

@@ -362,3 +362,200 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
 def test_other_devices_raise(call):
     with pytest.raises(RuntimeError, match="no kernel and no plain route"):
         call(torch.zeros(1, 8, 8, 8, device="meta"))
+
+
+# ------------------------------------------------- what Python does for wgmma
+from nirgan_tpu_torch.ops import _pack  # noqa: E402
+
+
+def _b128_offset(t, n, k, n_rows, k_total):
+    """Element offset of w[t, n, k] in the packed buffer by the swizzle
+    formula: image (t, k // 64) of ``n_rows`` rows of 64, row n, 16-byte
+    chunk ((k % 64) // 8) ^ (n % 8), element k % 8."""
+    image = t * (k_total // 64) + k // 64
+    chunk = ((k % 64) // 8) ^ (n % 8)
+    return (image * n_rows + n) * 64 + chunk * 8 + k % 8
+
+
+def _unpack_b128(p):
+    """(T, K // 64, N, 8, 8) -> (T, N, K): the swizzle undone by the
+    formula, without the module's index."""
+    t, s, n = p.shape[:3]
+    rows = torch.arange(n)[:, None]
+    chunks = torch.arange(8)[None, :] ^ (rows & 7)
+    return p[:, :, rows, chunks, :].permute(0, 2, 1, 3, 4).reshape(t, n, s * 64)
+
+
+@pytest.mark.parametrize("t,n,k", [(1, 8, 64), (9, 256, 128), (9, 128, 64),
+                                   (2, 24, 192)])
+def test_pack_b128_inverts_and_follows_the_swizzle_formula(t, n, k):
+    """Every element (tap, n, k) lies at the offset the 128-byte swizzle
+    gives: image (tap, k // 64) of n rows of 128 bytes, 16-byte chunk
+    ((k % 64) // 8) ^ (n % 8); unpacking gives the input back exactly."""
+    w = torch.arange(t * n * k, dtype=torch.float32).reshape(t, n, k)
+    packed = _pack.pack_b128(w)
+    assert packed.shape == (t, k // 64, n, 8, 8) and packed.is_contiguous()
+    assert torch.equal(_unpack_b128(packed), w)
+    tt, nn, kk = torch.meshgrid(torch.arange(t), torch.arange(n), torch.arange(k),
+                                indexing="ij")
+    assert torch.equal(packed.flatten()[_b128_offset(tt, nn, kk, n, k)], w)
+
+
+def test_pack_b128_takes_strided_views_and_refuses_ragged_shapes():
+    w = torch.randn(9, 16, 128).permute(0, 2, 1)[:, :64].permute(0, 2, 1)
+    assert not w.is_contiguous()
+    assert torch.equal(_pack.pack_b128(w), _pack.pack_b128(w.contiguous()))
+    for bad in (torch.zeros(1, 8, 32), torch.zeros(1, 4, 64)):
+        with pytest.raises(ValueError, match="pack_b128"):
+            _pack.pack_b128(bad)
+
+
+def test_trunk_conv_packs_element_tap_ci_co_where_the_kernel_reads_it():
+    """Kernel A's B image for (tap, 64-channel slice): row co, K = ci."""
+    w = torch.randn(256, 128, 3, 3)
+    packed = trunk_mod.pack_weight(w)
+    assert packed.shape == (9, 2, 256, 8, 8)
+    flat = packed.flatten()
+    for co, ci, ky, kx in ((0, 0, 0, 0), (255, 127, 2, 2), (77, 70, 1, 2)):
+        assert flat[_b128_offset(ky * 3 + kx, co, ci, 256, 128)] == w[co, ci, ky, kx]
+    back = _unpack_b128(packed).reshape(3, 3, 256, 128).permute(2, 3, 0, 1)
+    assert torch.equal(back, w)
+
+
+def test_convt_bwd_packs_element_tap_co_ci_where_the_kernel_reads_it():
+    """B5's dx image for (tap, 64-channel slice of Co): row ci, K = co."""
+    w = torch.randn(128, 64, 3, 3)
+    packed = convt_mod.pack_weight(w)
+    assert packed.shape == (9, 1, 128, 8, 8)
+    flat = packed.flatten()
+    for ci, co, ky, kx in ((0, 0, 0, 0), (127, 63, 2, 2), (9, 40, 2, 0)):
+        assert flat[_b128_offset(ky * 3 + kx, ci, co, 128, 64)] == w[ci, co, ky, kx]
+
+
+def _counting(layout):
+    calls = []
+
+    def counted(w):
+        calls.append(1)
+        return layout(w)
+    return counted, calls
+
+
+@pytest.mark.parametrize("write", ["none", "optimizer", "copy_", "load_state_dict"])
+def test_laid_out_packs_once_until_the_weight_is_written(write):
+    """The kept layout is reused while the weight keeps its value and made
+    anew, from the new value, after any in-place write."""
+    conv = torch.nn.Conv2d(64, 256, 3)
+    w = conv.weight
+    pack, calls = _counting(trunk_mod.pack_weight)
+    cpu = torch.device("cpu")
+    first = _pack.laid_out(w, cpu, torch.bfloat16, pack)
+    assert _pack.laid_out(w, cpu, torch.bfloat16, pack) is first and len(calls) == 1
+    assert first.dtype == torch.bfloat16 and not first.requires_grad
+    assert torch.equal(first, trunk_mod.pack_weight(w.detach().bfloat16()))
+    if write == "optimizer":
+        w.grad = torch.ones_like(w)
+        torch.optim.Adam([w], lr=0.1).step()
+    elif write == "copy_":
+        with torch.no_grad():
+            w.copy_(torch.randn_like(w))
+    elif write == "load_state_dict":
+        conv.load_state_dict(torch.nn.Conv2d(64, 256, 3).state_dict())
+    again = _pack.laid_out(w, cpu, torch.bfloat16, pack)
+    if write == "none":
+        assert again is first and len(calls) == 1
+    else:
+        assert len(calls) == 2 and not torch.equal(again, first)
+        assert torch.equal(again, trunk_mod.pack_weight(w.detach().bfloat16()))
+
+
+def test_laid_out_keys_on_dtype_and_layout_and_forgets_dead_weights():
+    w = torch.randn(256, 64, 3, 3)
+    cpu = torch.device("cpu")
+    a = _pack.laid_out(w, cpu, torch.bfloat16, trunk_mod.pack_weight)
+    b = _pack.laid_out(w, cpu, torch.float32, _pack.taps_first)
+    assert b.dtype == torch.float32 and b.shape == (3, 3, 64, 256)
+    assert torch.equal(_pack.laid_out(w, cpu, torch.bfloat16, trunk_mod.pack_weight), a)
+    ident = id(w)
+    assert ident in _pack._LAID_OUT
+    del w
+    assert ident not in _pack._LAID_OUT
+    # a tensor made in inference mode has no version counter: never kept
+    with torch.inference_mode():
+        v = torch.randn(256, 64, 3, 3)
+        _pack.laid_out(v, cpu, torch.bfloat16, trunk_mod.pack_weight)
+    assert id(v) not in _pack._LAID_OUT
+
+
+@pytest.mark.parametrize("dtype,x_shape,w_shape,pad,want", [
+    (torch.bfloat16, (4, 133, 133, 256), (256, 256, 3, 3), 1, (133, 133, True)),
+    (torch.bfloat16, (16, 71, 71, 256), (256, 256, 3, 3), 0, (69, 69, True)),
+    (torch.bfloat16, (2, 9, 9, 64), (256, 64, 3, 3), 1, (9, 9, True)),
+    (torch.bfloat16, (2, 9, 9, 32), (256, 32, 3, 3), 1, (9, 9, False)),
+    (torch.bfloat16, (2, 9, 9, 128), (128, 128, 3, 3), 1, (9, 9, False)),
+    (torch.float32, (2, 9, 9, 256), (256, 256, 3, 3), 1, (9, 9, False)),
+    (torch.float32, (2, 9, 9, 16), (64, 16, 3, 3), 0, (7, 7, False)),
+])
+def test_trunk_conv_launch_plan_chooses_by_shape(dtype, x_shape, w_shape, pad, want):
+    assert trunk_mod.launch_plan(dtype, x_shape, w_shape, pad) == want
+
+
+@pytest.mark.parametrize("dtype,x_shape,w_shape,pad,message", [
+    (torch.bfloat16, (2, 9, 9, 16), (128, 16, 3, 3), 1, "Cin % 32"),
+    (torch.bfloat16, (2, 9, 9, 64), (64, 64, 3, 3), 1, "Cout % 128"),
+    (torch.float32, (2, 9, 9, 8), (64, 8, 3, 3), 1, "Cin % 16"),
+    (torch.float16, (2, 9, 9, 64), (256, 64, 3, 3), 1, "not supported"),
+    (torch.bfloat16, (2, 9, 9, 64), (256, 32, 3, 3), 1, "is not"),
+    (torch.bfloat16, (2, 9, 9, 64), (256, 64, 3, 3), 2, "pad must be"),
+    (torch.bfloat16, (2, 1, 9, 64), (256, 64, 3, 3), 1, "H, W >= 2"),
+    (torch.bfloat16, (2, 2, 9, 64), (256, 64, 3, 3), 0, "H, W >= 3"),
+    (torch.bfloat16, (9, 9, 64), (256, 64, 3, 3), 1, r"\(B, H, W, C\)"),
+    (torch.bfloat16, (2 ** 11, 2 ** 10, 2 ** 10, 64), (256, 64, 3, 3), 1, "2\\^31"),
+])
+def test_trunk_conv_launch_plan_raises_on_what_no_kernel_takes(dtype, x_shape, w_shape,
+                                                              pad, message):
+    with pytest.raises(ValueError, match=message):
+        trunk_mod.launch_plan(dtype, x_shape, w_shape, pad)
+
+
+@pytest.mark.parametrize("dtype,b,h,ci,co,want", [
+    (torch.bfloat16, 16, 138, 128, 64, (True, 44, 6976)),    # u1: 3 groups
+    (torch.bfloat16, 16, 69, 256, 128, (True, 11, 6976)),    # u0: 12 groups
+    (torch.bfloat16, 1, 4, 128, 64, (True, 1, 64)),
+    (torch.bfloat16, 2, 20, 64, 32, (False, 80, 10)),        # WMMA
+    (torch.bfloat16, 2, 20, 128, 32, (False, 80, 10)),
+    (torch.float32, 16, 138, 128, 64, (False, 15, 20314)),   # SIMT
+])
+def test_convt_bwd_launch_plan_chooses_by_shape(dtype, b, h, ci, co, want):
+    got = convt_mod.launch_plan(dtype, (b, h, h, ci), (b, 2 * h, 2 * h, co),
+                                (ci, co, 3, 3))
+    assert got == want
+    packed, s, slab = got
+    m = b * h * h
+    # the slabs cover the pixels and none is empty
+    assert s * slab >= m > (s - 1) * slab
+    if packed:
+        assert slab % 64 == 0 and 3 * (co // 64) * (ci // 128) * s <= 132
+
+
+@pytest.mark.parametrize("dtype,z_shape,ct_shape,w_shape,message", [
+    (torch.bfloat16, (2, 8, 8, 12), (2, 16, 16, 8), (12, 8, 3, 3), "multiples of 8"),
+    (torch.bfloat16, (2, 8, 8, 16), (2, 16, 15, 8), (16, 8, 3, 3), "2H, 2W"),
+    (torch.bfloat16, (2, 8, 8, 16), (2, 16, 16, 8), (8, 16, 3, 3), "weight"),
+    (torch.float16, (2, 8, 8, 16), (2, 16, 16, 8), (16, 8, 3, 3), "not supported"),
+    (torch.bfloat16, (0, 8, 8, 16), (0, 16, 16, 8), (16, 8, 3, 3), "input pixels"),
+])
+def test_convt_bwd_launch_plan_raises_on_what_no_kernel_takes(dtype, z_shape, ct_shape,
+                                                             w_shape, message):
+    with pytest.raises(ValueError, match=message):
+        convt_mod.launch_plan(dtype, z_shape, ct_shape, w_shape)
+
+
+def test_kernel_sources_and_headers_exist_and_key_the_build():
+    """Every listed source and header is in ``csrc``; editing a header
+    changes the library's name, so a stale build is never loaded."""
+    for name in _lib.SOURCES + _lib.HEADERS:
+        assert (_lib.CSRC / name).is_file(), name
+    listed = set(_lib.SOURCES + _lib.HEADERS)
+    on_disk = {p.name for p in _lib.CSRC.iterdir() if p.suffix in (".cu", ".cuh", ".h")}
+    assert on_disk == listed

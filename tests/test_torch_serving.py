@@ -149,33 +149,69 @@ def test_cli_cuda_without_a_card_raises(tmp_path):
         cli.main(["--device", "cuda", "--data", str(tmp_path)])
 
 
-def test_port_never_imports_jax():
-    """Importing every module of the port, and the JAX package's jax-free
-    modules it uses at run time, leaves jax out of sys.modules (a
-    subprocess: this test process has jax loaded by conftest)."""
+_NO_JAX = (
+    "bad = sorted(m for m in sys.modules if m == 'jax' or "
+    "m.startswith(('jax.', 'flax', 'optax', 'orbax')))\n"
+    "assert not bad, bad\n"
+    "used = sorted(m for m in sys.modules if m.split('.')[0] == 'nirgan_tpu')\n"
+    "assert not used, used\n")
+
+
+def test_port_never_imports_jax(tmp_path):
+    """Importing every module of the port, then a serving run and a train
+    run through the CLIs, leaves jax and every module of the JAX package out
+    of sys.modules (a subprocess: this test process has jax loaded by
+    conftest)."""
+    from tests.test_torch_train import _tiny_config_file
+
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text(yaml.safe_dump(_tiny_config().to_dict()))
+    data = tmp_path / "data"
+    _write_npz_dataset(str(data))
     code = (
         "import importlib, pkgutil, sys\n"
         "import nirgan_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "for n in ('nirgan_tpu.data.datasets', 'nirgan_tpu.data.pipeline',\n"
-        "          'nirgan_tpu.train.torch_convert'): importlib.import_module(n)\n"
-        "assert len(names) > 25, names\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'optax', 'orbax')))\n"
-        "assert not bad, bad\n"
-        # the reused jax-free modules and their packages: the config, the
-        # datasets, loader and selection, the converter, the plateau
-        # scheduler and the experiment logger
-        "ok = {'nirgan_tpu', 'nirgan_tpu.config', 'nirgan_tpu.data', 'nirgan_tpu.data.datasets',\n"
-        "      'nirgan_tpu.data.pipeline', 'nirgan_tpu.data.select_dataset',\n"
-        "      'nirgan_tpu.train', 'nirgan_tpu.train.torch_convert',\n"
-        "      'nirgan_tpu.train.scheduler', 'nirgan_tpu.utils', 'nirgan_tpu.utils.loggers'}\n"
-        "used = {m for m in sys.modules if m.split('.')[0] == 'nirgan_tpu'}\n"
-        "assert used <= ok, sorted(used - ok)\n"
+        "assert len(names) > 30, names\n"
+        + _NO_JAX +
+        "from nirgan_tpu_torch import create_synthetic_dataset as serve\n"
+        f"n = serve.main(['--config', {str(cfg_path)!r}, '--data', {str(data)!r},\n"
+        f"                '--out', {str(tmp_path / 'out')!r}, '--ckpt', 'none.ckpt',\n"
+        "                '--batch-size', '2', '--device', 'cpu'])\n"
+        "assert n == 3, n\n"
+        "from nirgan_tpu_torch.train import cli\n"
+        f"cli.main(['--config', {_tiny_config_file(tmp_path)!r}, '--device', 'cpu',\n"
+        f"          '--max-steps', '2', '--logdir', {str(tmp_path / 'run')!r}])\n"
+        + _NO_JAX +
         "print('clean', len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO_ROOT
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.startswith("clean")
+    assert proc.stdout.strip().splitlines()[-1].startswith("clean")
+
+
+def _port_sources():
+    import glob
+
+    files = glob.glob(os.path.join(REPO_ROOT, "nirgan_tpu_torch", "**", "*.py"),
+                      recursive=True)
+    return sorted(files) + [os.path.join(REPO_ROOT, "chip_smoke.py")]
+
+
+def test_port_sources_name_no_jax_import():
+    """No source file of the port, nor ``chip_smoke.py``, has an import
+    statement of jax or of the JAX package, at any indentation."""
+    import re
+
+    pattern = re.compile(r"^\s*(import\s+(nirgan_tpu|jax)(\.|\s|,|$)"
+                         r"|from\s+(nirgan_tpu|jax)(\.\S*)?\s+import\b)")
+    files = _port_sources()
+    assert len(files) > 40, files
+    hits = [f"{os.path.relpath(f, REPO_ROOT)}:{i}: {line.strip()}"
+            for f in files
+            for i, line in enumerate(open(f, encoding="utf-8"), 1)
+            if pattern.match(line)]
+    assert not hits, hits

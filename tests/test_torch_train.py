@@ -393,8 +393,9 @@ def test_resume_from_a_missing_checkpoint_raises(tmp_path):
 
 
 def test_training_never_imports_jax(tmp_path):
-    """The CLI trains two steps on the CPU in a fresh interpreter, and jax
-    is not among its modules afterwards (conftest loads jax here)."""
+    """The CLI trains two steps on the CPU in a fresh interpreter, and
+    neither jax nor any module of the JAX package is among its modules
+    afterwards (conftest loads jax here)."""
     cfg = _tiny_config_file(tmp_path)
     code = (
         "import sys\n"
@@ -404,6 +405,8 @@ def test_training_never_imports_jax(tmp_path):
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'flax', 'optax', 'orbax')))\n"
         "assert not bad, bad\n"
+        "used = sorted(m for m in sys.modules if m.split('.')[0] == 'nirgan_tpu')\n"
+        "assert not used, used\n"
         "print('clean')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO_ROOT
