@@ -15,9 +15,13 @@ never prints the final ``"ok": true`` line:
    and the least time the card could take (``bound_ms``): the forward
    kernels at the serving path's shapes (batch 4 of 512^2 tiles padded to
    532^2), and every kernel at the train step's (batch 16 of 256^2 tiles
-   padded to 276^2; the instance norm at all six, C = 512 included).  The
-   trunk conv and the transposed conv's backward are also held at a shape
-   that their wgmma kernels do not take, where the WMMA kernels run.
+   padded to 276^2; the instance norm at all six, C = 512 included, with
+   the ReLU and the skip fused and not, and at odd shapes on either side
+   of its two regimes).  The trunk conv is timed in both pad modes.  The
+   instance norm is timed over a rotation of inputs larger than the L2
+   cache (``ms``) and on one input (``warm_ms``).  The trunk conv and the
+   transposed conv's backward are also held at a shape that their wgmma
+   kernels do not take, where the WMMA kernels run.
 3. generator: the full-width ``resnet_9blocks`` (ngf 64), random weights
    from a seed, batch 4 at 532^2 in bf16: kernel path against the plain
    path, launches per forward, forward time; then ``predict_step`` in f32
@@ -34,23 +38,35 @@ never prints the final ``"ok": true`` line:
    on the card against the same seeded step on the CPU at a small config;
    then ``python -m nirgan_tpu_torch.train`` for 8 steps on the fake data
    (two validations, ``last`` and ``best``) and a resume for 2 more.
+6. launches: one call of the instance norm at each timed shape under
+   ``torch.profiler``: one kernel where the plan is resident, two where it
+   streams.  Last, since an attached profiler slows the host's launches.
 
 ``python3 chip_smoke.py --profile`` instead prints, after phases 0 and 1,
 the device time of the serving forward and of the train step by group of
 kernels under ``torch.profiler`` (no checks, no ``ok`` line).
+``python3 chip_smoke.py --sweep`` instead times the instance norm under
+every launch plan its kernels take at the main path's shapes, beside the
+plan that ``launch_plan`` chooses.
 
 Before the last line it prints one JSON object with every kernel's route,
 source, launches in the training CLI's run (``per_step``: in one fused
 step), error, and times and bound at the train step's ``shape``; a forward
 kernel's ``serving`` entry holds the serving path's shape, times, bound and
-launches (``per_forward``: in one generator forward); the instance norm's
-backward also has its times without the fused ReLU (``no_relu``).  The last
+launches (``per_forward``: in one generator forward); the trunk conv's
+``pad0`` entries hold its times on a pre-padded input; the instance norm's
+entries state their launch plan (``regime``, ``cluster``, ``smem_bytes``)
+and the kernels that one call launched on the card under ``torch.profiler``
+(``cuda_launches``), and list every main-path shape under ``shapes``,
+the forward also with the skip fused (``with_skip``), the backward also
+without the fused ReLU (``no_relu``, beside the library call).  The last
 line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import json
 import math
@@ -95,13 +111,15 @@ def log(phase: str, msg: str) -> None:
 
 def time_ms(fn, iters: int = 20, warmup: int = 3, run_ahead: bool = False) -> float:
     """Mean time of one call, from CUDA events around ``iters`` calls after
-    ``warmup``: the larger of what the card and what the host take for a
-    call.  With ``run_ahead`` (the single kernels) the card first spins for
-    a few milliseconds, so the host has the calls queued when the clock
-    starts and a wrapper's host time does not pass for device time.  The
-    whole forward and the whole step are timed without it: there the host's
-    time is part of what a user waits for."""
-    for _ in range(warmup):
+    ``warmup`` (a whole round of them and one more where ``fn`` rotates its
+    inputs: a round's results stay alive while the next call allocates its
+    own, so only then does every buffer exist): the larger of what the card
+    and what the host take for a call.  With ``run_ahead`` (the single kernels) the card
+    first spins for a few milliseconds, so the host has the calls queued
+    when the clock starts and a wrapper's host time does not pass for
+    device time.  The whole forward and the whole step are timed without
+    it: there the host's time is part of what a user waits for."""
+    for _ in range(max(warmup, getattr(fn, "rounds", -1) + 1)):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -234,20 +252,24 @@ def phase_build() -> None:
 def entry(name: str, source: str, replaces: str, err: float, train: tuple,
           serving: tuple | None = None, **others: tuple) -> dict:
     """A kernel's JSON entry.  ``train`` and ``serving`` are (shape, ms,
-    plain_ms, library_ms, (bound_ms, bound_by)).  The top-level times are at
+    plain_ms, library_ms, (bound_ms, bound_by)[, extra]), the arguments of
+    ``times``.  The top-level times are at
     the train step's shape, since ``launches`` are the training CLI's; the
     serving path's shape, times and bound sit under ``serving``, beside that
     run's launches, and a further train shape under its own name."""
-    def times(shape, ms, plain_ms, library_ms, bound_):
-        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_[0],
-                    bound_by=bound_[1], library_ms=library_ms, shape=str(shape))
-
     out = dict(name=name, route="cuda", source=f"nirgan_tpu_torch/csrc/{source}",
                replaces=replaces, max_abs_err=err, **times(*train))
     if serving is not None:
         out["serving"] = times(*serving)
     out.update({key: times(*val) for key, val in others.items()})
     return out
+
+
+def times(shape, ms, plain_ms, library_ms, bound_, extra=None) -> dict:
+    """The timed part of a kernel's entry at one shape; ``extra`` holds
+    what only some kernels state (a launch plan, ``warm_ms``)."""
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_[0], bound_by=bound_[1],
+                library_ms=library_ms, shape=str(shape), **(extra or {}))
 
 
 def check_trunk(g: torch.Generator, shape: tuple, co: int = 256,
@@ -320,7 +342,19 @@ def check_trunk(g: torch.Generator, shape: tuple, co: int = 256,
         f"the padded input {lib_ms:.4f} ms, bound {least[0]:.4f} ms ({least[1]}); "
         f"paced by the host {paced_ms:.4f} ms a call; packing a changed weight "
         f"{pack_ms:.4f} ms")
-    return worst, ms, plain_ms, lib_ms, least
+    # the VALID mode on an input padded beforehand (the counterpart of
+    # conv3x3_pallas): the same kernel with pad=0, beside its plain version
+    # and the same cuDNN call
+    xpad = reflect_pad2d(xb, 1)
+    ms0, plain0, lib0 = compare_ms(lambda: trunk_conv_cuda(xpad, w, b, pad=0),
+                                   lambda: trunk_conv_plain(xpad, w, b, pad=0),
+                                   lambda: F.conv2d(xp, wb, bb), run_ahead=True)
+    least0 = least_time(flops, nbytes(xpad, w, b) + n * h * wd * co * 2)
+    log("kernels", f"trunk_conv bf16 {tuple(xpad.shape)} pad=0: kernel {ms0:.4f} ms "
+        f"({flops / ms0 / 1e9:.1f} TFLOP/s), plain {plain0:.4f} ms, F.conv2d "
+        f"{lib0:.4f} ms, bound {least0[0]:.4f} ms ({least0[1]})")
+    valid = (tuple(xpad.shape), ms0, plain0, lib0, least0)
+    return worst, ms, plain_ms, lib_ms, least, valid
 
 
 def check_head(g: torch.Generator, shape: tuple) -> tuple:
@@ -356,42 +390,142 @@ def check_head(g: torch.Generator, shape: tuple) -> tuple:
     return err, ms, plain_ms, None, least
 
 
-def check_norm(x: torch.Tensor, relu: bool) -> float:
-    """Kernel B against its plain version on f32 x and on x in bf16.
-    Returns the bf16 max |err|."""
+def check_norm(x: torch.Tensor, relu: bool,
+               residual: torch.Tensor | None = None) -> float:
+    """Kernel B against its plain version on f32 x and on x in bf16, with
+    the skip fused where ``residual`` is given.  Returns the bf16 max
+    |err|."""
     from nirgan_tpu_torch.ops.instance_norm import (
         instance_norm_cuda,
         instance_norm_plain,
     )
 
     shape = tuple(x.shape)
+    what = f"{shape} relu={relu} skip={residual is not None}"
     # f32: same formula, sums in another order: abs 1e-5
-    err = float((instance_norm_cuda(x, relu=relu)
-                 - instance_norm_plain(x, relu=relu)).abs().max())
-    log("kernels", f"instance_norm f32 {shape} relu={relu}: "
-        f"max|err| {err:.3e} (bound 1e-05)")
+    err = float((instance_norm_cuda(x, relu=relu, residual=residual)
+                 - instance_norm_plain(x, relu=relu, residual=residual)).abs().max())
+    log("kernels", f"instance_norm f32 {what}: max|err| {err:.3e} (bound 1e-05)")
     if not err <= 1e-5:
-        raise AssertionError(f"instance_norm f32 {shape} relu={relu}: {err}")
+        raise AssertionError(f"instance_norm f32 {what}: {err}")
     # bf16: both sides round mean, scale, x - mean and the product to bf16;
     # an f32 statistic summed in another order can round to the
     # neighbouring bf16 value, which moves x - mean and y by a step each:
-    # |err| <= 2^-6 * (|y| + 1), four bf16 steps of y
+    # |err| <= 2^-6 * (|y| + 1), four bf16 steps of y.  With the skip the
+    # sum is rounded once more: another 2^-7 of it
     xb = x.bfloat16()
-    ref = instance_norm_plain(xb, relu=relu).float()
-    got = instance_norm_cuda(xb, relu=relu).float()
-    err = float((got - ref).abs().max())
-    rel = float(((got - ref).abs() / (ref.abs() + 1)).max())
-    log("kernels", f"instance_norm bf16 {shape} relu={relu}: max|err| "
-        f"{err:.3e}, max|err|/(|y|+1) {rel:.3e} (bound {2 ** -6:.3e})")
-    if not rel <= 2 ** -6:
-        raise AssertionError(f"instance_norm bf16 {shape} relu={relu}: {rel}")
-    return err
+    rb = residual.bfloat16() if residual is not None else None
+    y = instance_norm_plain(xb, relu=relu).float()
+    ref = instance_norm_plain(xb, relu=relu, residual=rb).float()
+    got = instance_norm_cuda(xb, relu=relu, residual=rb).float()
+    err = (got - ref).abs()
+    bound = 2 ** -6 * (y.abs() + 1)
+    if residual is not None:
+        bound = bound + 2 ** -7 * ref.abs()
+    rel = float((err / bound).max())
+    log("kernels", f"instance_norm bf16 {what}: max|err| {float(err.max()):.3e}, "
+        f"worst |err| / bound {rel:.3f} (bound 2^-6 (|y| + 1)"
+        f"{' + 2^-7 |sum|' if residual is not None else ''})")
+    if not rel <= 1.0:
+        raise AssertionError(f"instance_norm bf16 {what}: {rel}")
+    if residual is not None:
+        # the fused skip is the separate sum's two roundings, bit for bit
+        for xd, rd in ((x, residual), (xb, rb)):
+            if not torch.equal(instance_norm_cuda(xd, relu=relu, residual=rd),
+                               rd + instance_norm_cuda(xd, relu=relu)):
+                raise AssertionError(f"instance_norm {xd.dtype} {what}: the fused "
+                                     "skip is not residual + norm(x) bit for bit")
+    return float(err.max())
 
 
-def norm_times(xb: torch.Tensor, relu: bool) -> tuple:
-    """bf16 kernel B, plain and library ms on xb, and the bound.  The
-    library call is ``F.instance_norm`` on the NCHW view: the norm alone,
-    without the ReLU that the kernel fuses where ``relu``."""
+def check_norm_bwd(x: torch.Tensor, dy: torch.Tensor, relu: bool) -> float:
+    """Kernel B4 against its plain version on f32 and bf16.  Both sides
+    take the kernel's forward statistics, which ``check_norm`` holds against
+    the plain forward.  f32: the same f32 formula with sums in another
+    order: abs 1e-5.  bf16: both compute in f32 from the same bf16 inputs
+    and round dx once, so where an f32 sum in another order straddles a
+    rounding boundary the two differ by one bf16 step: |err| <= 2^-7 |dx|
+    (+ 1e-5 for the f32 difference).  The mask that B4 takes from x must be
+    the forward kernel's ``out > 0`` bit for bit.  Returns the bf16 max
+    |err|."""
+    from nirgan_tpu_torch.ops.instance_norm import (
+        _normalized,
+        instance_norm_bwd_cuda,
+        instance_norm_bwd_plain,
+        instance_norm_cuda,
+    )
+
+    shape, worst = tuple(x.shape), 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        xd, gd = x.to(dtype), dy.to(dtype)
+        out, stats = instance_norm_cuda(xd, relu=relu, return_stats=True)
+        if relu and not torch.equal(_normalized(xd, stats) > 0, out > 0):
+            raise AssertionError(f"instance_norm_bwd {dtype} {shape}: the mask "
+                                 "from x is not the forward's out > 0")
+        ref = instance_norm_bwd_plain(xd, gd, stats, relu).float()
+        got = instance_norm_bwd_cuda(xd, gd, stats, relu).float()
+        err = (got - ref).abs()
+        if dtype == torch.float32:
+            ok, bound = float(err.max()) <= 1e-5, "abs 1e-5"
+        else:
+            ok = bool((err <= 2 ** -7 * ref.abs() + 1e-5).all())
+            bound = "2^-7 |dx| + 1e-5"
+            worst = float(err.max())
+        log("kernels", f"instance_norm_bwd {dtype} {shape} relu={relu}: "
+            f"max|err| {float(err.max()):.3e} (bound {bound})")
+        if not ok:
+            raise AssertionError(f"instance_norm_bwd {dtype} {shape} "
+                                 f"relu={relu}: {float(err.max())}")
+    return worst
+
+
+# the inputs of one timed call are rotated over copies that together exceed
+# this, so that no call finds its input in the 50 MB L2 cache
+ROTATION_BYTES = 128 << 20
+
+
+def rotation(*tensors: torch.Tensor) -> list:
+    """Copies of ``tensors`` as a list of tuples, at least four, the first
+    tensor's copies larger in sum than ``ROTATION_BYTES``."""
+    n = max(4, -(-ROTATION_BYTES // nbytes(tensors[0])))
+    return [tuple(t.clone() for t in tensors) for _ in range(n)]
+
+
+def rotating(fn, sets: list):
+    """``fn(*sets[i])`` with i going round the sets from call to call, and
+    with it the allocator's blocks for the results."""
+    turn, kept = [0], [None] * len(sets)
+
+    def call():
+        turn[0] += 1
+        i = turn[0] % len(sets)
+        # the results stay alive for a round, so the outputs rotate too
+        kept[i] = fn(*sets[i])
+        return kept[i]
+    call.rounds = len(sets)
+    return call
+
+
+def plan_facts(x: torch.Tensor, backward: bool) -> dict:
+    """The launch plan of the instance norm on x, as the entry states it."""
+    from nirgan_tpu_torch.ops.instance_norm import launch_plan, max_active_clusters
+
+    b, h, w, c = x.shape
+    plan = launch_plan(b, h * w, c, x.element_size(), backward)
+    facts = dict(regime=plan.regime, group=plan.group, cluster=plan.cluster,
+                 threads=plan.threads, smem_bytes=plan.smem_bytes,
+                 slabs=plan.slabs)
+    if plan.regime == "resident":
+        facts["max_active_clusters"] = max_active_clusters(x, plan, backward)
+    return facts
+
+
+def norm_times(xb: torch.Tensor, relu: bool, skip: bool = False) -> tuple:
+    """bf16 kernel B, plain and library ms on rotated copies of xb (and of a
+    residual, with ``skip``), the bound, and the plan with the kernel's time
+    on one input (``warm_ms``).  The library call is ``F.instance_norm`` on
+    the NCHW view: the norm alone, without the ReLU or the skip that the
+    kernel fuses."""
     import torch.nn.functional as F
 
     from nirgan_tpu_torch.ops.instance_norm import (
@@ -399,18 +533,72 @@ def norm_times(xb: torch.Tensor, relu: bool) -> tuple:
         instance_norm_plain,
     )
 
-    xn = xb.permute(0, 3, 1, 2)
+    sets = rotation(xb, torch.randn_like(xb)) if skip else rotation(xb)
+
+    def call(fn):
+        return rotating(lambda x, r=None: fn(x, relu=relu, residual=r), sets)
+
     ms, plain_ms, lib_ms = compare_ms(
-        lambda: instance_norm_cuda(xb, relu=relu),
-        lambda: instance_norm_plain(xb, relu=relu),
-        lambda: F.instance_norm(xn, eps=1e-5), iters=10, run_ahead=True)
-    # one read, one write; about 8 f32 operations an element
-    least = least_time(0, 2 * nbytes(xb))
-    gbs = 3 * xb.numel() * 2 / (ms * 1e-3) / 1e9
-    log("kernels", f"instance_norm bf16 {tuple(xb.shape)} relu={relu}: kernel "
-        f"{ms:.4f} ms ({gbs:.0f} GB/s at 3 passes), plain {plain_ms:.4f} ms, "
-        f"F.instance_norm {lib_ms:.4f} ms, bound {least[0]:.4f} ms ({least[1]})")
-    return ms, plain_ms, lib_ms, least
+        call(instance_norm_cuda), call(instance_norm_plain),
+        rotating(lambda x, r=None: F.instance_norm(x.permute(0, 3, 1, 2), eps=1e-5),
+                 sets), iters=10, run_ahead=True)
+    warm_ms = time_ms(lambda: instance_norm_cuda(xb, relu=relu, residual=sets[0][-1]
+                                                 if skip else None),
+                      iters=10, run_ahead=True)
+    # x (and the residual) read once, y written once; about 8 f32
+    # operations an element
+    least = least_time(0, (3 if skip else 2) * nbytes(xb))
+    facts = plan_facts(xb, False)
+    log("kernels", f"instance_norm bf16 {tuple(xb.shape)} relu={relu} skip={skip}: "
+        f"kernel {ms:.4f} ms over {len(sets)} rotated inputs "
+        f"({least[0] / ms * 100:.0f}% of the bound {least[0]:.4f} ms, {least[1]}), "
+        f"{warm_ms:.4f} ms on one input, plain {plain_ms:.4f} ms, F.instance_norm "
+        f"{lib_ms:.4f} ms; plan {facts}")
+    return ms, plain_ms, lib_ms, least, dict(warm_ms=warm_ms, relu=relu, skip=skip,
+                                             **facts)
+
+
+def bwd_times(xb: torch.Tensor, gb: torch.Tensor, relu: bool) -> tuple:
+    """bf16 kernel B4, plain and library ms on rotated copies of x and the
+    cotangent, the bound and the plan.  The library call, timed only without
+    the ReLU (no single call masks too), is
+    ``aten.native_batch_norm_backward`` on the (1, B C, H, W) view with the
+    saved mean and inverse std: what autograd runs under
+    ``F.instance_norm``."""
+    from nirgan_tpu_torch.ops.instance_norm import (
+        instance_norm_bwd_cuda,
+        instance_norm_bwd_plain,
+        instance_norm_cuda,
+    )
+
+    b, h, w, c = xb.shape
+    _, stats = instance_norm_cuda(xb, relu=relu, return_stats=True)
+    sets = rotation(xb, gb)
+    library = None
+    if not relu:
+        mean, invstd = stats[:, 0].reshape(-1), stats[:, 1].reshape(-1)
+        nchw = [tuple(t.permute(0, 3, 1, 2).contiguous().view(1, b * c, h, w)
+                      for t in pair) for pair in sets]
+        library = rotating(
+            lambda x, g: torch.ops.aten.native_batch_norm_backward(
+                g, x, None, None, None, mean, invstd, True, 1e-5,
+                [True, False, False]), nchw)
+    ms, plain_ms, lib_ms = compare_ms(
+        rotating(lambda x, g: instance_norm_bwd_cuda(x, g, stats, relu), sets),
+        rotating(lambda x, g: instance_norm_bwd_plain(x, g, stats, relu), sets),
+        library, iters=10, run_ahead=True)
+    warm_ms = time_ms(lambda: instance_norm_bwd_cuda(xb, gb, stats, relu),
+                      iters=10, run_ahead=True)
+    # the function needs x, the cotangent and the statistics in and dx out,
+    # with or without the ReLU, whose mask follows from x and the statistics
+    least = least_time(0, nbytes(xb, gb, stats) + nbytes(xb))
+    facts = plan_facts(xb, True)
+    log("kernels", f"instance_norm_bwd bf16 {tuple(xb.shape)} relu={relu}: kernel "
+        f"{ms:.4f} ms over {len(sets)} rotated inputs ({least[0] / ms * 100:.0f}% of "
+        f"the bound {least[0]:.4f} ms, {least[1]}), {warm_ms:.4f} ms on one input, "
+        f"plain {plain_ms:.4f} ms, aten.native_batch_norm_backward "
+        f"{'not timed' if lib_ms is None else f'{lib_ms:.4f} ms'}; plan {facts}")
+    return ms, plain_ms, lib_ms, least, dict(warm_ms=warm_ms, relu=relu, **facts)
 
 
 def phase_kernels() -> None:
@@ -425,14 +613,17 @@ def phase_kernels() -> None:
     # --- A at the trunk's shape in serving and in training
     serving = (BATCH, SIDE // 4, SIDE // 4, 256)
     train = (TRAIN_BATCH, TRAIN_SIDE // 4, TRAIN_SIDE // 4, 256)
-    e1, *s_times = check_trunk(g, serving)
-    e2, *t_times = check_trunk(g, train)
+    e1, *s_times, s_valid = check_trunk(g, serving)
+    e2, *t_times, t_valid = check_trunk(g, train)
     # bf16 shapes the wgmma kernel does not take run the WMMA kernel
     check_trunk(g, (2, 40, 40, 128), co=128, timed=False)
     check_trunk(g, (2, 40, 40, 32), co=256, timed=False)
     RESULTS["trunk_conv"] = entry(
         "trunk_conv", "trunk_conv.cu", "nirgan_tpu/ops/pallas_trunk.py:240",
-        max(e1, e2), (train, *t_times), (serving, *s_times))
+        max(e1, e2), (train, *t_times), (serving, *s_times), pad0=t_valid,
+        pad0_serving=s_valid)
+    for key in ("pad0", "pad0_serving"):
+        RESULTS["trunk_conv"][key]["replaces"] = "nirgan_tpu/ops/pallas_trunk.py:105"
 
     # --- C at the head's input in serving and in training (reflect-padded
     # by 3 around the generator's input side)
@@ -448,95 +639,97 @@ def phase_kernels() -> None:
     torch.cuda.synchronize()
 
 
+def norm_shapes() -> tuple[list, list]:
+    """The instance norm's shapes on the main path: the serving forward's
+    three, and the train step's six (G at 276^2, 138^2, 69^2; D at 64^2,
+    32^2, 31^2, where C = 512 is the PatchGAN's norm3)."""
+    n, s = BATCH, SIDE
+    serving = [(n, s, s, 64), (n, s // 2, s // 2, 128), (n, s // 4, s // 4, 256)]
+    n, s = TRAIN_BATCH, TRAIN_SIDE
+    train = [(n, s, s, 64), (n, s // 2, s // 2, 128), (n, s // 4, s // 4, 256),
+             (n, 64, 64, 128), (n, 32, 32, 256), (n, 31, 31, 512)]
+    return serving, train
+
+
 def phase_norms(g: torch.Generator) -> None:
     """Kernel B at the serving forward's three IN shapes; B and B4 at the
-    train step's six (G at 276^2, 138^2, 69^2; D at 64^2, 32^2, 31^2, where
-    C = 512 is the PatchGAN's norm3), ReLU fused and not."""
-    from nirgan_tpu_torch.ops.instance_norm import (
-        instance_norm_bwd_cuda,
-        instance_norm_bwd_plain,
-        instance_norm_cuda,
-    )
+    train step's six; ReLU fused and not, the skip fused and not; both again
+    at small odd shapes on either side of the two regimes."""
+    from nirgan_tpu_torch.ops.instance_norm import _launch, launch_plan
 
     dev = torch.device("cuda")
-    worst = 0.0
-    s = SIDE
-    for shape in ((BATCH, s, s, 64), (BATCH, s // 2, s // 2, 128),
-                  (BATCH, s // 4, s // 4, 256)):
+    serving_shapes, train_shapes = norm_shapes()
+    worst = worst_bwd = 0.0
+    fwd_all, bwd_all = [], []
+    for shape in serving_shapes + train_shapes:
+        train = shape in train_shapes
         x = torch.randn(shape, device=dev, generator=g) * 3.0 + 1.5
-        for relu in (False, True):
-            worst = max(worst, check_norm(x, relu))
-        # the last is the shape of 19 of the 23 calls a serving forward makes
-        serving = (shape, *norm_times(x.bfloat16(), True))
-
-    # B4: both sides take the kernel's forward statistics and output, which
-    # check_norm has just held against the plain forward.  f32: the same
-    # f32 formula with sums in another order: abs 1e-5.  bf16: both compute
-    # in f32 from the same bf16 inputs and round dx once, so where an f32
-    # sum in another order straddles a rounding boundary the two differ by
-    # one bf16 step: |err| <= 2^-7 |dx| (+ 1e-5 for the f32 difference)
-    n, s = TRAIN_BATCH, TRAIN_SIDE
-    shapes = [(n, s, s, 64), (n, s // 2, s // 2, 128), (n, s // 4, s // 4, 256),
-              (n, 64, 64, 128), (n, 32, 32, 256), (n, 31, 31, 512)]
-    worst_bwd = 0.0
-    for i, shape in enumerate(shapes):
-        x = torch.randn(shape, device=dev, generator=g) * 3.0 + 1.5
+        r = torch.randn(shape, device=dev, generator=g)
         dy = torch.randn(shape, device=dev, generator=g)
         for relu in (False, True):
-            worst = max(worst, check_norm(x, relu))
-            for dtype in (torch.float32, torch.bfloat16):
-                xd, gd = x.to(dtype), dy.to(dtype)
-                y, stats = instance_norm_cuda(xd, relu=relu, return_stats=True)
-                out = y if relu else None
-                ref = instance_norm_bwd_plain(xd, gd, stats, out).float()
-                got = instance_norm_bwd_cuda(xd, gd, stats, out).float()
-                err = (got - ref).abs()
-                if dtype == torch.float32:
-                    ok, bound = float(err.max()) <= 1e-5, "abs 1e-5"
-                else:
-                    ok = bool((err <= 2 ** -7 * ref.abs() + 1e-5).all())
-                    bound = "2^-7 |dx| + 1e-5"
-                    worst_bwd = max(worst_bwd, float(err.max()))
-                log("kernels", f"instance_norm_bwd {dtype} {shape} relu={relu}: "
-                    f"max|err| {float(err.max()):.3e} (bound {bound})")
-                if not ok:
-                    raise AssertionError(f"instance_norm_bwd {dtype} {shape} "
-                                         f"relu={relu}: {float(err.max())}")
+            for residual in (None, r):
+                worst = max(worst, check_norm(x, relu, residual))
+            if train:
+                worst_bwd = max(worst_bwd, check_norm_bwd(x, dy, relu))
+        del r
+        # time each shape with the ReLU flag the path uses there: fused in
+        # the generator, not in the PatchGAN
+        relu = shape[3] != 512 and shape[1] not in (64, 32)
         xb, gb = x.bfloat16(), dy.bfloat16()
+        del x, dy
+        fwd = (shape, *norm_times(xb, relu))
+        fwd_all.append(times(*fwd))
+        if train:
+            bwd = (shape, *bwd_times(xb, gb, relu))
+            bwd_all.append(times(*bwd))
+        if shape == serving_shapes[2]:
+            # the shape of 19 of the 23 calls a serving forward makes: 10
+            # with the ReLU fused (nd1, each block's norm1), 9 with the skip
+            serving, serving_skip = fwd, (shape, *norm_times(xb, False, skip=True))
+        if shape == train_shapes[2]:
+            # and of 19 of the 32 calls a step makes in each direction
+            train_fwd, train_bwd = fwd, bwd
+            train_skip = (shape, *norm_times(xb, False, skip=True))
+            train_bwd_no_relu = (shape, *bwd_times(xb, gb, False))
+        del xb, gb
+        torch.cuda.empty_cache()
 
-        def bwd_times(relu: bool) -> tuple:
-            y, stats = instance_norm_cuda(xb, relu=relu, return_stats=True)
-            out = y if relu else None
-            ms, plain_ms = compare_ms(
-                lambda: instance_norm_bwd_cuda(xb, gb, stats, out),
-                lambda: instance_norm_bwd_plain(xb, gb, stats, out),
-                iters=10, run_ahead=True)
-            # the function needs x, the cotangent and the statistics in and
-            # dx out, with or without the ReLU, whose mask follows from x
-            # and the mean; that the kernel reads the saved output for it
-            # is its design's cost, not the bound's.  No single PyTorch
-            # call does this
-            least = least_time(0, nbytes(xb, gb, stats) + nbytes(xb))
-            gbs = (5 + relu) * xb.numel() * 2 / (ms * 1e-3) / 1e9
-            log("kernels", f"instance_norm_bwd bf16 {shape} relu={relu}: kernel "
-                f"{ms:.4f} ms ({gbs:.0f} GB/s at {5 + relu} passes), plain "
-                f"{plain_ms:.4f} ms, bound {least[0]:.4f} ms ({least[1]})")
-            return ms, plain_ms, None, least
+    # small shapes around the regimes' borders: channel groups of 32 (C not
+    # a multiple of 64), one pixel, a C that only the streaming kernels take
+    for shape in ((3, 7, 9, 96), (2, 1, 1, 64), (2, 1, 1, 8), (2, 9, 7, 24),
+                  (2, 5, 5, 520)):
+        x = torch.randn(shape, device=dev, generator=g) * 3.0 + 1.5
+        r = torch.randn(shape, device=dev, generator=g)
+        dy = torch.randn(shape, device=dev, generator=g)
+        log("kernels", f"instance_norm {shape}: plans forward "
+            f"{plan_facts(x.bfloat16(), False)}, backward {plan_facts(x, True)}")
+        for relu in (False, True):
+            for residual in (None, r):
+                check_norm(x, relu, residual)
+            check_norm_bwd(x, dy, relu)
+        # a plan that the kernels do not take is refused, not repaired
+        plan = launch_plan(shape[0], shape[1] * shape[2], shape[3], 4, False)
+        for bad in (plan._replace(threads=128), plan._replace(group=16),
+                    plan._replace(group=64)):
+            try:
+                _launch(x, 1e-5, False, None, plan=bad)
+            except RuntimeError as e:
+                log("kernels", f"instance_norm {shape} refuses {bad}: {e}")
+            else:
+                raise AssertionError(f"instance_norm {shape} took {bad}")
 
-        # time each shape with the ReLU flag the step uses there
-        relu = i < 3
-        fwd, bwd = norm_times(xb, relu), bwd_times(relu)
-        if i == 2:
-            # the shape of 19 of the 32 calls a step makes: 10 with the
-            # ReLU fused (nd1 and each block's norm1), 9 without (norm2)
-            train_fwd, train_bwd = (shape, *fwd), (shape, *bwd)
-            train_bwd_no_relu = (shape, *bwd_times(False))
     source, replaces = "instance_norm.cu", "nirgan_tpu/ops/pallas_kernels.py:130"
     RESULTS["instance_norm"] = entry("instance_norm", source, replaces, worst,
-                                     train_fwd, serving)
+                                     train_fwd, serving, with_skip=train_skip,
+                                     serving_with_skip=serving_skip)
+    RESULTS["instance_norm"]["shapes"] = fwd_all
     RESULTS["instance_norm_bwd"] = entry("instance_norm_bwd", source, replaces,
                                          worst_bwd, train_bwd,
                                          no_relu=train_bwd_no_relu)
+    RESULTS["instance_norm_bwd"]["shapes"] = bwd_all
+    shares = [e["bound_ms"] / e["ms"] for e in fwd_all + bwd_all]
+    if max(shares) > 1.0:
+        raise AssertionError(f"a kernel under its bound: {fwd_all + bwd_all}")
 
 
 def phase_convt_bwd(g: torch.Generator) -> None:
@@ -900,10 +1093,9 @@ PROFILE_GROUPS = (
     ("trunk_conv_", "kernel A, WMMA / SIMT"),
     ("convt_dw_", "B5 dW and its reduce"),
     ("convt_dx_", "B5 dx, WMMA / SIMT"),
-    ("in_backward", "B4 IN backward"),
-    ("in_partial", "B and B4 partial sums"),
-    ("in_finalize", "B and B4 finalize"),
-    ("in_normalize", "B IN normalize"),
+    ("in_resident_kernel", "resident, one launch a call"),
+    ("in_partial_kernel", "streaming sums"),
+    ("in_apply_kernel", "streaming elementwise"),
     ("head_conv_kernel", "C head"),
     ("reflection_pad", "reflect pad"),
     ("multi_tensor_apply", "Adam"),
@@ -938,12 +1130,19 @@ def profile_window(what: str, fn, iters: int) -> None:
         total = ev.device_time_total
         label = next((g for frag, g in PROFILE_GROUPS if frag in ev.key),
                      "other: " + ev.key[:60])
+        if "::in_" in ev.key or ev.key.startswith("in_"):
+            # the instance norm's kernels are templates on <type, backward>
+            backward = any(t in ev.key for t in (", true>", ",true>", "(bool)1>"))
+            label = f"{'B4 IN backward' if backward else 'B IN forward'}, {label}"
         ms, n = groups.get(label, (0.0, 0))
         groups[label] = (ms + total / 1e3, n + ev.count)
     busy = sum(ms for ms, _ in groups.values())
     log("profile", f"{what}: device busy {busy / iters:.3f} ms a call")
     for label, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         log("profile", f"  {ms / iters:8.3f} ms  {n / iters:7.1f} launches  {label}")
+    norms = [v for label, v in groups.items() if label.startswith(("B IN", "B4 IN"))]
+    log("profile", f"  B + B4 together: {sum(ms for ms, _ in norms) / iters:.3f} ms in "
+        f"{sum(n for _, n in norms) / iters:.1f} CUDA launches a call")
 
 
 def phase_profile() -> None:
@@ -998,6 +1197,117 @@ def phase_profile() -> None:
     profile_window("train step, plain route", plain(step), 5)
 
 
+def phase_sweep() -> None:
+    """``python3 chip_smoke.py --sweep``: kernels B and B4 in bf16 at every
+    main-path shape under every launch plan they take (resident with each
+    cluster size that fits, 256 and 512 threads; streaming), each held against the chosen plan's result and timed over
+    rotated inputs."""
+    from nirgan_tpu_torch.ops.instance_norm import (
+        _launch,
+        _launch_bwd,
+        instance_norm_cuda,
+        launch_plan,
+        resident_plans,
+        streaming_plan,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    serving_shapes, train_shapes = norm_shapes()
+    for shape in serving_shapes + train_shapes:
+        b, h, w, c = shape
+        xb = (torch.randn(shape, device="cuda", generator=g) * 3.0 + 1.5).bfloat16()
+        gb = torch.randn(shape, device="cuda", generator=g).bfloat16()
+        _, stats = instance_norm_cuda(xb, relu=True, return_stats=True)
+        sets = rotation(xb, gb)
+        for backward in (False, True) if shape in train_shapes else (False,):
+            chosen = launch_plan(b, h * w, c, 2, backward)
+            plans = [p._replace(threads=t)
+                     for p in resident_plans(h * w, c, 2, backward)
+                     for t in (256, 512)] + [streaming_plan(b, h * w, c, 2)]
+
+            def run(x, dy, plan):
+                if backward:
+                    return _launch_bwd(x, dy, stats, True, plan=plan)
+                return _launch(x, 1e-5, True, None, plan=plan)[0]
+
+            ref = run(xb, gb, chosen).float()
+            moved = nbytes(xb) * (3 if backward else 2)
+            for plan in plans:
+                err = float((run(xb, gb, plan).float() - ref).abs().max())
+                ms = time_ms(rotating(lambda x, dy: run(x, dy, plan), sets),
+                             iters=10, run_ahead=True)
+                log("sweep", f"{'B4' if backward else 'B '} {shape} {plan.regime} "
+                    f"cluster {plan.cluster} threads "
+                    f"{plan.threads} smem {plan.smem_bytes}: {ms:.4f} ms "
+                    f"({moved / PEAK_BYTES_PER_S * 1e5 / ms:.0f}% of the bound), "
+                    f"max|diff| to the chosen plan {err:.3e}"
+                    f"{'  <- chosen' if plan == chosen else ''}")
+        del sets, xb, gb
+        torch.cuda.empty_cache()
+
+
+def device_launches(fn) -> int:
+    """The kernels and device copies that one call of ``fn`` runs on the
+    card, counted by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not ev.is_user_annotation and ev.device_time_total)
+
+
+def plan_entries(node):
+    """Every dict under ``node`` that states a launch plan."""
+    if isinstance(node, dict):
+        if "regime" in node:
+            yield node
+        node = list(node.values())
+    if isinstance(node, list):
+        for child in node:
+            yield from plan_entries(child)
+
+
+def phase_norm_launches() -> None:
+    """Counts what one call of B and of B4 launches on the card at every
+    shape that ``phase_norms`` timed, writes it into the entries as
+    ``cuda_launches`` and holds it to the regime: one launch where the plan
+    is resident, two where it streams."""
+    from nirgan_tpu_torch.ops.instance_norm import (
+        instance_norm_bwd_cuda,
+        instance_norm_cuda,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    counted: dict = {}
+    for name, backward in (("instance_norm", False), ("instance_norm_bwd", True)):
+        for e in plan_entries(RESULTS[name]):
+            key = (backward, e["shape"], e["relu"], e.get("skip", False))
+            if key not in counted:
+                shape = ast.literal_eval(e["shape"])
+                xb, rb, gb = ((torch.randn(shape, device="cuda", generator=g) * 3.0
+                               + 1.5).bfloat16() for _ in range(3))
+                if backward:
+                    _, stats = instance_norm_cuda(xb, relu=e["relu"],
+                                                  return_stats=True)
+                    counted[key] = device_launches(
+                        lambda: instance_norm_bwd_cuda(xb, gb, stats, e["relu"]))
+                else:
+                    counted[key] = device_launches(lambda: instance_norm_cuda(
+                        xb, relu=e["relu"], residual=rb if e["skip"] else None))
+                log("launches", f"{name} {e['shape']} relu={e['relu']} "
+                    f"skip={e.get('skip', False)}: {counted[key]} on the card a "
+                    f"call ({e['regime']})")
+            e["cuda_launches"] = counted[key]
+            if counted[key] != (1 if e["regime"] == "resident" else 2):
+                raise AssertionError(f"{name} {e['shape']}: {counted[key]} launches "
+                                     f"a call in the {e['regime']} regime")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -1009,11 +1319,15 @@ def main() -> None:
     if sys.argv[1:] == ["--profile"]:
         phase_profile()
         return
+    if sys.argv[1:] == ["--sweep"]:
+        phase_sweep()
+        return
     phase_kernels()
     per_forward = phase_generator()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         serving = phase_serving(tmp)
         launches, per_step = phase_train(tmp)
+    phase_norm_launches()
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the training path was not launched: "
                              f"{launches}")

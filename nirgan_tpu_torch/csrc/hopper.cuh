@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the wgmma kernels of this
-// directory: mbarriers, cp.async and bulk copies into a ring of shared-memory
-// stages, 128-byte-swizzled wgmma descriptors and the wgmma instructions
-// themselves.  Everything is inline PTX; nothing here launches a kernel.
+// Hopper (sm_90a) building blocks shared by the kernels of this directory:
+// mbarriers, cp.async (signalled through an mbarrier, as the wgmma kernels
+// do, or waited for by commit groups, as the instance norm does) and bulk
+// copies into shared memory, 128-byte-swizzled wgmma descriptors and the
+// wgmma instructions themselves.  Everything is inline PTX; nothing here
+// launches a kernel.
 //
 // Shared-memory operand tiles are rows of 128 bytes (64 bf16) in the
 // 128-byte swizzle: the 16-byte chunk c of row r lies at chunk c ^ (r % 8),
@@ -86,6 +88,17 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
                    bar)
                : "memory");
+}
+
+// closes the group of this thread's cp.async copies started since the last one
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's newest groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // `bytes` contiguous bytes global -> shared by the copy engine; the bytes

@@ -5,8 +5,8 @@
 c7s1-64, d128, d256, R256 x n, u128, u64, c7s1-out, tanh, on NHWC
 activations.  The trunk convs run through kernel A (``ops/trunk_conv.py``,
 reflect border inside the kernel), every instance norm through kernels B
-and B4 (with the following ReLU fused), the head through kernel C
-(``ops/head_conv.py``, bias and tanh fused), and the two transposed convs'
+and B4 (with the following ReLU or a block's skip fused), the head through
+kernel C (``ops/head_conv.py``, bias and tanh fused), and the two transposed convs'
 backward through kernel B5.  The stem, the two downsampling convs and the
 transposed convs' forward stay on PyTorch's convolutions, as do the
 backward of every conv but the transposed ones.  The TPU
@@ -45,7 +45,8 @@ def _check_supported(padding_type: str, use_dropout: bool) -> None:
 class ResnetBlock(nn.Module):
     """pad -> conv3 -> norm -> relu -> pad -> conv3 -> norm, plus identity
     skip (reference ``model/networks.py:377-434``); each pad + conv is one
-    call of kernel A."""
+    call of kernel A, and the skip is added inside the second norm's
+    kernel."""
 
     def __init__(self, dim: int, padding_type: str = "reflect",
                  norm_type: str = "instance", use_dropout: bool = False,
@@ -61,7 +62,7 @@ class ResnetBlock(nn.Module):
         h = trunk_conv(x, self.conv1.weight, self.conv1.bias)
         h = self.norm1(h, relu=True)
         h = trunk_conv(h, self.conv2.weight, self.conv2.bias)
-        return x + self.norm2(h)
+        return self.norm2(h, residual=x)
 
 
 class ResnetGenerator(nn.Module):

@@ -73,8 +73,9 @@ class TorchConvTranspose(_Conv):
 class Norm(nn.Module):
     """Norm-layer dispatch of the reference ``get_norm_layer``: "instance"
     (affine-free, no running stats) or "none".  "batch" is not ported yet.
-    ``relu=True`` applies the ReLU that follows the norm in the generator
-    (fused into the instance-norm kernel on a card)."""
+    ``relu=True`` applies the ReLU that follows the norm in the generator,
+    and ``residual`` is added to the result, a residual block's skip (both
+    fused into the instance-norm kernel on a card)."""
 
     def __init__(self, norm_type: str = "instance"):
         super().__init__()
@@ -83,10 +84,12 @@ class Norm(nn.Module):
                 f"normalization layer [{norm_type}] is not ported yet")
         self.norm_type = norm_type
 
-    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.norm_type == "instance":
-            return instance_norm(x, relu=relu)
-        return torch.relu(x) if relu else x
+            return instance_norm(x, relu=relu, residual=residual)
+        y = torch.relu(x) if relu else x
+        return y if residual is None else residual + y
 
 
 def use_bias_for(norm_type: str) -> bool:

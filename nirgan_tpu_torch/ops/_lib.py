@@ -44,10 +44,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "nirgan_trunk_conv": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _P),
-    "nirgan_instance_norm": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
-                             _P),
-    "nirgan_instance_norm_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                 _I, _I, _P),
+    "nirgan_instance_norm": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _F, _I, _P),
+    "nirgan_instance_norm_bwd": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _P),
+    "nirgan_instance_norm_max_clusters": (_I, _I, _I, _I, _I, _I, _I, _I),
     "nirgan_head_conv": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _P),
     "nirgan_convt_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _P),

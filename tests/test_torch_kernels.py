@@ -185,12 +185,171 @@ def test_instance_norm_bwd_matches_pallas_vjp(shape, relu):
 
     ref = np.asarray(jax.grad(loss)(jnp.asarray(x)))
     xt = torch.from_numpy(x)
-    y, stats = in_mod.instance_norm_plain(xt, relu=relu, return_stats=True)
+    _, stats = in_mod.instance_norm_plain(xt, relu=relu, return_stats=True)
     assert tuple(stats.shape) == (shape[0], 2, shape[3])
-    got = in_mod.instance_norm_bwd_plain(xt, torch.from_numpy(w), stats,
-                                         y if relu else None)
+    got = in_mod.instance_norm_bwd_plain(xt, torch.from_numpy(w), stats, relu)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
     _assert_no_launches()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instance_norm_relu_mask_from_x_equals_out_positive(dtype):
+    """The backward takes the fused ReLU's mask from x and the statistics,
+    rounded as the forward rounds; it must be ``out > 0`` bit for bit, also
+    where x equals the rounded mean (the forward's value is then +0)."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy((rng.standard_normal((2, 9, 7, 16)) * 3.0 + 1.5)
+                         .astype(np.float32)).to(dtype)
+    for _ in range(2):  # plant the rounded means, then once more on the new ones
+        _, stats = in_mod.instance_norm_plain(x, relu=True, return_stats=True)
+        x[:, 2, 3, :] = stats[:, 0, :].to(dtype)
+        x[:, 5, 1, ::2] = stats[:, 0, ::2].to(dtype)
+    out, stats = in_mod.instance_norm_plain(x, relu=True, return_stats=True)
+    mask = in_mod._normalized(x, stats) > 0
+    assert torch.equal(mask, out > 0)
+    planted = x == stats[:, 0, None, None, :].to(dtype)
+    assert not bool(mask[planted].any())
+    if dtype == torch.bfloat16:  # the rounded mean outlives the planting
+        assert int(planted.sum()) >= 16
+    # and the backward built on it is the one built on the saved output
+    g = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)).to(dtype)
+    want = in_mod.instance_norm_bwd_plain(x, (g.float() * (out > 0)).to(dtype),
+                                          stats, relu=False)
+    got = in_mod.instance_norm_bwd_plain(x, g, stats, relu=True)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [False, True])
+def test_instance_norm_residual_is_added_after_the_norm(dtype, relu):
+    """``instance_norm(x, residual=r)`` is ``r + instance_norm(x)`` bit for
+    bit: the two roundings of the block's ``x + norm(h)``."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((2, 6, 5, 16)).astype(np.float32)).to(dtype)
+    r = torch.from_numpy(rng.standard_normal((2, 6, 5, 16)).astype(np.float32)).to(dtype)
+    got = instance_norm(x, relu=relu, residual=r)
+    assert got.dtype == dtype
+    assert torch.equal(got, r + instance_norm(x, relu=relu))
+    _assert_no_launches()
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel stand-ins"])
+def test_instance_norm_residual_gradients_match_jax(route, monkeypatch):
+    """Gradients of the block's ``x + norm(h)`` to x (the skip, passed on
+    unchanged) and to h, vs ``jax.grad`` of the JAX formula, f32 atol 1e-5;
+    on the CPU route and with the kernel wrappers stood in for."""
+    rng = np.random.default_rng(13)
+    shape = (2, 8, 6, 16)
+    h = (rng.standard_normal(shape) * 2.0 + 0.5).astype(np.float32)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = rng.standard_normal(shape).astype(np.float32)
+
+    def loss(skip, a):
+        return jnp.sum((skip + jax_instance_norm(a)) * jnp.asarray(w))
+
+    ref_x, ref_h = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(h))
+    if route != "plain":
+        _kernel_standins(monkeypatch)
+    xt = torch.from_numpy(x).requires_grad_()
+    ht = torch.from_numpy(h).requires_grad_()
+    out = instance_norm(ht, residual=xt)
+    assert out.grad_fn is not None
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref_x), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ht.grad.numpy(), np.asarray(ref_h), rtol=0, atol=1e-5)
+    _assert_no_launches()
+
+
+# the instance norm's shapes on the main path: the train step's six (G at
+# 276^2, 138^2, 69^2; D at 64^2, 32^2, 31^2) and the serving forward's three
+_KB = 1024
+@pytest.mark.parametrize("b,hw,c,backward,regime", [
+    (16, 69 * 69, 256, False, "resident"), (16, 69 * 69, 256, True, "resident"),
+    (4, 133 * 133, 256, False, "resident"),
+    (16, 138 * 138, 128, False, "resident"), (16, 138 * 138, 128, True, "streaming"),
+    (16, 64 * 64, 128, False, "resident"), (16, 64 * 64, 128, True, "resident"),
+    (16, 32 * 32, 256, False, "resident"), (16, 32 * 32, 256, True, "resident"),
+    (16, 31 * 31, 512, False, "resident"), (16, 31 * 31, 512, True, "resident"),
+    (16, 276 * 276, 64, False, "streaming"), (16, 276 * 276, 64, True, "streaming"),
+    (4, 532 * 532, 64, False, "streaming"), (4, 266 * 266, 128, False, "streaming"),
+])
+def test_instance_norm_launch_plan_on_the_main_path(b, hw, c, backward, regime):
+    """Every main-path shape lands in its regime, in bf16; a resident plan
+    is a cluster of 1, 2, 4 or 8 blocks whose slab fits a block's shared
+    memory in rows of at least 32 bytes; f32 doubles the bytes."""
+    plan = in_mod.launch_plan(b, hw, c, 2, backward)
+    assert plan.regime == regime and plan.cuda_launches == (1 if regime == "resident" else 2)
+    assert plan.group * 2 >= 32 and c % plan.group == 0
+    if regime == "resident":
+        assert plan.cluster in (1, 2, 4, 8) and plan.slabs == plan.cluster
+        assert plan.threads in (256, 512) and plan.group == 32
+        rows = -(-hw // plan.cluster)
+        slab = rows * plan.group * 2 * (2 if backward else 1)
+        assert plan.smem_bytes == slab + in_mod._SCRATCH <= in_mod.MAX_SMEM == 232448
+        # the cluster holds the whole slab
+        assert plan.cluster * rows >= hw
+        wide = in_mod.launch_plan(b, hw, c, 4, backward)
+        if wide.regime == "resident":
+            assert wide.smem_bytes - in_mod._SCRATCH == (
+                -(-hw // wide.cluster) * wide.group * 4 * (2 if backward else 1))
+            assert wide.cluster >= plan.cluster
+    else:
+        assert plan.cluster == 1 and plan.smem_bytes == 0 and plan.threads == 256
+        assert 1 <= plan.slabs <= min(hw, 128)
+        rows = -(-hw // plan.slabs)
+        assert plan.slabs * rows >= hw > (plan.slabs - 1) * rows
+
+
+@pytest.mark.parametrize("b,hw,c,itemsize,backward,want", [
+    (2, 25, 8, 2, False, ("streaming", 8)),      # rows of 16 bytes: never resident
+    (2, 25, 24, 2, True, ("streaming", 24)),
+    (2, 25, 520, 2, False, ("streaming", 256)),
+    (2, 25, 520, 4, False, ("streaming", 128)),
+    (1, 1, 64, 2, False, ("resident", 32)),      # one pixel
+    (1, 1, 8, 4, True, ("streaming", 8)),
+    (3, 7, 96, 2, True, ("resident", 32)),       # C % 64 != 0
+    (1, 3, 64, 4, True, ("resident", 32)),
+    (16, 69 * 69, 256, 4, False, ("resident", 32)),
+    (16, 69 * 69, 256, 4, True, ("resident", 32)),
+    (4, 133 * 133, 256, 4, False, ("streaming", 128)),
+])
+def test_instance_norm_launch_plan_odd_shapes(b, hw, c, itemsize, backward, want):
+    plan = in_mod.launch_plan(b, hw, c, itemsize, backward)
+    assert (plan.regime, plan.group) == want
+    assert plan.cluster in (1, 2, 4, 8) and plan.cluster <= hw
+    assert plan.smem_bytes <= in_mod.MAX_SMEM and 1 <= plan.slabs <= hw
+    if plan.regime == "resident":
+        assert plan.group * itemsize >= 32 and c % plan.group == 0
+    else:
+        assert plan.group * itemsize <= 512 and plan.group % (16 // itemsize) == 0
+
+
+def test_instance_norm_plan_constants_match_the_source():
+    """The plan's constants are the kernel's own: the resident channel
+    group, the scratch ahead of the slab, a block's shared memory, the
+    copy groups in flight; and only the private launchers take a plan."""
+    import inspect
+    import pathlib
+    import re
+
+    src = (pathlib.Path(in_mod.__file__).parent.parent / "csrc"
+           / "instance_norm.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("GROUP") == in_mod._GROUP
+    assert (2 * (const("MAX_THREADS") // 32) + 4) * const("GROUP") * 4 == in_mod._SCRATCH
+    assert const("MAX_SMEM") == in_mod.MAX_SMEM
+    assert const("STAGES") == in_mod._STAGES
+    for fn in (in_mod.instance_norm_cuda, in_mod.instance_norm_bwd_cuda):
+        assert "plan" not in inspect.signature(fn).parameters
+
+
+@pytest.mark.parametrize("b,hw,c", [(0, 4, 8), (1, 0, 8), (1, 4, 12), (1, 4, 0)])
+def test_instance_norm_launch_plan_refuses(b, hw, c):
+    with pytest.raises(ValueError, match="no plan"):
+        in_mod.launch_plan(b, hw, c, 2, False)
 
 
 def test_instance_norm_forward_matches_pallas_at_c512():
