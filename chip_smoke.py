@@ -14,10 +14,10 @@ never prints the final ``"ok": true`` line:
    function where there is one (``library_ms``; the port never calls it)
    and the least time the card could take (``bound_ms``): the forward
    kernels at the serving path's shapes (batch 4 of 512^2 tiles padded to
-   532^2), and every kernel at the train step's (batch 16 of 256^2 tiles
-   padded to 276^2; the instance norm at all six, C = 512 included, with
-   the ReLU and the skip fused and not, and at odd shapes on either side
-   of its two regimes).  The trunk conv is timed in both pad modes.  The
+   532^2), and every kernel at the train step's, at the batch of both
+   train configs (16 and 8 of 256^2 tiles padded to 276^2; the instance
+   norm at all six, C = 512 included, with the ReLU and the skip fused and
+   not, and at odd shapes on either side of its two regimes).  The trunk conv is timed in both pad modes.  The
    instance norm is timed over a rotation of inputs larger than the L2
    cache (``ms``) and on one input (``warm_ms``).  The trunk conv and the
    transposed conv's backward are also held at a shape that their wgmma
@@ -25,26 +25,37 @@ never prints the final ``"ok": true`` line:
 3. generator: the full-width ``resnet_9blocks`` (ngf 64), random weights
    from a seed, batch 4 at 532^2 in bf16: kernel path against the plain
    path, launches per forward, forward time; then ``predict_step`` in f32
-   on the card against the same task on the CPU.
+   on the card against the same task on the CPU.  Twice: the plain
+   generator, then the SatCLIP inject generator with embeddings and
+   ``predict_step`` with coordinates.
 4. serving: ``python -m nirgan_tpu_torch.create_synthetic_dataset`` on 8
-   seeded uint16 tiles (HR 512^2 3-band, LR 128^2 4-band) with
-   ``--device cuda --batch-size 4``; launch counts of that run, output
-   checks, agreement with the plain path, and tiles/s of a warm rerun of
-   the CLI.
-5. train: one fused GAN step of the full-width config (batch 16 at 256^2,
-   bf16) on the kernels against the plain route, launches per step, a
-   finite non-zero gradient for every parameter, the same gradients bit
-   for bit from a second run of the seeded step, step times; an f32 step
-   on the card against the same seeded step on the CPU at a small config;
-   then ``python -m nirgan_tpu_torch.train`` for 8 steps on the fake data
-   (two validations, ``last`` and ``best``) and a resume for 2 more.
+   seeded uint16 tiles (HR 512^2 3-band, LR 128^2 4-band, coordinates)
+   with ``--device cuda --batch-size 4``; launch counts of that run,
+   output checks, agreement with the plain path, and tiles/s of a warm
+   rerun of the CLI.  Twice: ``config_px2px.yaml``, then
+   ``config_px2px_SatCLIP.yaml``.
+5. train: one fused GAN step of the full-width config in bf16 on the
+   kernels against the plain route, launches per step, a finite non-zero
+   gradient for every parameter, the same gradients bit for bit from a
+   second run of the seeded step, step times, bare and with
+   ``extract_batch`` (the batch's copies; the SatCLIP tower in line and
+   ahead of time, as the trainer's loader thread runs it); an f32 step on
+   the card
+   against the same seeded step on the CPU at a small config; then
+   ``python -m nirgan_tpu_torch.train`` for 8 steps on the fake data
+   (``last`` and ``best``) and a resume for 2 more.  Twice:
+   ``config_px2px.yaml`` (batch 16 at 256^2), then the flagship
+   ``config_px2px_SatCLIP.yaml`` (inject, batch 8 at 256^2) with the CLI's
+   default arguments.  Then the concat route (6 blocks): one forward and
+   one step, kernels against the plain route.
 6. launches: one call of the instance norm at each timed shape under
    ``torch.profiler``: one kernel where the plan is resident, two where it
    streams.  Last, since an attached profiler slows the host's launches.
 
 ``python3 chip_smoke.py --profile`` instead prints, after phases 0 and 1,
 the device time of the serving forward and of the train step by group of
-kernels under ``torch.profiler`` (no checks, no ``ok`` line).
+kernels under ``torch.profiler``, on the plain and on the inject route, and
+the head's backward on its own (no checks, no ``ok`` line).
 ``python3 chip_smoke.py --sweep`` instead times the instance norm under
 every launch plan its kernels take at the main path's shapes, beside the
 plan that ``launch_plan`` chooses.
@@ -53,7 +64,14 @@ Before the last line it prints one JSON object with every kernel's route,
 source, launches in the training CLI's run (``per_step``: in one fused
 step), error, and times and bound at the train step's ``shape``; a forward
 kernel's ``serving`` entry holds the serving path's shape, times, bound and
-launches (``per_forward``: in one generator forward); the trunk conv's
+launches (``per_forward``: in one generator forward); every kernel's
+``satclip`` entry holds its launches on the SatCLIP inject route (the
+training CLI's default run, one step, the serving CLI, one forward) and its
+``satclip_step`` entry (``satclip_u1`` / ``satclip_u0`` for the transposed
+conv's backward) its times, bound and plan at that route's batch of 8; the
+head's entries state the kernel that ran, the time of the f32-FMA kernel it
+replaced (``old_ms``), the two-call library route and ``share`` =
+``bound_ms / ms``; the trunk conv's
 ``pad0`` entries hold its times on a pre-padded input; the instance norm's
 entries state their launch plan (``regime``, ``cluster``, ``smem_bytes``)
 and the kernels that one call launched on the card under ``torch.profiler``
@@ -82,10 +100,12 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "config_px2px.yaml")
+SATCLIP_CONFIG = os.path.join(ROOT, "configs", "config_px2px_SatCLIP.yaml")
 BATCH = 4
 TILE, LR_TILE, PAD = 512, 128, 10
 SIDE = TILE + 2 * PAD  # 532: the generator's input side at serving
 TRAIN_BATCH, TRAIN_TILE = 16, 256
+SATCLIP_BATCH = 8  # the train batch of config_px2px_SatCLIP.yaml
 TRAIN_SIDE = TRAIN_TILE + 2 * PAD  # 276: the generator's input side in training
 SEED = 0
 # kernel launches of one fused train step of the full-width config: 18
@@ -239,14 +259,19 @@ def phase_build() -> None:
     for line in dump.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-        elif "HGMMA" in line and name:
-            per_kernel[name] = per_kernel.get(name, 0) + 1
-    found = {want: sum(v for k, v in per_kernel.items() if want in k)
-             for want in ("igemm_wgmma_kernelILi256", "igemm_wgmma_kernelILi128",
-                          "convt_dw_wgmma_kernel")}
-    log("build", f"HGMMA (wgmma) instructions: {found}")
+        elif name and ("HGMMA" in line or "HMMA." in line):
+            key = (name, "HGMMA" if "HGMMA" in line else "HMMA")
+            per_kernel[key] = per_kernel.get(key, 0) + 1
+    found = {f"{want} {op}": sum(v for (k, o), v in per_kernel.items()
+                                 if want in k and o == op)
+             for want, op in (("igemm_wgmma_kernelILi256", "HGMMA"),
+                              ("igemm_wgmma_kernelILi128", "HGMMA"),
+                              ("convt_dw_wgmma_kernel", "HGMMA"),
+                              # the head's mma.sync is HMMA.16816
+                              ("head_conv_mma_kernel", "HMMA"))}
+    log("build", f"tensor-core instructions (wgmma = HGMMA, mma.sync = HMMA): {found}")
     if not all(found.values()):
-        raise AssertionError(f"a kernel without wgmma: {found}")
+        raise AssertionError(f"a kernel without its tensor-core instruction: {found}")
 
 
 def entry(name: str, source: str, replaces: str, err: float, train: tuple,
@@ -357,11 +382,21 @@ def check_trunk(g: torch.Generator, shape: tuple, co: int = 256,
     return worst, ms, plain_ms, lib_ms, least, valid
 
 
-def check_head(g: torch.Generator, shape: tuple) -> tuple:
-    """Kernel C against its plain version on x of ``shape`` (B, H, W, 64),
-    f32 and bf16.  Returns the bf16 max |err|, the bf16 kernel, plain and
-    library ms and the bound."""
-    from nirgan_tpu_torch.ops.head_conv import head_conv_cuda, head_conv_plain
+def check_head(g: torch.Generator, shape: tuple, timed: bool = True) -> tuple:
+    """Kernel C against its plain version on x of ``shape`` (B, H, W, 64):
+    f32 (the f32-FMA kernel) and bf16 (the mma.sync kernel).  Returns the
+    bf16 max |err| and, if ``timed``, the bf16 kernel, plain and library ms,
+    the bound, and what only the head states: the time of the f32-FMA
+    kernel on the same bf16 input (``old_ms``), which kernel ran, and the
+    share of the bound."""
+    import torch.nn.functional as F
+
+    from nirgan_tpu_torch.ops.head_conv import (
+        _launch,
+        head_conv_cuda,
+        head_conv_plain,
+        launch_plan,
+    )
 
     dev = torch.device("cuda")
     x = torch.randn(shape, device=dev, generator=g)
@@ -378,16 +413,70 @@ def check_head(g: torch.Generator, shape: tuple) -> tuple:
             f"(bound {bound:.3e})")
         if not err <= bound:
             raise AssertionError(f"head_conv {dtype} {shape}: {err} > {bound}")
+    if not timed:
+        return (err,)
     xb = x.bfloat16()
-    ms, plain_ms = compare_ms(lambda: head_conv_cuda(xb, w, b),
-                              lambda: head_conv_plain(xb, w, b), run_ahead=True)
+    # the f32-FMA kernel still takes bf16 (it is the yardstick below): held
+    # to the same bound
+    old = float((_launch(xb, w, b, False).float()
+                 - head_conv_plain(xb, w, b).float()).abs().max())
+    if not old <= 2 ** -6:
+        raise AssertionError(f"head_conv f32-FMA kernel on bf16 {shape}: {old}")
+    # the closest library route, two calls (no single PyTorch call is conv
+    # + bias + tanh): cuDNN's convolution with the bias on the channels-last
+    # view of the padded input, weight and bias already in bf16, then tanh
+    xn = xb.permute(0, 3, 1, 2)
+    wb = w.bfloat16().contiguous(memory_format=torch.channels_last)
+    bb = b.bfloat16()
+    ms, plain_ms, lib_ms, old_ms = compare_ms(
+        lambda: head_conv_cuda(xb, w, b), lambda: head_conv_plain(xb, w, b),
+        lambda: torch.tanh(F.conv2d(xn, wb, bb)),
+        lambda: _launch(xb, w, b, False), run_ahead=True)
     n, h, wd, c = shape
-    # no single PyTorch call is conv + bias + tanh: library_ms is null
     least = least_time(2 * n * (h - 6) * (wd - 6) * 49 * c,
-                  nbytes(xb, w, b) + n * (h - 6) * (wd - 6) * 2)
-    log("kernels", f"head_conv bf16 {shape}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {least[0]:.4f} ms ({least[1]})")
-    return err, ms, plain_ms, None, least
+                       nbytes(xb, w, b) + n * (h - 6) * (wd - 6) * 2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = launch_plan(n, h - 6, wd - 6, sms)
+    log("kernels", f"head_conv bf16 {shape}: mma.sync kernel {ms:.4f} ms "
+        f"({least[0] / ms * 100:.0f}% of the bound {least[0]:.4f} ms, {least[1]}; "
+        f"runs of {rows} rows), the f32-FMA kernel it replaced {old_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, F.conv2d + torch.tanh (two calls) {lib_ms:.4f} ms")
+    extra = dict(kernel="mma.sync m16n8k16 on a Toeplitz weight, N = 8",
+                 old_ms=old_ms, old_kernel="f32 FMA out of shared memory",
+                 library="F.conv2d with bias, then torch.tanh: two calls, no "
+                         "single call computes it",
+                 share=least[0] / ms, rows_per_run=rows)
+    return err, ms, plain_ms, lib_ms, least, extra
+
+
+def check_head_odd(g: torch.Generator) -> None:
+    """Kernel C at small odd shapes (a width that is no multiple of 8, one
+    output row, one strip with a ragged end, a strip that just fits, two
+    strips), the kept Toeplitz image after an in-place write to the weight,
+    and the refusal of what the mma kernel does not take."""
+    from nirgan_tpu_torch.ops.head_conv import _launch, head_conv_cuda, head_conv_plain
+
+    for shape in ((2, 13, 21, 64), (1, 7, 9, 64), (2, 30, 47, 64),
+                  (1, 23, 70, 64), (3, 40, 77, 64)):
+        check_head(g, shape, timed=False)
+    dev = torch.device("cuda")
+    xb = torch.randn((2, 40, 77, 64), device=dev, generator=g).bfloat16()
+    w = torch.randn((1, 64, 7, 7), device=dev, generator=g) / 56.0
+    b = torch.full((1,), -0.2, device=dev)
+    head_conv_cuda(xb, w, b)
+    w.mul_(-0.5)  # as an optimizer writes: the next launch must see it
+    err = float((head_conv_cuda(xb, w, b).float()
+                 - head_conv_plain(xb, w, b).float()).abs().max())
+    log("kernels", f"head_conv bf16 after an in-place write to the weight: "
+        f"max|err| {err:.3e} (bound {2 ** -6:.3e})")
+    if not err <= 2 ** -6:
+        raise AssertionError(f"head_conv: a stale Toeplitz image, {err}")
+    try:
+        _launch(xb.float(), w, b, True)
+    except RuntimeError as e:
+        log("kernels", f"head_conv: the mma kernel refuses f32: {e}")
+    else:
+        raise AssertionError("head_conv: the mma kernel took an f32 input")
 
 
 def check_norm(x: torch.Tensor, relu: bool,
@@ -610,59 +699,72 @@ def phase_kernels() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(SEED)
 
-    # --- A at the trunk's shape in serving and in training
+    # --- A at the trunk's shape in serving and in training, at both train
+    # configs' batch sizes (the batch sets the tile count and its ragged tail)
     serving = (BATCH, SIDE // 4, SIDE // 4, 256)
     train = (TRAIN_BATCH, TRAIN_SIDE // 4, TRAIN_SIDE // 4, 256)
+    satclip = (SATCLIP_BATCH, TRAIN_SIDE // 4, TRAIN_SIDE // 4, 256)
     e1, *s_times, s_valid = check_trunk(g, serving)
     e2, *t_times, t_valid = check_trunk(g, train)
+    e3, *c_times, c_valid = check_trunk(g, satclip)
     # bf16 shapes the wgmma kernel does not take run the WMMA kernel
     check_trunk(g, (2, 40, 40, 128), co=128, timed=False)
     check_trunk(g, (2, 40, 40, 32), co=256, timed=False)
     RESULTS["trunk_conv"] = entry(
         "trunk_conv", "trunk_conv.cu", "nirgan_tpu/ops/pallas_trunk.py:240",
-        max(e1, e2), (train, *t_times), (serving, *s_times), pad0=t_valid,
-        pad0_serving=s_valid)
-    for key in ("pad0", "pad0_serving"):
+        max(e1, e2, e3), (train, *t_times), (serving, *s_times),
+        satclip_step=(satclip, *c_times), pad0=t_valid, pad0_serving=s_valid,
+        pad0_satclip_step=c_valid)
+    for key in ("pad0", "pad0_serving", "pad0_satclip_step"):
         RESULTS["trunk_conv"][key]["replaces"] = "nirgan_tpu/ops/pallas_trunk.py:105"
 
     # --- C at the head's input in serving and in training (reflect-padded
     # by 3 around the generator's input side)
     serving = (BATCH, SIDE + 6, SIDE + 6, 64)
     train = (TRAIN_BATCH, TRAIN_SIDE + 6, TRAIN_SIDE + 6, 64)
+    satclip = (SATCLIP_BATCH, TRAIN_SIDE + 6, TRAIN_SIDE + 6, 64)
     e1, *s_times = check_head(g, serving)
     e2, *t_times = check_head(g, train)
+    e3, *c_times = check_head(g, satclip)
+    check_head_odd(g)
     RESULTS["head_conv"] = entry(
         "head_conv", "head_conv.cu", "nirgan_tpu/ops/pallas_head.py:135",
-        max(e1, e2), (train, *t_times), (serving, *s_times))
+        max(e1, e2, e3), (train, *t_times), (serving, *s_times),
+        satclip_step=(satclip, *c_times))
     phase_norms(g)
     phase_convt_bwd(g)
     torch.cuda.synchronize()
 
 
-def norm_shapes() -> tuple[list, list]:
+def norm_shapes() -> tuple[list, list, list]:
     """The instance norm's shapes on the main path: the serving forward's
     three, and the train step's six (G at 276^2, 138^2, 69^2; D at 64^2,
-    32^2, 31^2, where C = 512 is the PatchGAN's norm3)."""
+    32^2, 31^2, where C = 512 is the PatchGAN's norm3) at the batch of
+    ``config_px2px.yaml`` and at that of ``config_px2px_SatCLIP.yaml`` (the
+    batch enters the launch plan)."""
     n, s = BATCH, SIDE
     serving = [(n, s, s, 64), (n, s // 2, s // 2, 128), (n, s // 4, s // 4, 256)]
-    n, s = TRAIN_BATCH, TRAIN_SIDE
-    train = [(n, s, s, 64), (n, s // 2, s // 2, 128), (n, s // 4, s // 4, 256),
-             (n, 64, 64, 128), (n, 32, 32, 256), (n, 31, 31, 512)]
-    return serving, train
+    s = TRAIN_SIDE
+    train, satclip = ([(n, s, s, 64), (n, s // 2, s // 2, 128),
+                       (n, s // 4, s // 4, 256), (n, 64, 64, 128),
+                       (n, 32, 32, 256), (n, 31, 31, 512)]
+                      for n in (TRAIN_BATCH, SATCLIP_BATCH))
+    return serving, train, satclip
 
 
 def phase_norms(g: torch.Generator) -> None:
     """Kernel B at the serving forward's three IN shapes; B and B4 at the
-    train step's six; ReLU fused and not, the skip fused and not; both again
-    at small odd shapes on either side of the two regimes."""
+    train step's six, at both train configs' batch sizes; ReLU fused and
+    not, the skip fused and not; both again at small odd shapes on either
+    side of the two regimes."""
     from nirgan_tpu_torch.ops.instance_norm import _launch, launch_plan
 
     dev = torch.device("cuda")
-    serving_shapes, train_shapes = norm_shapes()
+    serving_shapes, train_shapes, satclip_shapes = norm_shapes()
     worst = worst_bwd = 0.0
     fwd_all, bwd_all = [], []
-    for shape in serving_shapes + train_shapes:
-        train = shape in train_shapes
+    for shape in serving_shapes + train_shapes + satclip_shapes:
+        train = shape not in serving_shapes
         x = torch.randn(shape, device=dev, generator=g) * 3.0 + 1.5
         r = torch.randn(shape, device=dev, generator=g)
         dy = torch.randn(shape, device=dev, generator=g)
@@ -675,6 +777,10 @@ def phase_norms(g: torch.Generator) -> None:
         # time each shape with the ReLU flag the path uses there: fused in
         # the generator, not in the PatchGAN
         relu = shape[3] != 512 and shape[1] not in (64, 32)
+        if shape == satclip_shapes[1]:
+            # the inject route's nd0: the combination sits between the norm
+            # and its ReLU, so B and B4 run there without the ReLU
+            relu = False
         xb, gb = x.bfloat16(), dy.bfloat16()
         del x, dy
         fwd = (shape, *norm_times(xb, relu))
@@ -691,6 +797,8 @@ def phase_norms(g: torch.Generator) -> None:
             train_fwd, train_bwd = fwd, bwd
             train_skip = (shape, *norm_times(xb, False, skip=True))
             train_bwd_no_relu = (shape, *bwd_times(xb, gb, False))
+        if shape == satclip_shapes[2]:
+            satclip_fwd, satclip_bwd = fwd, bwd
         del xb, gb
         torch.cuda.empty_cache()
 
@@ -721,11 +829,13 @@ def phase_norms(g: torch.Generator) -> None:
     source, replaces = "instance_norm.cu", "nirgan_tpu/ops/pallas_kernels.py:130"
     RESULTS["instance_norm"] = entry("instance_norm", source, replaces, worst,
                                      train_fwd, serving, with_skip=train_skip,
-                                     serving_with_skip=serving_skip)
+                                     serving_with_skip=serving_skip,
+                                     satclip_step=satclip_fwd)
     RESULTS["instance_norm"]["shapes"] = fwd_all
     RESULTS["instance_norm_bwd"] = entry("instance_norm_bwd", source, replaces,
                                          worst_bwd, train_bwd,
-                                         no_relu=train_bwd_no_relu)
+                                         no_relu=train_bwd_no_relu,
+                                         satclip_step=satclip_bwd)
     RESULTS["instance_norm_bwd"]["shapes"] = bwd_all
     shares = [e["bound_ms"] / e["ms"] for e in fwd_all + bwd_all]
     if max(shares) > 1.0:
@@ -734,15 +844,16 @@ def phase_norms(g: torch.Generator) -> None:
 
 def phase_convt_bwd(g: torch.Generator) -> None:
     """B5 against its plain version at the train step's u1 and u0 (the
-    wgmma kernels in bf16) and at a small shape that they do not take (the
-    WMMA kernels)."""
+    wgmma kernels in bf16), at both train configs' batch sizes (the batch
+    sets dx's tile count and dW's split-K slabs), and at a small shape that
+    the wgmma kernels do not take (the WMMA kernels)."""
     from nirgan_tpu_torch.ops.convt_bwd import (
         convt_k3s2_bwd_cuda,
         convt_k3s2_bwd_plain,
     )
 
     dev = torch.device("cuda")
-    nb, s = TRAIN_BATCH, TRAIN_SIDE
+    nb, n8, s = TRAIN_BATCH, SATCLIP_BATCH, TRAIN_SIDE
     # u1: z (16,138,138,128), ct (16,276,276,64); u0: z (16,69,69,256), ct
     # (16,138,138,128); errors relative to the largest entry.  f32 (TF32
     # off): sums of 9 Co terms (dx) and of B H W terms (dW) in other
@@ -752,6 +863,8 @@ def phase_convt_bwd(g: torch.Generator) -> None:
     timed = {}
     for name, n, hi, ci, co in (("u1", nb, s // 2, 128, 64),
                                 ("u0", nb, s // 4, 256, 128),
+                                ("satclip_u1", n8, s // 2, 128, 64),
+                                ("satclip_u0", n8, s // 4, 256, 128),
                                 ("small", 2, 20, 64, 32)):
         z = torch.randn((n, hi, hi, ci), device=dev, generator=g)
         ct = torch.randn((n, 2 * hi, 2 * hi, co), device=dev, generator=g)
@@ -796,31 +909,45 @@ def phase_convt_bwd(g: torch.Generator) -> None:
                        plain_ms, lib_ms, least)
     RESULTS["convt_bwd"] = entry(
         "convt_bwd", "convt_bwd.cu", "nirgan_tpu/ops/pallas_convt_bwd.py:170",
-        worst, timed["u1"], u0=timed["u0"])
+        worst, timed.pop("u1"), **timed)
 
 
-def phase_generator() -> dict:
-    """Returns the launches of one forward."""
+def phase_generator(satclip: bool = False) -> dict:
+    """The full-width generator, plain or (``satclip``) the inject variant
+    of ``config_px2px_SatCLIP.yaml`` with seeded embeddings.  Returns the
+    launches of one forward."""
     from nirgan_tpu_torch.config import load_config
-    from nirgan_tpu_torch.models import define_G
+    from nirgan_tpu_torch.models import define_G, define_G_inject
     from nirgan_tpu_torch.tasks import Px2PxTask
 
     dev = torch.device("cuda")
-    G = define_G(3, 1, 64, "resnet_9blocks", "instance",
-                 compute_dtype=torch.bfloat16,
-                 generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
+    tag = "generator, inject" if satclip else "generator"
+    config = SATCLIP_CONFIG if satclip else CONFIG
+    seeded = torch.Generator().manual_seed(SEED)
+    if satclip:
+        G = define_G_inject(load_config(config), compute_dtype=torch.bfloat16,
+                            generator=seeded).to(dev).eval()
+        # embeddings of the tower's size; the scale at 0.5, not the config's
+        # 0.01, so that a fault in the plane would show in the output
+        embeds = (torch.randn((BATCH, 256), generator=seeded).to(dev),)
+        with torch.no_grad():
+            G.scale_param.fill_(0.5)
+    else:
+        G = define_G(3, 1, 64, "resnet_9blocks", "instance",
+                     compute_dtype=torch.bfloat16, generator=seeded).to(dev).eval()
+        embeds = ()
     x = torch.rand((BATCH, SIDE, SIDE, 3), generator=torch.Generator().manual_seed(1))
     x = (x * 0.3).to(dev)
     with torch.inference_mode():
         reset_counts()
-        y = G(x)
+        y = G(x, *embeds)
         torch.cuda.synchronize()
         per_forward = counts()
         with plain_route():
-            y_plain = G(x)
+            y_plain = G(x, *embeds)
         torch.cuda.synchronize()
         want = EVAL_LAUNCHES
-        log("generator", f"launches per forward {per_forward} (want {want})")
+        log(tag, f"launches per forward {per_forward} (want {want})")
         if per_forward != want:
             raise AssertionError(f"launches {per_forward} != {want}")
         if tuple(y.shape) != (BATCH, SIDE, SIDE, 1) or not torch.isfinite(y).all():
@@ -828,34 +955,43 @@ def phase_generator() -> dict:
         # tanh outputs span 2; the JAX package measured its own bf16-vs-f32
         # floor at 43 dB, so kernels vs plain in bf16 must reach 40 dB
         db = psnr(y, y_plain, 2.0)
-        log("generator", f"bf16 kernel path vs plain path: PSNR {db:.2f} dB "
+        log(tag, f"bf16 kernel path vs plain path: PSNR {db:.2f} dB "
             f"(bound 40), max|err| {float((y.float() - y_plain.float()).abs().max()):.3e}")
         if not db >= 40.0:
             raise AssertionError(f"generator PSNR {db} < 40")
+        if satclip:
+            moved = float((G(x, -embeds[0]).float() - y.float()).abs().max())
+            log(tag, f"the embeddings reach the output: max|diff| {moved:.3e} "
+                "with their sign turned")
+            if not moved > 1e-3:
+                raise AssertionError(f"the embeddings do not reach the output: {moved}")
 
         def plain_forward():
             with plain_route():
-                return G(x)
+                return G(x, *embeds)
 
-        ms, plain_ms = compare_ms(lambda: G(x), plain_forward, iters=10)
-        log("generator", f"bf16 forward of {BATCH} x {SIDE}^2: kernels {ms:.3f} ms "
+        ms, plain_ms = compare_ms(lambda: G(x, *embeds), plain_forward, iters=10)
+        log(tag, f"bf16 forward of {BATCH} x {SIDE}^2: kernels {ms:.3f} ms "
             f"({BATCH / ms * 1e3:.2f} tiles/s), plain {plain_ms:.3f} ms "
             f"({BATCH / plain_ms * 1e3:.2f} tiles/s)")
 
     # predict_step in f32 on the card (kernels, TF32 off) against the same
     # seeded task on the CPU (plain versions)
-    cfg = load_config(CONFIG)
+    cfg = load_config(config)
     cfg.tpu.compute_dtype = "float32"
-    rgb = np.random.default_rng(2).random((2, 3, 64, 64), dtype=np.float32) * 0.3
+    rng = np.random.default_rng(2)
+    rgb = rng.random((2, 3, 64, 64), dtype=np.float32) * 0.3
+    coords = ((rng.random((2, 2)) * [360, 180] - [180, 90]).astype(np.float32),) \
+        if satclip else ()
     reset_counts()
-    got = Px2PxTask(cfg, device="cuda", seed=SEED).predict_step(rgb)
+    got = Px2PxTask(cfg, device="cuda", seed=SEED).predict_step(rgb, *coords)
     on_card = counts()
-    ref = Px2PxTask(cfg, device="cpu", seed=SEED).predict_step(rgb)
+    ref = Px2PxTask(cfg, device="cpu", seed=SEED).predict_step(rgb, *coords)
     err = float(np.abs(got - ref).max())
     # f32 on both sides; nine IN-normalised blocks amplify summation-order
     # differences, so abs 1e-3 on tanh outputs
-    log("generator", f"predict_step f32 (2, 3, 64, 64), card vs CPU: "
-        f"max|err| {err:.3e} (bound 1e-03), launches {on_card}")
+    log(tag, f"predict_step f32 (2, 3, 64, 64){' with coords' if satclip else ''}, "
+        f"card vs CPU: max|err| {err:.3e} (bound 1e-03), launches {on_card}")
     if not (got.shape == (2, 1, 64, 64) and err <= 1e-3):
         raise AssertionError(f"predict_step card vs CPU: {got.shape}, {err}")
     if min(on_card[k] for k in SERVING_KERNELS) == 0:
@@ -864,41 +1000,48 @@ def phase_generator() -> dict:
 
 
 def write_tiles(root: str, n: int = 8) -> tuple[np.ndarray, np.ndarray]:
-    """Seeded uint16 DN tiles in the LR/HR ``.npz`` layout the CLI reads;
-    returns the HR and LR stacks."""
+    """Seeded uint16 DN tiles with lon/lat coordinates in the LR/HR ``.npz``
+    layout the CLI reads; returns the HR and LR stacks and the coordinates."""
     rng = np.random.default_rng(SEED)
     hr = rng.integers(0, 3000, (n, 3, TILE, TILE), dtype=np.uint16)
     lr = rng.integers(0, 3000, (n, 4, LR_TILE, LR_TILE), dtype=np.uint16)
+    coords = (rng.random((n, 2)) * [360, 180] - [180, 90]).astype(np.float32)
     for sub in ("HR", "LR"):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
     for i in range(n):
-        np.savez(os.path.join(root, "HR", f"tile_{i:03d}.npz"), img=hr[i])
-        np.savez(os.path.join(root, "LR", f"tile_{i:03d}.npz"), img=lr[i])
-    return hr, lr
+        np.savez(os.path.join(root, "HR", f"tile_{i:03d}.npz"), img=hr[i],
+                 coords=coords[i])
+        np.savez(os.path.join(root, "LR", f"tile_{i:03d}.npz"), img=lr[i],
+                 coords=coords[i])
+    return hr, lr, coords
 
 
-def phase_serving(tmp: str) -> dict:
+def phase_serving(tmp: str, config: str = CONFIG, tag: str = "serving") -> dict:
+    """The serving CLI on ``config`` (``tag`` names the run's lines and
+    output folders).  Returns the run's launches."""
     from nirgan_tpu_torch import create_synthetic_dataset as cli
     from nirgan_tpu_torch.config import load_config
     from nirgan_tpu_torch.inference import serve_batch
     from nirgan_tpu_torch.tasks import Px2PxTask
 
     data = os.path.join(tmp, "data")
-    hr_np, lr_np = write_tiles(data)
+    hr_np, lr_np, coords = write_tiles(data)
 
     def argv(out: str) -> list:
-        return ["--config", CONFIG, "--data", data, "--out", os.path.join(tmp, out),
-                "--ckpt", os.path.join(tmp, "no.ckpt"), "--device", "cuda",
+        return ["--config", config, "--data", data, "--out",
+                os.path.join(tmp, f"{tag}_{out}"), "--ckpt",
+                os.path.join(tmp, "no.ckpt"), "--device", "cuda",
                 "--batch-size", str(BATCH)]
 
     reset_counts()
     n = cli.main(argv("synth"))
     torch.cuda.synchronize()
     launches = counts()
-    log("serving", f"CLI wrote {n} tiles; launches in the run {launches}")
+    log(tag, f"CLI on {os.path.basename(config)} wrote {n} tiles; launches in "
+        f"the run {launches}")
     if min(launches[k] for k in SERVING_KERNELS) == 0:
         raise AssertionError(f"a kernel of the path was not launched: {launches}")
-    out = os.path.join(tmp, "synth")
+    out = os.path.join(tmp, f"{tag}_synth")
     files = sorted(os.listdir(out))
     if n != 8 or len(files) != 8:
         raise AssertionError(f"expected 8 tiles, got {n} / {files}")
@@ -910,16 +1053,17 @@ def phase_serving(tmp: str) -> dict:
     # the first batch through the plain path: histogram matching maps both
     # onto the S2 reference's values, so near-tied pixels may swap; PSNR
     # over the reference's range >= 35 dB
-    task = Px2PxTask(load_config(CONFIG), device="cuda", seed=SEED)
+    task = Px2PxTask(load_config(config), device="cuda", seed=SEED)
     hr = torch.from_numpy(hr_np[:BATCH]).cuda().permute(0, 2, 3, 1)
     s2 = torch.from_numpy(lr_np[:BATCH, 3:4]).cuda().permute(0, 2, 3, 1)
     with plain_route():
-        plain = serve_batch(task, hr, s2).float().cpu().numpy().transpose(0, 3, 1, 2)
+        plain = serve_batch(task, hr, s2, coords=coords[:BATCH] if task.satclip
+                            else None).float().cpu().numpy().transpose(0, 3, 1, 2)
     got = np.stack(tiles[:BATCH]).astype(np.float32)
     span = float(plain.max() - plain.min())
     mse = float(np.mean((got - plain) ** 2))
     db = math.inf if mse == 0 else 10 * math.log10(span ** 2 / mse)
-    log("serving", f"CLI tiles vs plain path: PSNR {db:.2f} dB over range "
+    log(tag, f"CLI tiles vs plain path: PSNR {db:.2f} dB over range "
         f"{span:.4f} (bound 35), max|err| {float(np.abs(got - plain).max()):.3e}")
     if not db >= 35.0:
         raise AssertionError(f"serving PSNR {db} < 35")
@@ -931,7 +1075,7 @@ def phase_serving(tmp: str) -> dict:
     m = cli.main(argv("timed"))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    log("serving", f"warm CLI rerun: {m} tiles in {dt:.3f} s = {m / dt:.2f} "
+    log(tag, f"warm CLI rerun: {m} tiles in {dt:.3f} s = {m / dt:.2f} "
         f"tiles/s (batch {BATCH}, set-up included)")
     return launches
 
@@ -958,31 +1102,12 @@ def first_batch(cfg) -> dict:
 
     dm = dataset_selector(cfg)
     items = [dm.train_ds[i] for i in range(dm.train_batch_size)]
-    return {k: np.stack([it[k] for it in items]) for k in ("rgb", "nir")}
+    return {k: np.stack([it[k] for it in items])
+            for k in ("rgb", "nir", "coords") if k in items[0]}
 
 
-def phase_train(tmp: str) -> tuple[dict, dict]:
-    """Returns the launches of the training CLI's run and of one step."""
-    from nirgan_tpu_torch.config import load_config
-    from nirgan_tpu_torch.tasks import Px2PxTask
-    from nirgan_tpu_torch.train import cli
-
-    # --- one fused step of the full-width config, kernels vs plain route
-    cfg = load_config(CONFIG)
-    batch = first_batch(cfg)
-    if batch["rgb"].shape != (TRAIN_BATCH, 3, TRAIN_TILE, TRAIN_TILE):
-        raise AssertionError(f"train batch {batch['rgb'].shape}")
-    task = Px2PxTask(cfg, device="cuda", seed=SEED)
-    plain = Px2PxTask(cfg, device="cuda", seed=SEED)
-    state, plain_state = task.init_state(), plain.init_state()
-    ex = task.extract_batch(batch)
-    reset_counts()
-    got = loss_terms(task.train_step(state, ex))
-    torch.cuda.synchronize()
-    per_step = counts()
-    log("train", f"launches per step {per_step} (want {STEP_LAUNCHES})")
-    if per_step != STEP_LAUNCHES:
-        raise AssertionError(f"launches {per_step} != {STEP_LAUNCHES}")
+def check_gradients(task) -> None:
+    """A finite, non-zero gradient on every parameter of both networks."""
     for tag, net in (("G", task.netG), ("D", task.netD)):
         bad = [k for k, p in net.named_parameters()
                if p.grad is None or not bool(torch.isfinite(p.grad).all())
@@ -992,6 +1117,48 @@ def phase_train(tmp: str) -> tuple[dict, dict]:
             "non-zero gradient on the kernel path")
         if bad:
             raise AssertionError(f"{tag} parameters without a gradient: {bad}")
+
+
+def phase_train(tmp: str, satclip: bool = False) -> tuple[dict, dict]:
+    """The training path of ``config_px2px.yaml`` or (``satclip``) of the
+    flagship ``config_px2px_SatCLIP.yaml``, whose CLI run takes the CLI's
+    default arguments.  Returns the launches of the training CLI's run and
+    of one step."""
+    from nirgan_tpu_torch.config import load_config
+    from nirgan_tpu_torch.tasks import Px2PxTask
+    from nirgan_tpu_torch.train import cli
+
+    config = SATCLIP_CONFIG if satclip else CONFIG
+    name = os.path.basename(config)
+    n_batch = SATCLIP_BATCH if satclip else TRAIN_BATCH
+
+    # --- one fused step of the full-width config, kernels vs plain route
+    cfg = load_config(config)
+    batch = first_batch(cfg)
+    if batch["rgb"].shape != (n_batch, 3, TRAIN_TILE, TRAIN_TILE):
+        raise AssertionError(f"train batch {batch['rgb'].shape}")
+    task = Px2PxTask(cfg, device="cuda", seed=SEED)
+    plain = Px2PxTask(cfg, device="cuda", seed=SEED)
+    state, plain_state = task.init_state(), plain.init_state()
+    ex = task.extract_batch(batch)
+    if satclip and tuple(ex["embeds"].shape) != (n_batch, 256):
+        raise AssertionError(f"embeds {tuple(ex['embeds'].shape)}")
+    reset_counts()
+    metrics = task.train_step(state, ex)
+    got = loss_terms(metrics)
+    torch.cuda.synchronize()
+    per_step = counts()
+    log("train", f"{name}: launches per step {per_step} (want {STEP_LAUNCHES})")
+    if per_step != STEP_LAUNCHES:
+        raise AssertionError(f"launches {per_step} != {STEP_LAUNCHES}")
+    check_gradients(task)
+    if satclip:
+        # the learnable scale moved off its init by Adam's first step
+        scale = float(metrics["scale_param"])
+        log("train", f"scale_param after the step: {scale:.6f} (init "
+            f"{float(cfg.satclip.scaling_param_init)})")
+        if not (math.isfinite(scale) and scale != float(cfg.satclip.scaling_param_init)):
+            raise AssertionError(f"scale_param did not move: {scale}")
     # the same seeded step again: every sum on the path runs in a fixed
     # order, so terms and gradients repeat bit for bit
     again = Px2PxTask(cfg, device="cuda", seed=SEED)
@@ -1010,7 +1177,7 @@ def phase_train(tmp: str) -> tuple[dict, dict]:
     # bf16 activations on both routes, rounded at other points; the serving
     # forward measured 47 dB between them; the terms are means over
     # thousands of logits or pixels: within 2% + 1e-3
-    check_terms("bf16 step 1, kernels vs plain route", got, ref, 2e-2, 1e-3)
+    check_terms(f"{name}: bf16 step 1, kernels vs plain route", got, ref, 2e-2, 1e-3)
 
     def plain_step():
         with plain_route():
@@ -1018,17 +1185,37 @@ def phase_train(tmp: str) -> tuple[dict, dict]:
 
     ms, plain_ms = compare_ms(lambda: task.train_step(state, ex), plain_step,
                               iters=5)
-    log("train", f"bf16 fused step, batch {TRAIN_BATCH} at {TRAIN_SIDE}^2: kernels "
-        f"{ms:.3f} ms ({TRAIN_BATCH / ms * 1e3:.2f} images/s), plain "
-        f"{plain_ms:.3f} ms ({TRAIN_BATCH / plain_ms * 1e3:.2f} images/s)")
+    log("train", f"{name}: bf16 fused step, batch {n_batch} at {TRAIN_SIDE}^2: "
+        f"kernels {ms:.3f} ms ({n_batch / ms * 1e3:.2f} images/s), plain "
+        f"{plain_ms:.3f} ms ({n_batch / plain_ms * 1e3:.2f} images/s)")
+    # what a trainer's step costs beyond the bare step: the batch's copies
+    # to the card in ``extract_batch`` and, on the SatCLIP route, the tower
+    # (float64 on the host), either in line or done ahead by the loader's
+    # thread (``embed_coords``), as ``Trainer.fit`` has it
+    ready = task.embed_coords(batch)
+    fed_ms = time_ms(lambda: task.train_step(state, task.extract_batch(ready)), iters=5)
+    log("train", f"{name}: extract_batch + step{', embeddings made ahead' * satclip}: "
+        f"{fed_ms:.3f} ms ({n_batch / fed_ms * 1e3:.2f} images/s)")
+    if satclip:
+        inline_ms = time_ms(lambda: task.train_step(state, task.extract_batch(batch)),
+                            iters=5)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            task.embed_coords(batch)
+        log("train", f"{name}: extract_batch + step with the tower in line: "
+            f"{inline_ms:.3f} ms ({n_batch / inline_ms * 1e3:.2f} images/s); the "
+            f"tower alone {(time.perf_counter() - t0) * 100:.3f} ms a batch of "
+            f"{n_batch} (host clock)")
     del task, plain, state, plain_state, ex
     torch.cuda.empty_cache()
 
     # --- an f32 step on the card (TF32 off) vs the same seeded step on the
-    # CPU, 6 blocks at 64^2 (the head kernel needs ngf 64)
-    small = load_config(CONFIG)
+    # CPU, at 64^2 (the head kernel needs ngf 64; the inject generator has 9
+    # blocks, the plain route takes 6)
+    small = load_config(config)
     small.tpu.compute_dtype = "float32"
-    small.base_configs.netG = "resnet_6blocks"
+    if not satclip:
+        small.base_configs.netG = "resnet_6blocks"
     small.Data.train_batch_size = 2
     small.Data.fake_settings.image_size = 64
     batch = first_batch(small)
@@ -1040,23 +1227,29 @@ def phase_train(tmp: str) -> tuple[dict, dict]:
     ref = loss_terms(on_cpu.train_step(on_cpu.init_state(),
                                        on_cpu.extract_batch(batch)))
     # f32 on both sides, sums in other orders: rtol 1e-4
-    check_terms(f"f32 step 1, card vs CPU (launches {launched})", got, ref,
+    check_terms(f"{name}: f32 step 1, card vs CPU (launches {launched})", got, ref,
                 1e-4, 1e-6)
     if min(launched.values()) == 0:
         raise AssertionError(f"the f32 step skipped a kernel: {launched}")
+    del on_card, on_cpu
 
-    # --- the training CLI: 8 steps (4 an epoch, two validations), resume
-    run = os.path.join(tmp, "run")
-    argv = ["--config", CONFIG, "--device", "cuda", "--log-every", "1"]
+    # --- the training CLI: 8 steps, then a resume for 2 more.  The plain
+    # config has 4 steps an epoch (validations at 4 and 8, one batch each);
+    # the SatCLIP config, run by the CLI's default arguments, 8 steps an
+    # epoch (one validation at 8, one batch)
+    run = os.path.join(tmp, "run_satclip" if satclip else "run")
+    argv = ["--log-every", "1"] if satclip else ["--config", CONFIG, "--device",
+                                                 "cuda", "--log-every", "1"]
+    val_steps, n_eval = ([8], 1) if satclip else ([4, 8], 2)
     reset_counts()
     t0 = time.perf_counter()
     final = cli.main(argv + ["--logdir", run, "--max-steps", "8"])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = counts()
-    want = {k: 8 * STEP_LAUNCHES[k] + 2 * EVAL_LAUNCHES[k] for k in STEP_LAUNCHES}
-    log("train", f"CLI: {final.step} steps in {dt:.2f} s (set-up included); "
-        f"launches {launches} (want {want})")
+    want = {k: 8 * STEP_LAUNCHES[k] + n_eval * EVAL_LAUNCHES[k] for k in STEP_LAUNCHES}
+    log("train", f"CLI {' '.join(argv)}: {final.step} steps in {dt:.2f} s (set-up "
+        f"included); launches {launches} (want {want})")
     if final.step != 8 or launches != want:
         raise AssertionError(f"CLI run: step {final.step}, launches {launches}")
     missing = [f for f in ("last.pt", "best.pt", "sched_state_last.json",
@@ -1066,14 +1259,17 @@ def phase_train(tmp: str) -> tuple[dict, dict]:
         rows = [json.loads(line) for line in f]
     train = [r for r in rows if "model_loss/generator_total_loss" in r]
     val = [r for r in rows if "val/L1" in r]
-    finite = all(math.isfinite(r[k]) for r in train for k in got)
+    keys = list(got) + (["scale_param"] if satclip else [])
+    finite = all(math.isfinite(r[k]) for r in train for k in keys)
     log("train", f"CLI: train rows at steps {[r['step'] for r in train]}, val "
         f"rows at {[r['step'] for r in val]}; generator_total_loss "
         f"{train[0]['model_loss/generator_total_loss']:.4f} -> "
         f"{train[-1]['model_loss/generator_total_loss']:.4f}; val/L1 "
         f"{[round(r['val/L1'], 5) for r in val]}; images/s (host clock, steps "
-        f"2-8) {[round(r['perf/images_per_sec'], 1) for r in train[1:]]}")
-    if (missing or not finite or [r["step"] for r in val] != [4, 8]
+        f"2-8) {[round(r['perf/images_per_sec'], 1) for r in train[1:]]}"
+        + (f"; scale_param {[round(r['scale_param'], 5) for r in train]}"
+           if satclip else ""))
+    if (missing or not finite or [r["step"] for r in val] != val_steps
             or len(train) != 8):
         raise AssertionError(f"CLI run: missing {missing}, finite {finite}, "
                              f"val steps {[r['step'] for r in val]}")
@@ -1081,9 +1277,49 @@ def phase_train(tmp: str) -> tuple[dict, dict]:
     with open(os.path.join(run, "metrics.jsonl")) as f:
         val = [json.loads(line)["step"] for line in f if "val/L1" in line]
     log("train", f"CLI resume: {resumed.step} steps, val rows at {val}")
-    if resumed.step != 10 or val != [4, 8, 10]:
+    if resumed.step != 10 or val != val_steps + [10]:
         raise AssertionError(f"resume: step {resumed.step}, val rows {val}")
     return launches, per_step
+
+
+def phase_concat() -> None:
+    """The SatCLIP concat route (the embedding plane as a 4th input channel,
+    a 5-channel discriminator) at full width with 6 blocks: one forward and
+    one fused step, kernels vs plain route."""
+    from nirgan_tpu_torch.config import load_config
+    from nirgan_tpu_torch.tasks import Px2PxTask
+
+    cfg = load_config(SATCLIP_CONFIG)
+    cfg.satclip.satclip_style = "concat"
+    cfg.base_configs.netG = "resnet_6blocks"
+    batch = first_batch(cfg)
+    task = Px2PxTask(cfg, device="cuda", seed=SEED)
+    plain = Px2PxTask(cfg, device="cuda", seed=SEED)
+    ex = task.extract_batch(batch)
+    if tuple(ex["rgb"].shape) != (SATCLIP_BATCH, TRAIN_TILE, TRAIN_TILE, 4):
+        raise AssertionError(f"concat input {tuple(ex['rgb'].shape)}")
+    reset_counts()
+    pred, _ = task.eval_step(ex)
+    forward = counts()
+    with plain_route():
+        pred_plain, _ = plain.eval_step(ex)
+    db = psnr(pred, pred_plain, 2.0)
+    log("concat", f"forward of {tuple(ex['rgb'].shape)}: launches {forward}, "
+        f"kernels vs plain route PSNR {db:.2f} dB (bound 40)")
+    if (min(forward[k] for k in SERVING_KERNELS) == 0 or not db >= 40.0
+            or not bool(torch.isfinite(pred).all())):
+        raise AssertionError(f"concat forward: {forward}, {db} dB")
+    reset_counts()
+    got = loss_terms(task.train_step(task.init_state(), ex))
+    torch.cuda.synchronize()
+    launched = counts()
+    with plain_route():
+        ref = loss_terms(plain.train_step(plain.init_state(), ex))
+    check_terms(f"concat: bf16 step 1, kernels vs plain route (launches {launched})",
+                got, ref, 2e-2, 1e-3)
+    if min(launched.values()) == 0:
+        raise AssertionError(f"the concat step skipped a kernel: {launched}")
+    check_gradients(task)
 
 
 # kernel-name fragments -> the rows of the profile's breakdown, first match
@@ -1096,7 +1332,8 @@ PROFILE_GROUPS = (
     ("in_resident_kernel", "resident, one launch a call"),
     ("in_partial_kernel", "streaming sums"),
     ("in_apply_kernel", "streaming elementwise"),
-    ("head_conv_kernel", "C head"),
+    ("head_conv_mma_kernel", "C head, mma.sync"),
+    ("head_conv_kernel", "C head, f32 FMA"),
     ("reflection_pad", "reflect pad"),
     ("multi_tensor_apply", "Adam"),
     ("cudnn", "cuDNN convs"), ("xmma", "cuDNN convs"), ("cutlass", "cuDNN convs"),
@@ -1147,22 +1384,34 @@ def profile_window(what: str, fn, iters: int) -> None:
 
 def phase_profile() -> None:
     """Where the time goes (``python3 chip_smoke.py --profile``): the
-    serving forward and the fused train step of the full-width config under
-    ``torch.profiler``, on the kernels and on the plain route."""
+    serving forward and the fused train step of the full-width configs under
+    ``torch.profiler``, the plain route (``config_px2px.yaml``) and the
+    SatCLIP inject route (``config_px2px_SatCLIP.yaml``), on the kernels and
+    on the plain versions; and the head's backward, which is PyTorch's
+    convolution gradients, timed on its own."""
     from nirgan_tpu_torch.config import load_config
-    from nirgan_tpu_torch.models import define_G
+    from nirgan_tpu_torch.models import define_G, define_G_inject
+    from nirgan_tpu_torch.ops.head_conv import head_conv_bwd, head_conv_cuda
     from nirgan_tpu_torch.tasks import Px2PxTask
 
     dev = torch.device("cuda")
+    seeded = torch.Generator().manual_seed(SEED)
     G = define_G(3, 1, 64, "resnet_9blocks", "instance",
-                 compute_dtype=torch.bfloat16,
-                 generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
+                 compute_dtype=torch.bfloat16, generator=seeded).to(dev).eval()
+    G_inject = define_G_inject(load_config(SATCLIP_CONFIG),
+                               compute_dtype=torch.bfloat16,
+                               generator=seeded).to(dev).eval()
     x = (torch.rand((BATCH, SIDE, SIDE, 3),
                     generator=torch.Generator().manual_seed(1)) * 0.3).to(dev)
+    embeds = torch.randn((BATCH, 256), generator=seeded).to(dev)
 
     def forward():
         with torch.inference_mode():
             G(x)
+
+    def forward_inject():
+        with torch.inference_mode():
+            G_inject(x, embeds)
 
     def plain(fn):
         def run():
@@ -1170,31 +1419,45 @@ def phase_profile() -> None:
                 fn()
         return run
 
-    cfg = load_config(CONFIG)
-    task = Px2PxTask(cfg, device="cuda", seed=SEED)
-    state = task.init_state()
-    ex = task.extract_batch(first_batch(cfg))
+    def stepper(config):
+        cfg = load_config(config)
+        task = Px2PxTask(cfg, device="cuda", seed=SEED)
+        state = task.init_state()
+        ex = task.extract_batch(first_batch(cfg))
+        return lambda: task.train_step(state, ex)
 
-    def step():
-        task.train_step(state, ex)
-
-    # both event timings first: once the profiler has attached, every
+    step, step_inject = stepper(CONFIG), stepper(SATCLIP_CONFIG)
+    runs = (("serving forward", forward, 10), ("train step, batch 16", step, 5),
+            ("serving forward, inject", forward_inject, 10),
+            ("train step, inject, batch 8", step_inject, 5))
+    # all event timings first: once the profiler has attached, every
     # launch costs the host more, and the step is close to host-bound
-    ms, plain_ms = compare_ms(forward, plain(forward), iters=10)
-    log("profile", f"serving forward, CUDA events before the profiler: kernels "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
-    ms, plain_ms = compare_ms(step, plain(step), iters=5)
-    log("profile", f"train step, CUDA events before the profiler: kernels "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
-    # how much of that is the host's: the same with the calls queued ahead
-    ahead = time_ms(forward, 10, run_ahead=True)
-    step_ahead = time_ms(step, 5, run_ahead=True)
-    log("profile", f"with the card's head start: forward {ahead:.3f} ms, step "
-        f"{step_ahead:.3f} ms")
-    profile_window("serving forward, kernels", forward, 5)
-    profile_window("serving forward, plain route", plain(forward), 5)
-    profile_window("train step, kernels", step, 5)
-    profile_window("train step, plain route", plain(step), 5)
+    for what, fn, iters in runs:
+        ms, plain_ms = compare_ms(fn, plain(fn), iters=iters)
+        # how much of that is the host's: the same with the calls queued ahead
+        ahead = time_ms(fn, iters, run_ahead=True)
+        log("profile", f"{what}, CUDA events before the profiler: kernels "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms; with the card's head start "
+            f"{ahead:.3f} ms")
+    # the head's backward: tanh' on the saved output, then cuDNN's dgrad and
+    # wgrad and the bias sum; the profile's groups cannot tell its cuDNN
+    # kernels from the other convs'
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    w = torch.randn((1, 64, 7, 7), device=dev, generator=g) / 56.0
+    b = torch.full((1,), 0.1, device=dev)
+    for n in (TRAIN_BATCH, SATCLIP_BATCH):
+        xh = torch.randn((n, TRAIN_SIDE + 6, TRAIN_SIDE + 6, 64), device=dev,
+                         generator=g).bfloat16()
+        y = head_conv_cuda(xh, w, b)
+        ct = torch.randn(y.shape, device=dev, generator=g).bfloat16()
+        ms = time_ms(lambda: head_conv_bwd(xh, w, y, ct), iters=10, run_ahead=True)
+        fwd = time_ms(lambda: head_conv_cuda(xh, w, b), iters=10, run_ahead=True)
+        log("profile", f"head backward (tanh', cuDNN dgrad + wgrad, bias sum) on "
+            f"{tuple(xh.shape)}: {ms:.4f} ms; its forward, kernel C: {fwd:.4f} ms")
+        del xh, y, ct
+    for what, fn, iters in runs:
+        profile_window(f"{what}, kernels", fn, 5)
+        profile_window(f"{what}, plain route", plain(fn), 5)
 
 
 def phase_sweep() -> None:
@@ -1212,14 +1475,14 @@ def phase_sweep() -> None:
     )
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    serving_shapes, train_shapes = norm_shapes()
-    for shape in serving_shapes + train_shapes:
+    serving_shapes, train_shapes, satclip_shapes = norm_shapes()
+    for shape in serving_shapes + train_shapes + satclip_shapes:
         b, h, w, c = shape
         xb = (torch.randn(shape, device="cuda", generator=g) * 3.0 + 1.5).bfloat16()
         gb = torch.randn(shape, device="cuda", generator=g).bfloat16()
         _, stats = instance_norm_cuda(xb, relu=True, return_stats=True)
         sets = rotation(xb, gb)
-        for backward in (False, True) if shape in train_shapes else (False,):
+        for backward in (False,) if shape in serving_shapes else (False, True):
             chosen = launch_plan(b, h * w, c, 2, backward)
             plans = [p._replace(threads=t)
                      for p in resident_plans(h * w, c, 2, backward)
@@ -1314,6 +1577,8 @@ def main() -> None:
                          "is False)")
     import nirgan_tpu_torch  # noqa: F401  (fail before printing anything)
 
+    os.chdir(ROOT)  # the training CLI's default configs are relative paths
+
     device = phase_device()
     phase_build()
     if sys.argv[1:] == ["--profile"]:
@@ -1324,20 +1589,28 @@ def main() -> None:
         return
     phase_kernels()
     per_forward = phase_generator()
+    sat_forward = phase_generator(satclip=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         serving = phase_serving(tmp)
+        sat_serving = phase_serving(tmp, SATCLIP_CONFIG, "serving, inject")
         launches, per_step = phase_train(tmp)
+        sat_launches, sat_step = phase_train(tmp, satclip=True)
+    phase_concat()
     phase_norm_launches()
-    if min(launches.values()) == 0:
+    if min(launches.values()) == 0 or min(sat_launches.values()) == 0:
         raise AssertionError(f"a kernel of the training path was not launched: "
-                             f"{launches}")
+                             f"{launches}, {sat_launches}")
     entries = []
     for name in STEP_LAUNCHES:
         kernel = {**RESULTS[name], "launches": launches[name],
-                  "per_step": per_step[name]}
+                  "per_step": per_step[name],
+                  "satclip": {"launches": sat_launches[name],
+                              "per_step": sat_step[name]}}
         if name in SERVING_KERNELS:
             kernel["serving"]["launches"] = serving[name]
             kernel["serving"]["per_forward"] = per_forward[name]
+            kernel["satclip"]["serving_launches"] = sat_serving[name]
+            kernel["satclip"]["per_forward"] = sat_forward[name]
         entries.append(kernel)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

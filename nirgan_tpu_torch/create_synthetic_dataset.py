@@ -5,6 +5,9 @@ predictions to the S2 NIR reference, write fp16 ``.npz`` tiles.
 
     python -m nirgan_tpu_torch.create_synthetic_dataset \
         --data data/synthDataset --ckpt ckpts/S2.ckpt --device cuda
+
+With a SatCLIP config (``--config configs/config_px2px_SatCLIP.yaml``) each
+tile's coordinates condition the generator.
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 // mbarriers, cp.async (signalled through an mbarrier, as the wgmma kernels
 // do, or waited for by commit groups, as the instance norm does) and bulk
 // copies into shared memory, 128-byte-swizzled wgmma descriptors and the
-// wgmma instructions themselves.  Everything is inline PTX; nothing here
-// launches a kernel.
+// wgmma instructions themselves, and the warp-level ldmatrix / mma.sync pair
+// for operands that no wgmma descriptor can name.  Everything is inline PTX;
+// nothing here launches a kernel.
 //
 // Shared-memory operand tiles are rows of 128 bytes (64 bf16) in the
 // 128-byte swizzle: the 16-byte chunk c of row r lies at chunk c ^ (r % 8),
@@ -121,6 +122,32 @@ __device__ __forceinline__ void reg_dec() {
 template <int N>
 __device__ __forceinline__ void reg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------- mma.sync
+// four 8 x 8 matrices of 16-bit values from shared memory: lane l gives the
+// address of row l % 8 of matrix l / 8 (16 bytes a row, anywhere), and
+// register i of every lane receives its piece of matrix i
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// D (16 x 8, f32) += A (16 x 16, row-major) * B (16 x 8, column-major), bf16
+// operands in registers.  With q = lane % 4 and n = lane / 4: a holds rows
+// (n, n + 8, n, n + 8) at k = (2q, 2q, 2q + 8, 2q + 8) and the next; b0 and
+// b1 hold k = 2q and 2q + 8 (and the next) of column n; d holds columns 2q
+// and 2q + 1 of row n, then of row n + 8.
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ------------------------------------------------------------------- wgmma

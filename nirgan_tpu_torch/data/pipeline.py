@@ -6,7 +6,10 @@ prefetch (``configs/config_px2px.yaml:82-84``; SURVEY.md §2.9 row 5).
 ``Loader`` is a thread-pool item fetch + collate into numpy batch dicts,
 with a bounded prefetch queue (threads suffice: item decode is numpy C code
 that releases the GIL).  The JAX package's ``DeviceFeed`` (a batch in flight
-on the device) has no counterpart here yet.
+on the device) has no counterpart here yet.  One addition over the original:
+``transform``, a function applied to each collated batch where it is made
+(the producer thread when there are workers), so host work that belongs to
+a batch, like the SatCLIP tower, stays off the consumer's thread.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 
@@ -38,8 +41,10 @@ class Loader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 0, seed: int = 0, drop_last: bool = True,
                  prefetch: int = 2, process_index: int = 0,
-                 process_count: int = 1):
-        """``process_index``/``process_count``: multi-host input sharding
+                 process_count: int = 1,
+                 transform: Optional[Callable[[dict], dict]] = None):
+        """``transform``: applied to every collated batch before it is
+        yielded.  ``process_index``/``process_count``: multi-host input sharding
         (SURVEY.md §2.9 host-side input parallelism) — every host permutes
         the SAME epoch order (seeded identically) and takes its strided
         slice, so the union of all hosts' batches is a disjoint cover of the
@@ -55,6 +60,7 @@ class Loader:
         self.prefetch = max(1, int(prefetch))
         self.process_index = int(process_index)
         self.process_count = max(1, int(process_count))
+        self.transform = transform or (lambda batch: batch)
         self._epoch = 0
 
     def __len__(self):
@@ -87,7 +93,8 @@ class Loader:
         self._epoch += 1
         if self.num_workers == 0:
             for batch_idx in self._batches():
-                yield collate([self.dataset[int(i)] for i in batch_idx])
+                yield self.transform(
+                    collate([self.dataset[int(i)] for i in batch_idx]))
             return
         yield from self._threaded_iter()
 
@@ -103,7 +110,7 @@ class Loader:
                             return
                         items = list(pool.map(self.dataset.__getitem__,
                                               [int(i) for i in batch_idx]))
-                        q.put(collate(items))
+                        q.put(self.transform(collate(items)))
                 finally:
                     q.put(None)
 

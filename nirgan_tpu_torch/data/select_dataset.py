@@ -91,14 +91,17 @@ class DataModule:
         self.num_workers = num_workers
         self.seed = seed
 
-    def train_dataloader(self) -> Loader:
+    def train_dataloader(self, transform=None) -> Loader:
+        """``transform``: the loader applies it to each batch where the
+        batch is made (``Loader``)."""
         return Loader(self.train_ds, self.train_batch_size, shuffle=True,
                       num_workers=self.num_workers, seed=self.seed,
-                      drop_last=True)
+                      drop_last=True, transform=transform)
 
-    def val_dataloader(self) -> Loader:
+    def val_dataloader(self, transform=None) -> Loader:
         return Loader(self.val_ds, self.val_batch_size, shuffle=False,
-                      num_workers=self.num_workers, drop_last=True)
+                      num_workers=self.num_workers, drop_last=True,
+                      transform=transform)
 
 
 def dataset_selector(config, seed: int = 0) -> DataModule:

@@ -2,8 +2,10 @@
 ``nirgan_tpu/inference/synthesize.py`` (reference
 ``create_synthetic_dataset.py:98-124``).
 
-Per batch, on the task's device: DN -> reflectance, reflect-pad to the shape
-bucket, the generator (with its reflect-pad-10), crop, the x4 bilinear
+Per batch, on the task's device: DN -> reflectance, on the SatCLIP routes the
+tiles' coordinates through the frozen location tower (the embedding feeds
+the inject generator, or joins as the concat route's 4th channel),
+reflect-pad to the shape bucket, the generator (with its reflect-pad-10), crop, the x4 bilinear
 upsample of the S2 NIR followed by a second resize to the prediction size
 (the reference's double-interpolation quirk, kept), histogram matching, and
 the fp16 cast.  The host only copies the fp16 tiles back and hands them to
@@ -48,13 +50,22 @@ def _to_device(x, device: torch.device) -> torch.Tensor:
 
 @torch.inference_mode()
 def serve_batch(task, hr: torch.Tensor, s2: torch.Tensor,
-                match_histograms: bool = True) -> torch.Tensor:
+                match_histograms: bool = True, coords=None,
+                embeds=None) -> torch.Tensor:
     """One batch of the serving computation: hr (B, H, W, 3) and s2
-    (B, h, w, 1) NHWC (DN integers or reflectance) -> (B, H, W, 1) fp16."""
+    (B, h, w, 1) NHWC (DN integers or reflectance) [and, on the SatCLIP
+    routes, (B, 2) lon/lat ``coords`` as numpy or the ``embeds`` that
+    ``task.embed_coords`` made of them] -> (B, H, W, 1) fp16."""
     h, w = hr.shape[1], hr.shape[2]
     size = task.bucket_for(h, w)
-    x = reflect_pad_to(task._dn_to_reflectance(hr, task.compute_dtype), size, size)
-    pred = task.g_apply(x).float()[:, :h, :w, :]
+    cond = {"rgb": hr}
+    if task.satclip:
+        if coords is None and embeds is None:
+            raise ValueError("SatCLIP model requires coords (B, 2)")
+        cond.update(task.condition(hr, coords, embeds))
+    x = reflect_pad_to(task._dn_to_reflectance(cond["rgb"], task.compute_dtype),
+                       size, size)
+    pred = task.g_apply(x, cond.get("embeds")).float()[:, :h, :w, :]
     if match_histograms:
         s2 = task._dn_to_reflectance(s2, torch.float32)
         up = resize_bilinear(s2, s2.shape[1] * 4, s2.shape[2] * 4)
@@ -74,13 +85,15 @@ def synthesize_dataset(task, dataset, out_path: str, batch_size: int = 8,
     ``dataset``: SRPairedDataset-like items {"lr", "hr", "s2_nir",
     "coords", "id"}.  The next batch is queued on the device before the
     previous one is copied back, so the copy and the writes overlap device
-    work.
+    work; the loader's thread runs the SatCLIP tower on a batch's
+    coordinates (``task.embed_coords``).
     """
     from nirgan_tpu_torch.data.pipeline import Loader
 
     os.makedirs(out_path, exist_ok=True)
     loader = Loader(dataset, batch_size, shuffle=False, num_workers=num_workers,
-                    drop_last=False, process_index=0, process_count=1)
+                    drop_last=False, process_index=0, process_count=1,
+                    transform=task.embed_coords)
     q: queue.Queue = queue.Queue(maxsize=64)
     writers = [threading.Thread(target=_writer_loop, args=(q, out_path),
                                 daemon=True)
@@ -105,7 +118,8 @@ def synthesize_dataset(task, dataset, out_path: str, batch_size: int = 8,
         for v, batch in enumerate(loader):
             hr = _to_device(batch["hr"], task.device)
             s2 = _to_device(batch["s2_nir"], task.device)
-            dev = serve_batch(task, hr, s2, match_histograms)
+            dev = serve_batch(task, hr, s2, match_histograms,
+                              embeds=batch.get("embeds"))
             if pending is not None:
                 flush(pending)
             pending = (dev, batch["id"], batch, v)

@@ -1,6 +1,7 @@
-"""Network factories, counterparts of ``define_G`` and ``define_D`` in
-``nirgan_tpu/models/factory.py`` (reference ``model/networks.py:120-208``)
-for the ResNet generators and the PatchGAN discriminators."""
+"""Network factories, counterparts of ``define_G``, ``define_G_inject`` and
+``define_D`` in ``nirgan_tpu/models/factory.py`` (reference
+``model/networks.py:120-208``, ``model/generator_inject.py:145-200``) for
+the ResNet generators and the PatchGAN discriminators."""
 
 from __future__ import annotations
 
@@ -32,6 +33,31 @@ def define_G(input_nc: int, output_nc: int, ngf: int, netG: str,
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     g.reset_parameters(generator, get_initializer(init_type, init_gain))
+    return g
+
+
+def define_G_inject(config, compute_dtype=torch.float32,
+                    device: Optional[torch.device] = None,
+                    generator: Optional[torch.Generator] = None) -> ResnetGenerator:
+    """The SatCLIP-injection generator from a full config tree
+    (resnet_9blocks only, as the reference)."""
+    bc, sc = config.base_configs, config.satclip
+    if bc.netG != "resnet_9blocks":
+        raise NotImplementedError(
+            f"Generator model name [{bc.netG}] is not recognized. Only "
+            "resnet_9blocks for SatCLIP.")
+    g = ResnetGenerator(
+        bc.input_nc, bc.output_nc, bc.ngf, norm_type=bc.norm,
+        use_dropout=not bc.no_dropout, n_blocks=9,
+        compute_dtype=compute_dtype, device=device, inject=True,
+        inject_style=sc.satclip_inject_style,
+        scaling_param=bool(sc.get("scaling_param", True)),
+        scaling_param_init=float(sc.get("scaling_param_init", 0.01)),
+        post_correction=bool(sc.get("post_correction", False)),
+        post_correction_init=float(sc.get("post_correction_init", 1.0)))
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    g.reset_parameters(generator, get_initializer(bc.init_type, bc.init_gain))
     return g
 
 

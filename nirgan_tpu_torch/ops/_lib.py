@@ -49,7 +49,7 @@ _SIGNATURES = {
     "nirgan_instance_norm_bwd": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _P),
     "nirgan_instance_norm_max_clusters": (_I, _I, _I, _I, _I, _I, _I, _I),
-    "nirgan_head_conv": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _P),
+    "nirgan_head_conv": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "nirgan_convt_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _P),
 }

@@ -1,4 +1,4 @@
-"""Weight packing for the wgmma kernels (``csrc/hopper.cuh``).
+"""Weight packing for the tensor-core kernels (``csrc/hopper.cuh``).
 
 A wgmma B operand lies in shared memory as rows of 128 bytes (64 bf16 of
 the reduced dimension K for one output column n) in the 128-byte swizzle:
@@ -7,6 +7,11 @@ weights are the same for every block of a launch, so the wrapper lays them
 out in that order once, as one contiguous image of ``N x 128`` bytes for each
 (tap, 64-wide slice of K), and the kernel fills a stage with one bulk copy.
 Plain tensor code, so the CPU tests reach it.
+
+The head's mma.sync kernel takes its weight as a Toeplitz image
+(``head_toeplitz``) in the register order of the instruction's B operand
+(``mma_b_fragments``), so a warp reads a fragment as one coalesced 256-byte
+line straight into registers.
 
 ``laid_out`` keeps a weight's kernel layout until the weight changes, so a
 forward with fixed weights (serving, validation) packs nothing, and a
@@ -52,6 +57,31 @@ def taps_first(weight: torch.Tensor) -> torch.Tensor:
     """(O, I, ky, kx) -> (ky, kx, I, O) contiguous: the layout of the WMMA
     and SIMT kernels, whose weights are not packed."""
     return weight.permute(2, 3, 1, 0).contiguous()
+
+
+def head_toeplitz(w: torch.Tensor, cols: int = 8) -> torch.Tensor:
+    """w (ky, kx, C) -> (ky, (kx + cols - 1) * C, cols): the weight of
+    ``cols`` neighbouring output columns as one matrix a kernel row.  With
+    an input row's pixels x0 .. x0 + kx + cols - 2 flattened to (j, c),
+    ``out[x0 + p] = sum_dy row[dy] @ T[dy][:, p]``: ``T[dy, j * C + c, p] =
+    w[dy, j - p, c]`` where ``0 <= j - p < kx``, else 0."""
+    ky, kx, c = w.shape
+    t = w.new_zeros((ky, kx + cols - 1, c, cols))
+    for p in range(cols):
+        t[:, p:p + kx, :, p] = w
+    return t.reshape(ky, (kx + cols - 1) * c, cols)
+
+
+def mma_b_fragments(t: torch.Tensor) -> torch.Tensor:
+    """t (T, K, 8), K % 16 == 0 -> (T, K // 16, 32, 4): each 16 x 8 block in
+    the register order of ``mma.sync.m16n8k16``'s column-major B operand.
+    Lane ``l`` holds column ``l // 4`` at k = 2 (l % 4) + (0, 1, 8, 9)."""
+    n_t, k, n = t.shape
+    if k % 16 or n != 8:
+        raise ValueError(f"mma_b_fragments: K = {k} must be a multiple of 16 "
+                         f"and N = {n} must be 8")
+    v = t.reshape(n_t, k // 16, 2, 4, 2, 8)  # (.., hi, q, e, n): k = 8 hi + 2 q + e
+    return v.permute(0, 1, 5, 3, 2, 4).reshape(n_t, k // 16, 32, 4).contiguous()
 
 
 # id(weight) -> (weak reference to the weight, key, the layout); an entry

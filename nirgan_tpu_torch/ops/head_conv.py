@@ -2,12 +2,14 @@
 reflect-padded input with bias and tanh in the epilogue
 (``csrc/head_conv.cu``).
 
-Replaces ``nirgan_tpu/ops/pallas_head.py``: ``head_conv_pallas``.  The TPU
-kernel's factor-8 space-to-depth grid existed to fill the MXU's lanes; with
-one output channel an H100 runs this in f32 FMA, bound by the SMs'
-arithmetic and shared-memory bandwidth, so the kernel keeps the weights and
-an input halo tile in shared memory and computes two outputs a thread.  The
-source's header has the design.
+Replaces ``nirgan_tpu/ops/pallas_head.py``: ``head_conv_pallas``.  bf16
+takes the tensor-core kernel: the TPU kernel's idea of a Toeplitz weight
+that makes neighbouring output columns the N of a GEMM, here with N = 8 for
+``mma.sync``, the warps splitting K with their share of the weight in
+registers while a block walks down the rows of its strip (``takes_mma``,
+``launch_plan``, ``pack_weight``).  f32, the card-against-CPU parity path,
+takes the f32-FMA kernel with the weight as (ky, kx, C).  The source's
+header has the design.
 
 ``head_conv`` is one ``torch.autograd.Function``.  Forward: a CPU tensor
 takes ``head_conv_plain``; a CUDA tensor launches the kernel or raises.
@@ -24,10 +26,15 @@ import torch
 import torch.nn.functional as F
 
 from nirgan_tpu_torch.ops import _lib
+from nirgan_tpu_torch.ops._pack import head_toeplitz, laid_out, mma_b_fragments
 
 NAME = "head_conv"
 CIN = 64
 K = 7
+STRIP = 64  # output columns a block of the mma kernel owns
+# what a block of the mma kernel spends before its first output row, in
+# rows' worth of time: its share of the weight out of L2 and the ring's fill
+_SETUP_ROWS = 4
 
 
 def head_conv_plain(x_padded: torch.Tensor, weight: torch.Tensor,
@@ -40,9 +47,46 @@ def head_conv_plain(x_padded: torch.Tensor, weight: torch.Tensor,
     return torch.tanh(y).permute(0, 2, 3, 1).contiguous()
 
 
-def head_conv_cuda(x_padded: torch.Tensor, weight: torch.Tensor,
-                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch kernel C on contiguous NHWC bf16 or f32 with 64 channels."""
+def takes_mma(dtype: torch.dtype) -> bool:
+    """What goes to the tensor-core kernel, with the Toeplitz image.  The
+    rule is written here only: ``nirgan_head_conv`` runs the kernel it is
+    told to and refuses what that kernel cannot take."""
+    return dtype == torch.bfloat16
+
+
+def pack_weight(weight: torch.Tensor) -> torch.Tensor:
+    """(1, 64, 7, 7) -> the mma kernel's B operand: the Toeplitz image of 8
+    output columns, (7, 896, 8), in fragment order (7, 56, 32, 4)."""
+    return mma_b_fragments(head_toeplitz(weight[0].permute(1, 2, 0)))
+
+
+def taps_f32(weight: torch.Tensor) -> torch.Tensor:
+    """(1, C, ky, kx) in the compute dtype -> (ky, kx, C) f32, the f32-FMA
+    kernel's layout: rounded to the compute dtype first, as the conv would
+    use it."""
+    return weight.float()[0].permute(1, 2, 0).contiguous()
+
+
+def launch_plan(b: int, ho: int, wo: int, sms: int) -> int:
+    """The output rows of a run of the mma kernel, whose blocks each own a
+    strip of 64 columns and two runs: the count that needs the fewest
+    rows' worth of time when ``sms`` blocks run at once, each walking its
+    run's rows, the 6 rows of halo and its set-up."""
+    strips = -(-wo // STRIP)
+    best = None
+    for pairs in range(1, max(1, ho // 16) + 1):
+        rows = -(-ho // (2 * pairs))
+        blocks = b * strips * -(-ho // (2 * rows))
+        cost = -(-blocks // sms) * (rows + K - 1 + _SETUP_ROWS)
+        if best is None or cost < best[0]:
+            best = (cost, rows)
+    return best[1]
+
+
+def _launch(x_padded: torch.Tensor, weight: torch.Tensor,
+            bias: Optional[torch.Tensor], mma: bool) -> torch.Tensor:
+    """One launch of the kernel that ``mma`` names; the C entry refuses a
+    dtype that kernel cannot take."""
     req = _lib.require
     x = x_padded
     req(x.is_cuda, NAME, "x must be a CUDA tensor")
@@ -53,23 +97,33 @@ def head_conv_cuda(x_padded: torch.Tensor, weight: torch.Tensor,
     req(c == CIN, NAME, f"the kernel takes Cin = {CIN}, got {c}")
     req(tuple(weight.shape) == (1, CIN, K, K), NAME,
         f"weight {tuple(weight.shape)} is not (1, {CIN}, {K}, {K})")
-    req(hp >= K and wp >= K, NAME, "input smaller than the 7x7 window")
-    # (1, C, ky, kx) -> (ky, kx, C) f32, rounded to the compute dtype first
-    # as the conv would use it
-    w = (weight.to(device=x.device, dtype=x.dtype).float()[0]
-         .permute(1, 2, 0).contiguous())
+    req(b > 0 and hp >= K and wp >= K, NAME,
+        "input smaller than the 7x7 window")
+    ho, wo = hp - K + 1, wp - K + 1
+    w = laid_out(weight, x.device, x.dtype, pack_weight if mma else taps_f32)
+    rows = 0
+    if mma:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        rows = launch_plan(b, ho, wo, sms)
     bf = None
     if bias is not None:
         req(bias.numel() == 1, NAME, "bias must have one element")
-        bf = bias.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
-    y = torch.empty((b, hp - K + 1, wp - K + 1, 1), device=x.device,
-                    dtype=x.dtype)
+        bf = bias.to(device=x.device, dtype=torch.float32).reshape(1)
+    y = torch.empty((b, ho, wo, 1), device=x.device, dtype=x.dtype)
     req(_lib.aligned(x, w), NAME, "tensors must be 16-byte aligned")
     err = _lib.library().nirgan_head_conv(
         x.device.index, code, x.data_ptr(), w.data_ptr(),
         bf.data_ptr() if bf is not None else None, y.data_ptr(), b, hp, wp,
-        _lib.stream_of(x))
+        int(mma), rows, _lib.stream_of(x))
     _lib.check(err, NAME)
+    return y
+
+
+def head_conv_cuda(x_padded: torch.Tensor, weight: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch kernel C on contiguous NHWC bf16 (tensor cores) or f32 (f32
+    FMA) with 64 channels."""
+    y = _launch(x_padded, weight, bias, takes_mma(x_padded.dtype))
     head_conv_cuda.launches += 1
     return y
 

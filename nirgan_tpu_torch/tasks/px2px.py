@@ -1,10 +1,20 @@
 """The conditional-GAN task, counterpart of ``Px2PxTask`` in
 ``nirgan_tpu/tasks/px2px.py`` (reference ``model/pix2pix.py``).
 
-Construction from the reference-schema config (plain generator route; the
-SatCLIP routes are not ported yet), the padded generator apply, the DN to
-reflectance scaling, the shape buckets and the NCHW ``predict_step`` serve;
-``extract_batch``, ``init_state``, ``train_step`` and ``eval_step`` train.
+Construction from the reference-schema config (the plain generator and the
+two SatCLIP routes: ``inject``, where the location embedding enters the
+generator after ``nd0``, and ``concat``, where it becomes a 4th input
+channel), the padded generator apply, the DN to reflectance scaling, the
+shape buckets and the NCHW ``predict_step`` serve; ``extract_batch``,
+``init_state``, ``train_step`` and ``eval_step`` train.  The frozen SatCLIP
+tower runs in float64 on the host, once a batch, as the JAX package runs it
+(a few hundred operations on (B,) vectors: launches would cost a card more
+than the arithmetic costs the host).  ``embed_coords`` is that host part on
+its own: the trainer and the bulk synthesis hand it to their loaders, whose
+producer thread then runs the tower while the device works on the batch
+before, and ``extract_batch`` only copies the (B, 256) f32 embeddings with
+the batch's other tensors.  A batch that comes without "embeds" gets them
+where it is extracted.
 
 ``train_step`` keeps the JAX package's fused semantics (``px2px.py:256-365``):
 one generator forward whose graph is kept, the discriminator update on the
@@ -27,9 +37,10 @@ import torch
 
 from nirgan_tpu_torch.config import ConfigNode, tpu_section
 from nirgan_tpu_torch.losses import calculate_metrics, gan_loss, l1_loss
-from nirgan_tpu_torch.models import define_D, define_G
+from nirgan_tpu_torch.models import define_D, define_G, define_G_inject
 from nirgan_tpu_torch.models.layers import dtype_of
 from nirgan_tpu_torch.ops.pad import reflect_pad2d, reflect_pad_to
+from nirgan_tpu_torch.ops.resize import resize_bicubic
 from nirgan_tpu_torch.train.state import TrainState, adam_for
 
 __all__ = ["Px2PxTask"]
@@ -72,20 +83,42 @@ class Px2PxTask:
                                       "trunk is not ported yet")
         sc = config.get("satclip", ConfigNode({"use_satclip": False}))
         self.satclip = bool(sc.get("use_satclip", False))
-        if self.satclip:
-            raise NotImplementedError("the SatCLIP routes (concat, inject) "
-                                      "are not ported yet")
+        self.satclip_style = sc.get("satclip_style", None) if self.satclip else None
+        if self.satclip and self.satclip_style not in ("concat", "inject"):
+            raise NotImplementedError("SatClip Style not recognized, choose "
+                                      "'concat' or 'inject'")
+        self.inject = self.satclip_style == "inject"
+        concat = self.satclip_style == "concat"
+
+        # generator selection (reference model/pix2pix.py:27-53)
         gen = torch.Generator().manual_seed(seed)
-        self.netG = define_G(
-            self.opt.input_nc, self.opt.output_nc, self.opt.ngf,
-            self.opt.netG, self.opt.norm, not self.opt.no_dropout,
-            self.opt.init_type, self.opt.init_gain,
-            compute_dtype=self.compute_dtype, generator=gen).to(self.device)
+        if self.inject:
+            self.netG = define_G_inject(config, compute_dtype=self.compute_dtype,
+                                        generator=gen).to(self.device)
+        else:
+            self.netG = define_G(
+                self.opt.input_nc + int(concat), self.opt.output_nc,
+                self.opt.ngf, self.opt.netG, self.opt.norm,
+                not self.opt.no_dropout, self.opt.init_type,
+                self.opt.init_gain, compute_dtype=self.compute_dtype,
+                generator=gen).to(self.device)
+        # D is sized from its true input, G's input channels + the output:
+        # the concat route's conditioning has 4 channels (the reference
+        # hard-codes input_nc + output_nc, which breaks its own concat style)
         self.netD = define_D(
-            self.opt.input_nc + self.opt.output_nc, self.opt.ndf,
-            self.opt.netD, self.opt.n_layers_D, self.opt.norm,
+            self.opt.input_nc + int(concat) + self.opt.output_nc,
+            self.opt.ndf, self.opt.netD, self.opt.n_layers_D, self.opt.norm,
             self.opt.init_type, self.opt.init_gain,
             compute_dtype=self.compute_dtype, generator=gen).to(self.device)
+
+        # the frozen SatCLIP tower, float64 on the host
+        self.satclip_model = None
+        if self.satclip:
+            from nirgan_tpu_torch.models.satclip import SatClipWrapper
+
+            self.satclip_model = SatClipWrapper(sc.get("satclip_path", None))
+        self.satclip_scaling_factor = (float(sc.get("scaling_factor", 1.0))
+                                       if self.satclip else 1.0)
 
         self.gan_mode = self.opt.gan_mode
         self.lambda_gan = float(self.opt.lambda_GAN)
@@ -104,12 +137,14 @@ class Px2PxTask:
         self.pad_amount = int(config.Data.padding_amount) if self.use_padding else 0
 
     # ------------------------------------------------------------- applies
-    def g_apply(self, rgb: torch.Tensor) -> torch.Tensor:
+    def g_apply(self, rgb: torch.Tensor,
+                embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Reflect-pad -> generator -> crop on NHWC reflectance (reference
-        forward, ``model/pix2pix.py:88-110``)."""
+        forward, ``model/pix2pix.py:88-110``); ``embeds`` (B, E) feed the
+        inject route only."""
         p = self.pad_amount
         x = reflect_pad2d(rgb, p) if self.use_padding else rgb
-        pred = self.netG(x)
+        pred = self.netG(x, embeds) if self.inject else self.netG(x)
         if self.use_padding:
             pred = pred[:, p:-p, p:-p, :]
         return pred
@@ -128,17 +163,65 @@ class Px2PxTask:
     def extract_batch(self, batch: Mapping) -> dict:
         """Reference data contract in, NHWC step batch on the task's device
         out (``nirgan_tpu/tasks/px2px.py:406-452``): {"rgb": (B, 3, H, W),
-        "nir": (B, 1, H, W)} as numpy.  uint8/uint16 DN stay integer through
-        the copy and are divided by ``dn_scale`` on the device by the step;
-        anything else is copied as f32."""
-        out = {}
-        for key in ("rgb", "nir"):
-            x = np.asarray(batch[key])
-            if x.dtype not in (np.uint8, np.uint16):
-                x = np.asarray(x, np.float32)
-            t = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-            out[key] = t.permute(0, 2, 3, 1)
+        "nir": (B, 1, H, W) [, "coords": (B, 2) lon/lat]} as numpy.
+        uint8/uint16 DN stay integer through the copy and are divided by
+        ``dn_scale`` on the device by the step; anything else is copied as
+        f32.  The SatCLIP routes need ``coords``: inject adds "embeds"
+        (B, E) f32; concat converts DN to f32 reflectance here, since the
+        embedding plane joins as a float 4th channel of "rgb"."""
+        out = {key: self._ingest(batch[key]) for key in ("rgb", "nir")}
+        if self.satclip:
+            out.update(self.condition(out["rgb"], batch.get("coords"),
+                                      batch.get("embeds")))
         return out
+
+    def embed_coords(self, batch: Mapping) -> Mapping:
+        """The host's part of the SatCLIP conditioning, for a loader's
+        thread: ``batch`` with "embeds" (B, E) f32 on the host, from its
+        "coords" through the frozen tower.  The plain route's batches pass
+        unchanged."""
+        if not self.satclip or "embeds" in batch:
+            return batch
+        return {**batch, "embeds": self._embed(batch["coords"])}
+
+    def _embed(self, coords) -> torch.Tensor:
+        """(B, 2) coords, taken as f32 degrees as the JAX task takes them,
+        through the tower."""
+        return self.satclip_model.embed(np.asarray(coords, np.float32))
+
+    def _ingest(self, x) -> torch.Tensor:
+        """NCHW numpy -> NHWC tensor on the task's device; uint8/uint16 DN
+        pass through as integers, everything else becomes f32."""
+        x = np.asarray(x)
+        if x.dtype not in (np.uint8, np.uint16):
+            x = np.asarray(x, np.float32)
+        t = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        return t.permute(0, 2, 3, 1)
+
+    def condition(self, rgb: torch.Tensor, coords, embeds=None) -> dict:
+        """The SatCLIP routes' part of a step batch from the NHWC ``rgb`` on
+        the device and either (B, 2) ``coords`` or the ``embeds`` that
+        ``embed_coords`` made of them: {"embeds"} for inject, {"rgb"} with
+        the plane attached for concat."""
+        if embeds is None:
+            embeds = self._embed(coords)
+        embeds = embeds.to(self.device)
+        if self.inject:
+            return {"embeds": embeds}
+        rgb = self._dn_to_reflectance(rgb, torch.float32)
+        return {"rgb": self._concat_embedding_plane(rgb, embeds)}
+
+    def _concat_embedding_plane(self, rgb: torch.Tensor,
+                                embeds: torch.Tensor) -> torch.Tensor:
+        """Embedding -> image plane -> 4th channel (reference
+        ``satclip_get_concat``, ``model/pix2pix.py:466-476``): the 256-d
+        vector is laid out along width, tiled over height, bicubically
+        resized to (W, H), the reference's swapped-size call, and scaled."""
+        b, h, w, _ = rgb.shape
+        e = embeds.shape[-1]
+        plane = embeds.reshape(b, 1, e, 1).expand(b, e, e, 1)
+        plane = resize_bicubic(plane, w, h) * self.satclip_scaling_factor
+        return torch.cat([rgb, plane.to(rgb.dtype)], dim=-1)
 
     def init_state(self) -> TrainState:
         """Adam for G and for D at ``base_configs.lr``, step 0."""
@@ -151,12 +234,13 @@ class Px2PxTask:
         networks, the optimizers and ``state.step`` in place and returns the
         8 ``model_loss/*`` terms and the 4 ``train/*`` metrics as 0-d f32
         tensors on the device (the metrics NaN except every
-        ``train_metrics_every``-th step)."""
+        ``train_metrics_every``-th step), and on the inject route the
+        updated ``scale_param`` / ``post_correction_param``."""
         rgb = self._dn_to_reflectance(batch["rgb"], self.compute_dtype)
         nir = self._dn_to_reflectance(batch["nir"], torch.float32)
 
         # --- one generator forward, its graph kept for the G update
-        pred = self.g_apply(rgb)
+        pred = self.g_apply(rgb, batch.get("embeds"))
         pred_sg = pred.detach()
 
         # --- discriminator update (optimizer_idx 0; pix2pix.py:195-212)
@@ -195,6 +279,12 @@ class Px2PxTask:
             else:
                 nan = torch.full((), math.nan, device=nir.device)
                 metrics.update({k: nan for k in METRIC_KEYS})
+            # the learnable conditioning scalars (reference logs them,
+            # pix2pix.py:188-192), as the update left them
+            for name in ("scale_param", "post_correction_param"):
+                p = getattr(self.netG, name, None)
+                if p is not None:
+                    metrics[name] = p.detach().float().clone()
         state.step += 1
         return metrics
 
@@ -204,7 +294,7 @@ class Px2PxTask:
         batch; a ``_valid`` (B,) row mask drops padded rows."""
         rgb = self._dn_to_reflectance(batch["rgb"], self.compute_dtype)
         nir = self._dn_to_reflectance(batch["nir"], torch.float32)
-        pred = self.g_apply(rgb)
+        pred = self.g_apply(rgb, batch.get("embeds"))
         metrics = calculate_metrics(pred, nir, phase="val",
                                     mask=batch.get("_valid"))
         return pred.float(), metrics
@@ -223,19 +313,23 @@ class Px2PxTask:
     @torch.inference_mode()
     def predict_step(self, rgb, coords: Optional[np.ndarray] = None) -> np.ndarray:
         """Public inference API (reference ``predict_step``,
-        ``model/pix2pix.py:133-163``): (B, 3, H, W) RGB reflectance ->
-        (B, 1, H, W) NIR as f32 numpy.  The input is reflect-padded to its
-        shape bucket, as the JAX task does for its static shapes, which
-        changes the instance-norm statistics; the result is cropped back."""
-        if coords is not None:
-            raise NotImplementedError("coords serve the SatCLIP routes, "
-                                      "which are not ported yet")
+        ``model/pix2pix.py:133-163``): (B, 3, H, W) RGB reflectance [and
+        (B, 2) lon/lat ``coords`` on the SatCLIP routes] -> (B, 1, H, W)
+        NIR as f32 numpy.  The input (with the concat route's plane
+        attached) is reflect-padded to its shape bucket, as the JAX task
+        does for its static shapes, which changes the instance-norm
+        statistics; the result is cropped back."""
         rgb = np.asarray(rgb, np.float32)
         _, _, h, w = rgb.shape
-        x = torch.from_numpy(rgb).to(self.device).permute(0, 2, 3, 1)
+        cond = {"rgb": self._ingest(rgb)}
+        if self.satclip:
+            if coords is None:
+                raise ValueError("SatCLIP model requires coords (B, 2) for "
+                                 "prediction")
+            cond.update(self.condition(cond["rgb"], coords))
         size = self.bucket_for(h, w)
-        x = reflect_pad_to(x, size, size)
-        pred = self.g_apply(x.to(self.compute_dtype)).float()
+        x = reflect_pad_to(cond["rgb"], size, size)
+        pred = self.g_apply(x.to(self.compute_dtype), cond.get("embeds")).float()
         return pred[:, :h, :w, :].permute(0, 3, 1, 2).cpu().numpy()
 
     def bind(self, state_dict: Mapping[str, torch.Tensor]) -> "Px2PxTask":

@@ -1,11 +1,14 @@
 """Training CLI on the PyTorch port, counterpart of the root ``train.py``
 (reference ``train.py:17-136``), with the same argv plus the device:
 
+    python -m nirgan_tpu_torch.train --satclip y      # SatCLIP-conditioned (flagship)
+    python -m nirgan_tpu_torch.train --satclip n      # plain Pix2Pix cGAN
     python -m nirgan_tpu_torch.train --config configs/config_px2px.yaml \
         --max-steps 8 --device cuda [--resume RUN_DIR]
 
-Without ``--config`` the flags pick the config as the reference does; the
-SatCLIP and baseline routes are not ported yet and raise.
+Without ``--config`` the flags pick the config as the reference does
+(``train.py:32-42``; SatCLIP conditioning is the default); the baseline
+regressors are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -28,9 +31,8 @@ def str2bool(value):
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="Training script for NIR-GAN "
                                 "(PyTorch port).")
-    p.add_argument("--satclip", type=str2bool, default=None,
-                   help="SatCLIP conditioning (the reference's default: "
-                        "True; not ported yet)")
+    p.add_argument("--satclip", type=str2bool, default=True,
+                   help="SatCLIP conditioning (default: True)")
     p.add_argument("--baseline", type=str2bool, default=False,
                    help="train the baseline regressors (not ported yet)")
     p.add_argument("--config", default=None,
@@ -54,9 +56,6 @@ def main(argv=None):
     if args.baseline:
         raise NotImplementedError("--baseline y: the baseline regressors are "
                                   "not ported yet")
-    if args.satclip or (args.satclip is None and not args.config):
-        raise NotImplementedError("--satclip y: SatCLIP conditioning is not "
-                                  "ported yet (pass --satclip n or --config)")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to run the plain versions)")
@@ -66,7 +65,12 @@ def main(argv=None):
     from nirgan_tpu_torch.tasks import Px2PxTask
     from nirgan_tpu_torch.train.trainer import Trainer
 
-    config = load_config(args.config or "configs/config_px2px.yaml")
+    if args.config:
+        config = load_config(args.config)
+    else:
+        print("Satclip:", args.satclip)
+        config = load_config("configs/config_px2px_SatCLIP.yaml" if args.satclip
+                             else "configs/config_px2px.yaml")
     if args.resume:
         config.custom_configs.Model.load_checkpoint = args.resume
     task = Px2PxTask(config, device=args.device, seed=0)

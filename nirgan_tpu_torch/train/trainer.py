@@ -162,7 +162,7 @@ class Trainer:
         t_window, n_window = time.perf_counter(), 0
 
         while step_no < self.max_steps:
-            for batch in self.dm.train_dataloader():
+            for batch in self.dm.train_dataloader(self.task.embed_coords):
                 metrics = self.task.train_step(state,
                                                self.task.extract_batch(batch))
                 step_no = state.step
@@ -201,7 +201,8 @@ class Trainer:
     def _run_validation(self, state, epoch: int, step_no: int) -> None:
         agg: dict = {}
         n_batches = 0
-        for i, batch in enumerate(self.dm.val_dataloader()):
+        for i, batch in enumerate(
+                self.dm.val_dataloader(self.task.embed_coords)):
             if i >= self.limit_val_batches:
                 break
             _, metrics = self.task.eval_step(self.task.extract_batch(batch))

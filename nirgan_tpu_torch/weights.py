@@ -1,11 +1,12 @@
 """Weights between the JAX package's parameter trees and the port's
 state_dict.
 
-``params_from_jax`` maps a (numpy) flax tree of the plain ``ResnetGenerator``
-onto the port's names: conv kernels HWIO -> OIHW, conv-transpose kernels
-HWIO -> IOHW with no flip (the inverse of ``_conv`` / ``_convT`` in
-``nirgan_tpu/train/torch_convert.py``; its ``_rev_conv`` / ``_rev_convT``
-do the same).  ``d_params_from_jax`` does the same for the
+``params_from_jax`` maps a (numpy) flax tree of ``ResnetGenerator``, plain
+or inject, onto the port's names: conv kernels HWIO -> OIHW, conv-transpose
+kernels HWIO -> IOHW with no flip, the inject variant's dense ``fc`` kernel
+(in, out) -> (out, in) and its two scalars as they are (the inverse of
+``_conv`` / ``_convT`` / ``_dense`` in ``nirgan_tpu/train/torch_convert.py``;
+its ``_rev_*`` do the same).  ``d_params_from_jax`` does the same for the
 ``NLayerDiscriminator`` tree.  ``load_reference_weights`` and
 ``load_reference_ckpt`` read a reference Lightning ``.ckpt`` (``netG.*``,
 ``netD.*``) directly: its tensors are torch's layout already, so only the
@@ -21,6 +22,9 @@ import torch
 
 _CONVS = ("c0", "d0", "d1", "c1")
 _CONVTS = ("u0", "u1")
+# the inject variant's extras, under the reference's state_dict names
+# (``model/generator_inject.py:88-100``)
+_SCALARS = ("scale_param", "post_correction_param")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -34,22 +38,29 @@ def _put(out: dict, name: str, p: Mapping, perm: tuple) -> None:
 
 
 def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
-    """Flax params of the plain ResnetGenerator -> the port's state_dict."""
+    """Flax params of ``ResnetGenerator`` (plain or inject) -> the port's
+    state_dict."""
     unknown = [k for k in params
-               if k not in _CONVS + _CONVTS and not k.startswith("r")]
+               if k not in _CONVS + _CONVTS + _SCALARS + ("fc",)
+               and not (k[:1] == "r" and k[1:].isdigit())]
     if unknown:
-        raise ValueError(f"params of the plain generator expected; unknown "
-                         f"entries {unknown} (SatCLIP inject is not ported)")
+        raise ValueError(f"params of ResnetGenerator expected; unknown "
+                         f"entries {unknown}")
     out: dict[str, torch.Tensor] = {}
     for name in _CONVS:
         _put(out, name, params[name], (3, 2, 0, 1))
     for name in _CONVTS:
         _put(out, name, params[name], (2, 3, 0, 1))
-    blocks = sorted((k for k in params if k.startswith("r")),
+    blocks = sorted((k for k in params if k[:1] == "r" and k[1:].isdigit()),
                     key=lambda k: int(k[1:]))
     for name in blocks:
         for conv in ("conv1", "conv2"):
             _put(out, f"{name}.{conv}", params[name][conv], (3, 2, 0, 1))
+    if "fc" in params:
+        _put(out, "fc", params["fc"], (1, 0))
+    for name in _SCALARS:
+        if name in params:
+            out[name] = _tensor(params[name])
     return out
 
 
@@ -131,14 +142,12 @@ def load_reference_weights(path_or_sd, config) -> dict[str, dict]:
     if any(k.startswith("netG.") for k in sd):
         if bc.netG.startswith("unet"):
             raise NotImplementedError("the U-Net generator is not ported yet")
-        extras = [k for k in ("fc.weight", "scale_param",
-                              "post_correction_param") if f"netG.{k}" in sd]
-        if extras:
-            raise ValueError(f"weights of the plain generator expected; the "
-                             f"checkpoint has netG.{extras} (SatCLIP inject "
-                             "is not ported)")
         out["netG"] = _tower(sd, "netG.", _resnet_generator_keys(
             9 if bc.netG == "resnet_9blocks" else 6, not bc.no_dropout))
+        # the inject variant's extras keep their names and layouts
+        for name in ("fc.weight", "fc.bias") + _SCALARS:
+            if f"netG.{name}" in sd:
+                out["netG"][name] = _tensor(sd[f"netG.{name}"])
     if any(k.startswith("netD.") for k in sd):
         if bc.netD == "pixel":
             raise NotImplementedError("the pixel discriminator is not ported "

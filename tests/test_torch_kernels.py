@@ -718,3 +718,118 @@ def test_kernel_sources_and_headers_exist_and_key_the_build():
     listed = set(_lib.SOURCES + _lib.HEADERS)
     on_disk = {p.name for p in _lib.CSRC.iterdir() if p.suffix in (".cu", ".cuh", ".h")}
     assert on_disk == listed
+
+
+# ------------------------------------------- what Python does for the head's mma
+def _pallas_wblk():
+    from nirgan_tpu.ops.pallas_head import _build_wblk
+
+    return _build_wblk
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 30, 64), (1, 7, 22, 64), (1, 9, 14, 16)])
+def test_head_toeplitz_image_is_the_conv(shape):
+    """An einsum of the Toeplitz image with the gathered windows (7 input
+    rows, 14 pixels of all channels flattened to K) equals ``F.conv2d`` for
+    every group of 8 output columns: f32, 1e-5 of the largest output."""
+    rng = np.random.default_rng(0)
+    b, hp, wp, c = shape
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((1, c, 7, 7)).astype(np.float32)) / (7 * c ** 0.5)
+    image = _pack.head_toeplitz(w[0].permute(1, 2, 0))
+    assert image.shape == (7, 14 * c, 8)
+    ref = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w)[:, 0]
+    ho, wo = hp - 6, wp - 6
+    assert wo % 8 == 0
+    got = torch.empty_like(ref)
+    for x0 in range(0, wo, 8):
+        windows = torch.stack([x[:, dy:dy + ho, x0:x0 + 14].reshape(b, ho, 14 * c)
+                               for dy in range(7)])
+        got[:, :, x0:x0 + 8] = torch.einsum("dbyk,dkp->byp", windows, image)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_head_toeplitz_taps_are_those_of_build_wblk():
+    """Row dy of the image holds, for pixel j and column p, the tap
+    w[dy, j - p] where 0 <= j - p < 7 and zero elsewhere: the TPU kernel's
+    ``_build_wblk`` at its row-parity 0 and the same 8 column parities."""
+    rng = np.random.default_rng(1)
+    k = rng.standard_normal((7, 7, 64, 1)).astype(np.float32)
+    image = _pack.head_toeplitz(torch.from_numpy(k[..., 0])).reshape(7, 14, 64, 8)
+    wblk = np.asarray(_pallas_wblk()(jnp.asarray(k), 64)).reshape(14, 16, 64, 8, 8)
+    # wblk[jy, jx, c, py, px] = w[jy - py, jx - px, c]: py = 0 gives dy = jy
+    np.testing.assert_array_equal(image.numpy(), wblk[:7, :14, :, 0, :])
+    assert not wblk[:7, 14:, :, 0, :].any()
+    for dy, j, p in ((0, 0, 0), (3, 9, 4), (6, 13, 7)):
+        np.testing.assert_array_equal(image[dy, j, :, p].numpy(), k[dy, j - p, :, 0])
+    assert not image[:, 0, :, 1:].any() and not image[:, 13, :, :7].any()
+
+
+def test_mma_b_fragments_follow_the_register_order():
+    """Lane l of fragment (t, kc) holds column l // 4 at k = 16 kc + 2 (l %
+    4) + (0, 1, 8, 9); the permutation loses nothing."""
+    t = torch.arange(3 * 32 * 8, dtype=torch.float32).reshape(3, 32, 8)
+    frag = _pack.mma_b_fragments(t)
+    assert frag.shape == (3, 2, 32, 4) and frag.is_contiguous()
+    for lane in range(32):
+        for kc in range(2):
+            ks = [16 * kc + 2 * (lane % 4) + o for o in (0, 1, 8, 9)]
+            assert torch.equal(frag[1, kc, lane], t[1, ks, lane // 4])
+    assert sorted(frag.flatten().tolist()) == t.flatten().tolist()
+    with pytest.raises(ValueError, match="multiple of 16"):
+        _pack.mma_b_fragments(torch.zeros(1, 24, 8))
+    with pytest.raises(ValueError, match="must be 8"):
+        _pack.mma_b_fragments(torch.zeros(1, 16, 4))
+
+
+def test_head_conv_packs_the_weight_where_the_kernel_reads_it():
+    """``pack_weight`` is the fragment order of the Toeplitz image of the
+    (ky, kx, C) taps: 7 x 56 fragments of 32 lanes x 4 bf16, 100 KB; the f32
+    kernel's layout is the taps themselves."""
+    w = torch.randn(1, 64, 7, 7).bfloat16()
+    packed = head_mod.pack_weight(w)
+    assert packed.shape == (7, 56, 32, 4) and packed.dtype == torch.bfloat16
+    assert packed.numel() * 2 == 100352
+    image = _pack.head_toeplitz(w[0].permute(1, 2, 0))
+    # warp 2's chunk 3 (kc = 17: pixel 4, channels 16..31), weight row 5,
+    # lane 13 (column 3, q = 1): k = 2, 3, 10, 11 of the chunk
+    assert torch.equal(packed[5, 17, 13], image[5, [274, 275, 282, 283], 3])
+    assert torch.equal(image[5, 274, 3], w[0, 18, 5, 1])
+    taps = head_mod.taps_f32(w)
+    assert taps.dtype == torch.float32 and taps.shape == (7, 7, 64)
+    assert torch.equal(taps[2, 4], w[0, :, 2, 4].float())
+    assert head_mod.takes_mma(torch.bfloat16) and not head_mod.takes_mma(torch.float32)
+
+
+@pytest.mark.parametrize("b,ho,wo,rows,blocks", [
+    (16, 276, 276, 46, 240),   # the train step's head
+    (4, 532, 532, 38, 252),    # the serving forward's
+    (8, 276, 276, 46, 120),    # the SatCLIP config's batch
+    (1, 1, 3, 1, 1),           # the smallest input
+    (2, 64, 64, 8, 8),
+])
+def test_head_conv_launch_plan(b, ho, wo, rows, blocks):
+    """The rows of a run at the main path's shapes on a 132-SM card, and
+    the grid that follows: B x strips of 64 columns x pairs of runs, every
+    output row in exactly one run."""
+    got = head_mod.launch_plan(b, ho, wo, 132)
+    assert got == rows
+    pairs = -(-ho // (2 * got))
+    assert b * -(-wo // head_mod.STRIP) * pairs == blocks
+    assert 2 * got * pairs >= ho > 2 * got * (pairs - 1)
+
+
+def test_head_conv_keeps_its_layout_until_the_weight_is_written():
+    """The head's layouts go through ``laid_out``: packed once for each
+    dtype, again after an optimizer's write."""
+    conv = torch.nn.Conv2d(64, 1, 7)
+    w, cpu = conv.weight, torch.device("cpu")
+    a = _pack.laid_out(w, cpu, torch.bfloat16, head_mod.pack_weight)
+    assert _pack.laid_out(w, cpu, torch.bfloat16, head_mod.pack_weight) is a
+    f = _pack.laid_out(w, cpu, torch.float32, head_mod.taps_f32)
+    assert f.shape == (7, 7, 64) and f.dtype == torch.float32
+    w.grad = torch.ones_like(w)
+    torch.optim.SGD([w], lr=0.5).step()
+    again = _pack.laid_out(w, cpu, torch.bfloat16, head_mod.pack_weight)
+    assert again is not a and not torch.equal(again, a)
+    assert torch.equal(again, head_mod.pack_weight(w.detach().bfloat16()))

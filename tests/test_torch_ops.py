@@ -134,3 +134,22 @@ def test_normal_initializer_is_seeded_and_device_independent():
     assert abs(float(a.std()) - 0.02) < 1e-3 and abs(float(a.mean())) < 1e-3
     with pytest.raises(NotImplementedError):
         get_initializer("xavier")
+
+
+def test_resize_matrix_kept_from_inference_mode_serves_autograd():
+    """A resize matrix is kept for its device.  One first made while serving
+    under ``torch.inference_mode`` must still be usable in a train step's
+    graph (an inference tensor cannot be saved for backward)."""
+    from nirgan_tpu_torch.ops import resize
+
+    resize._on_device.cache_clear()
+    x = torch.randn(1, 6, 6, 1)
+    with torch.inference_mode():
+        served = resize.resize_bilinear(x, 9, 9)
+        resize.resize_bicubic(x, 9, 9)
+    xg = x.clone().requires_grad_(True)
+    y = resize.resize_bilinear(xg, 9, 9)
+    resize.resize_bicubic(xg, 9, 9).sum().backward()
+    y.sum().backward()
+    torch.testing.assert_close(y.detach(), served, rtol=0, atol=0)
+    assert xg.grad is not None and bool(torch.isfinite(xg.grad).all())

@@ -159,11 +159,13 @@ _NO_JAX = (
 
 def test_port_never_imports_jax(tmp_path):
     """Importing every module of the port, then a serving run and a train
-    run through the CLIs, leaves jax and every module of the JAX package out
-    of sys.modules (a subprocess: this test process has jax loaded by
-    conftest)."""
+    run through the CLIs on the plain and on the SatCLIP inject route,
+    leaves jax and every module of the JAX package out of sys.modules (a
+    subprocess: this test process has jax loaded by conftest)."""
+    from tests.test_torch_satclip import _small_satclip_file
     from tests.test_torch_train import _tiny_config_file
 
+    satclip_cfg = _small_satclip_file(tmp_path)
     cfg_path = tmp_path / "cfg.yaml"
     cfg_path.write_text(yaml.safe_dump(_tiny_config().to_dict()))
     data = tmp_path / "data"
@@ -183,6 +185,12 @@ def test_port_never_imports_jax(tmp_path):
         "from nirgan_tpu_torch.train import cli\n"
         f"cli.main(['--config', {_tiny_config_file(tmp_path)!r}, '--device', 'cpu',\n"
         f"          '--max-steps', '2', '--logdir', {str(tmp_path / 'run')!r}])\n"
+        f"n = serve.main(['--config', {satclip_cfg!r}, '--data', {str(data)!r},\n"
+        f"                '--out', {str(tmp_path / 'out_sat')!r}, '--ckpt', 'none.ckpt',\n"
+        "                '--batch-size', '2', '--device', 'cpu'])\n"
+        "assert n == 3, n\n"
+        f"cli.main(['--config', {satclip_cfg!r}, '--device', 'cpu',\n"
+        f"          '--max-steps', '2', '--logdir', {str(tmp_path / 'run_sat')!r}])\n"
         + _NO_JAX +
         "print('clean', len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -349,7 +349,8 @@ def test_trainer_sigterm_checkpoints_at_the_next_step(tmp_path):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--satclip", "y"], "SatCLIP"), ([], "SatCLIP"),
+    (["--satclip", "y", "--baseline", "y"], "baseline"),
+    (["--baseline", "y"], "baseline"),
     (["--satclip", "n", "--baseline", "y"], "baseline")])
 def test_cli_rejects_unported_routes(argv, message):
     with pytest.raises(NotImplementedError, match=message):
