@@ -21,19 +21,27 @@ never prints the final ``"ok": true`` line:
    instance norm is timed over a rotation of inputs larger than the L2
    cache (``ms``) and on one input (``warm_ms``).  The trunk conv and the
    transposed conv's backward are also held at a shape that their wgmma
-   kernels do not take, where the WMMA kernels run.
+   kernels do not take, where the WMMA kernels run.  The int8 trunk's
+   kernels D (conv with moments) and E (norm from moments, three modes) at
+   the serving trunk's shape (4, 133^2, 256) and at odd shapes, D timed
+   beside kernel A at its shape.
 3. generator: the full-width ``resnet_9blocks`` (ngf 64), random weights
    from a seed, batch 4 at 532^2 in bf16: kernel path against the plain
    path, launches per forward, forward time; then ``predict_step`` in f32
    on the card against the same task on the CPU.  Twice: the plain
    generator, then the SatCLIP inject generator with embeddings and
-   ``predict_step`` with coordinates.
+   ``predict_step`` with coordinates.  Then the int8 serving forward of
+   both generators, the trunk calibrated on the batch: D and E's launches,
+   against their plain versions >= 40 dB, against the bf16 forward within
+   1 dB of the method's own error on the plain versions, a second forward
+   bit for bit, its time beside the float forward's.
 4. serving: ``python -m nirgan_tpu_torch.create_synthetic_dataset`` on 8
    seeded uint16 tiles (HR 512^2 3-band, LR 128^2 4-band, coordinates)
    with ``--device cuda --batch-size 4``; launch counts of that run,
    output checks, agreement with the plain path, and tiles/s of a warm
    rerun of the CLI.  Twice: ``config_px2px.yaml``, then
-   ``config_px2px_SatCLIP.yaml``.
+   ``config_px2px_SatCLIP.yaml``; then ``config_px2px.yaml`` with
+   ``--quant int8``.
 5. train: one fused GAN step of the full-width config in bf16 on the
    kernels against the plain route, launches per step, a finite non-zero
    gradient for every parameter, the same gradients bit for bit from a
@@ -47,14 +55,19 @@ never prints the final ``"ok": true`` line:
    ``config_px2px.yaml`` (batch 16 at 256^2), then the flagship
    ``config_px2px_SatCLIP.yaml`` (inject, batch 8 at 256^2) with the CLI's
    default arguments.  Then the concat route (6 blocks): one forward and
-   one step, kernels against the plain route.
+   one step, kernels against the plain route.  One flagship step with the
+   SSIM, histogram (EMD) and spectral-index losses on, against the plain
+   route, ``emd_loss`` timed; ``config_px2px.yaml`` at ngf 16 / ndf 16,
+   served and stepped once, where the trunk conv and the head take their
+   library routes (whose counts must be 0 at the flagship widths
+   everywhere else).
 6. launches: one call of the instance norm at each timed shape under
    ``torch.profiler``: one kernel where the plan is resident, two where it
    streams.  Last, since an attached profiler slows the host's launches.
 
 ``python3 chip_smoke.py --profile`` instead prints, after phases 0 and 1,
-the device time of the serving forward and of the train step by group of
-kernels under ``torch.profiler``, on the plain and on the inject route, and
+the device time of the serving forward (also with the int8 trunk) and of
+the train step by group of kernels under ``torch.profiler``, on the plain and on the inject route, and
 the head's backward on its own (no checks, no ``ok`` line).
 ``python3 chip_smoke.py --sweep`` instead times the instance norm under
 every launch plan its kernels take at the main path's shapes, beside the
@@ -77,8 +90,10 @@ entries state their launch plan (``regime``, ``cluster``, ``smem_bytes``)
 and the kernels that one call launched on the card under ``torch.profiler``
 (``cuda_launches``), and list every main-path shape under ``shapes``,
 the forward also with the skip fused (``with_skip``), the backward also
-without the fused ReLU (``no_relu``, beside the library call).  The last
-line is
+without the fused ReLU (``no_relu`` at 69^2, ``no_relu_276`` at 276^2,
+beside the library call).  D's and E's entries hold the int8 serving CLI's
+launches (two batches of 4), ``per_forward`` and their times at the serving
+trunk's shape (E by mode).  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -120,8 +135,14 @@ EVAL_LAUNCHES = {"trunk_conv": 18, "instance_norm": 23, "instance_norm_bwd": 0,
                  "head_conv": 1, "convt_bwd": 0}
 
 RESULTS: dict = {}  # kernel name -> its JSON entry
-# published peaks of one H100 SXM: dense bf16 tensor-core rate and HBM3 rate
+# the int8 serving trunk's kernels and their wrapper calls a forward of the
+# 9-block generator: D twice a block, E once to quantise the trunk's input
+# and twice a block
+INT8_FORWARD = {"int8_conv": 18, "int8_norm": 19}
+# published peaks of one H100 SXM: dense bf16 and int8 tensor-core rates and
+# the HBM3 rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -168,12 +189,13 @@ def compare_ms(*fns, iters: int = 20, run_ahead: bool = False) -> tuple:
                  for a, b in zip(forth, back))
 
 
-def least_time(flops: float, moved: float) -> tuple[float, str]:
+def least_time(flops: float, moved: float,
+               peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     """(bound_ms, bound_by): the least time the card could take, the larger
-    of the operations over the bf16 tensor-core peak and the bytes that must
-    move (each input read once, each output written once) over the memory
-    rate."""
-    by_ops, by_bytes = flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES_PER_S * 1e3
+    of the operations over the tensor cores' peak for their type (bf16
+    unless ``peak`` says otherwise) and the bytes that must move (each input
+    read once, each output written once) over the memory rate."""
+    by_ops, by_bytes = flops / peak * 1e3, moved / PEAK_BYTES_PER_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
@@ -191,23 +213,81 @@ def kernels():
             "convt_bwd": convt_bwd.convt_k3s2_bwd_cuda}
 
 
+def int8_kernels():
+    from nirgan_tpu_torch.ops import int8_trunk
+
+    return {"int8_conv": int8_trunk.conv_moments_cuda,
+            "int8_norm": int8_trunk.norm_quant_cuda}
+
+
+def library_routes():
+    """The library routes of the ops whose kernels are built for some widths
+    only: their calls are counted apart from the kernels'."""
+    from nirgan_tpu_torch.ops import head_conv, trunk_conv
+
+    return {"trunk_conv_library": trunk_conv.trunk_conv_library,
+            "head_conv_library": head_conv.head_conv_library}
+
+
 def reset_counts() -> None:
-    for fn in kernels().values():
-        fn.launches = 0
+    for table in (kernels(), int8_kernels(), library_routes()):
+        for fn in table.values():
+            fn.launches = 0
 
 
 def counts() -> dict:
     return {name: fn.launches for name, fn in kernels().items()}
 
 
+def int8_counts() -> dict:
+    return {name: fn.launches for name, fn in int8_kernels().items()}
+
+
+def library_counts() -> dict:
+    return {name: fn.launches for name, fn in library_routes().items()}
+
+
+def no_library(what: str) -> None:
+    """The flagship widths are the kernels' own: no call may take a library
+    route."""
+    taken = library_counts()
+    if any(taken.values()):
+        raise AssertionError(f"{what}: a library route ran at the flagship widths: "
+                             f"{taken}")
+
+
+@contextlib.contextmanager
+def int8_plain_route():
+    """Kernels D and E's plain versions in place of the kernels, every
+    other kernel as it is: the int8 trunk's own route against its kernels
+    on the same input stream."""
+    from nirgan_tpu_torch.ops import int8_trunk
+
+    with mock.patch.object(int8_trunk, "conv_moments_cuda",
+                           int8_trunk.conv_moments_plain), \
+         mock.patch.object(int8_trunk, "norm_quant_cuda",
+                           int8_trunk.norm_quant_plain):
+        yield
+
+
 @contextlib.contextmanager
 def plain_route():
     """Send CUDA tensors to the plain versions instead of the kernels, to
     compare whole paths (the package itself has no such switch)."""
-    from nirgan_tpu_torch.ops import convt_bwd, head_conv, instance_norm, trunk_conv
+    from nirgan_tpu_torch.ops import (
+        convt_bwd,
+        head_conv,
+        instance_norm,
+        int8_trunk,
+        trunk_conv,
+    )
 
     with mock.patch.object(trunk_conv, "trunk_conv_cuda",
                            trunk_conv.trunk_conv_plain), \
+         mock.patch.object(int8_trunk, "conv_moments_cuda",
+                           int8_trunk.conv_moments_plain), \
+         mock.patch.object(int8_trunk, "norm_quant_cuda",
+                           int8_trunk.norm_quant_plain), \
          mock.patch.object(instance_norm, "instance_norm_cuda",
                            instance_norm.instance_norm_plain), \
          mock.patch.object(instance_norm, "instance_norm_bwd_cuda",
@@ -251,7 +331,7 @@ def phase_build() -> None:
     if spills:
         raise AssertionError(f"a kernel spills registers: {spills}")
     # the redesigned kernels must reach the tensor cores through wgmma:
-    # HGMMA is its machine instruction
+    # HGMMA is its machine instruction in bf16, IGMMA in s8
     dump = subprocess.run(
         [os.path.join(os.path.dirname(_lib.nvcc()), "cuobjdump"), "-sass", str(path)],
         capture_output=True, text=True, timeout=300, check=True).stdout
@@ -259,17 +339,21 @@ def phase_build() -> None:
     for line in dump.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-        elif name and ("HGMMA" in line or "HMMA." in line):
-            key = (name, "HGMMA" if "HGMMA" in line else "HMMA")
-            per_kernel[key] = per_kernel.get(key, 0) + 1
+        elif name and any(op in line for op in ("HGMMA", "IGMMA", "HMMA.", "IMMA.")):
+            op = next(op for op in ("HGMMA", "IGMMA", "HMMA", "IMMA") if op in line)
+            per_kernel[(name, op)] = per_kernel.get((name, op), 0) + 1
     found = {f"{want} {op}": sum(v for (k, o), v in per_kernel.items()
                                  if want in k and o == op)
              for want, op in (("igemm_wgmma_kernelILi256", "HGMMA"),
                               ("igemm_wgmma_kernelILi128", "HGMMA"),
                               ("convt_dw_wgmma_kernel", "HGMMA"),
                               # the head's mma.sync is HMMA.16816
-                              ("head_conv_mma_kernel", "HMMA"))}
-    log("build", f"tensor-core instructions (wgmma = HGMMA, mma.sync = HMMA): {found}")
+                              ("head_conv_mma_kernel", "HMMA"),
+                              # D: the s8 form of the engine, and mma.sync s8
+                              ("igemm_wgmma_kernelILi256ELb1", "IGMMA"),
+                              ("int8_conv_kernel", "IMMA"))}
+    log("build", f"tensor-core instructions (wgmma = HGMMA, s8 wgmma = IGMMA, "
+        f"mma.sync = HMMA, s8 mma.sync = IMMA): {found}")
     if not all(found.values()):
         raise AssertionError(f"a kernel without its tensor-core instruction: {found}")
 
@@ -733,6 +817,7 @@ def phase_kernels() -> None:
         satclip_step=(satclip, *c_times))
     phase_norms(g)
     phase_convt_bwd(g)
+    phase_int8_kernels(g)
     torch.cuda.synchronize()
 
 
@@ -788,6 +873,10 @@ def phase_norms(g: torch.Generator) -> None:
         if train:
             bwd = (shape, *bwd_times(xb, gb, relu))
             bwd_all.append(times(*bwd))
+        if shape == train_shapes[0]:
+            # G's first norm, 276^2: without the ReLU too, beside the
+            # library call, which has no fused ReLU
+            train_bwd_top = (shape, *bwd_times(xb, gb, False))
         if shape == serving_shapes[2]:
             # the shape of 19 of the 23 calls a serving forward makes: 10
             # with the ReLU fused (nd1, each block's norm1), 9 with the skip
@@ -835,6 +924,7 @@ def phase_norms(g: torch.Generator) -> None:
     RESULTS["instance_norm_bwd"] = entry("instance_norm_bwd", source, replaces,
                                          worst_bwd, train_bwd,
                                          no_relu=train_bwd_no_relu,
+                                         no_relu_276=train_bwd_top,
                                          satclip_step=satclip_bwd)
     RESULTS["instance_norm_bwd"]["shapes"] = bwd_all
     shares = [e["bound_ms"] / e["ms"] for e in fwd_all + bwd_all]
@@ -912,6 +1002,277 @@ def phase_convt_bwd(g: torch.Generator) -> None:
         worst, timed.pop("u1"), **timed)
 
 
+def steps_apart(got: torch.Tensor, ref: torch.Tensor, what: str) -> int:
+    """The int8 outputs of a kernel against its plain version: at most one
+    step apart, on at most 1e-4 of the elements (an f32 statistic summed in
+    another order, or rsqrt rounded otherwise, can move a value across a
+    rounding boundary).  Returns how many differ."""
+    d = (got.int() - ref.int()).abs()
+    n = int((d > 0).sum())
+    log("int8", f"{what}: {n} of {d.numel()} int8 outputs differ, by at most "
+        f"{int(d.max())} (bound: 1 step on 1e-4 of them)")
+    if int(d.max()) > 1 or n > 1e-4 * d.numel():
+        raise AssertionError(f"{what}: {n} outputs differ, max {int(d.max())}")
+    return n
+
+
+def step_of(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The spacing of ``dtype``'s values (bf16 or f32) at |v|."""
+    bits = 8 if dtype == torch.bfloat16 else 24
+    _, e = torch.frexp(v.float().abs())
+    return torch.ldexp(torch.ones_like(v.float()), e - bits).clamp(min=2.0 ** -149)
+
+
+def within_ulp(got: torch.Tensor, ref: torch.Tensor, what: str,
+               addend: torch.Tensor | None = None) -> float:
+    """A stream (bf16 or f32) against its plain version: within one step of
+    the result; for a sum ``addend + y``, also within steps of y, since y is
+    a norm whose rsqrt may round one ulp apart on the two sides (up to two
+    steps of y in f32; in bf16, y is rounded to one of two neighbours):
+    where the two nearly cancel, a step of y is many of the sum's.  Returns
+    the worst |err| / bound."""
+    g, r = got.float(), ref.float()
+    bound = step_of(r, ref.dtype)
+    norm_steps = 1 if ref.dtype == torch.bfloat16 else 2
+    if addend is not None:
+        bound = bound + norm_steps * step_of(r - addend.float(), ref.dtype)
+    worst = float(((g - r).abs() / bound).max())
+    log("int8", f"{what}: worst |err| / bound {worst:.3f} (bound: one {ref.dtype} "
+        f"step of the result" + (f" and {norm_steps} of the norm" if addend is not None
+                                 else "") + ")")
+    if not worst <= 1.0:
+        raise AssertionError(f"{what}: {worst} bf16 steps")
+    return worst
+
+
+def check_int8_conv(g: torch.Generator, shape: tuple, co: int,
+                    timed: bool = False) -> tuple:
+    """Kernel D against its plain version on int8 x8 of ``shape`` (B, H, W,
+    Cin) and a (co, Cin, 3, 3) int8 weight: the staged bf16 accumulator bit
+    for bit (both round the exact int32 sum to f32, then to bf16), the sums
+    of squares within rtol 1e-5 and the sums within 1e-5 of their scale
+    sqrt(n Sigma a^2) (f32 sums of 17,689 terms in other orders; Sigma a
+    mixes signs), and a second launch bit for bit.  Returns (x8, w8, hb,
+    moments, worst relative moment error) and, if ``timed``, the kernel,
+    plain and kernel A ms and the bound."""
+    from nirgan_tpu_torch.ops.int8_trunk import (
+        _launch,
+        conv_moments_cuda,
+        conv_moments_plain,
+        takes_wgmma,
+    )
+    from nirgan_tpu_torch.ops.trunk_conv import trunk_conv_cuda
+
+    dev = torch.device("cuda")
+    ci = shape[3]
+    x8 = torch.randint(-127, 128, shape, device=dev, generator=g, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (co, ci, 3, 3), device=dev, generator=g,
+                       dtype=torch.int8)
+    hb, m = conv_moments_cuda(x8, w8)
+    rhb, rm = conv_moments_plain(x8, w8)
+    n = shape[1] * shape[2]
+    if not torch.equal(hb, rhb):
+        bad = int((hb != rhb).sum())
+        raise AssertionError(f"int8_conv {shape}->{co}: {bad} staged values differ")
+    e2 = float(((m[:, 1] - rm[:, 1]).abs() / rm[:, 1].abs().clamp(min=1e-30)).max())
+    e1 = float(((m[:, 0] - rm[:, 0]).abs() / (n * rm[:, 1]).sqrt().clamp(min=1e-30)).max())
+    hb2, m2 = conv_moments_cuda(x8, w8)
+    again = torch.equal(hb2, hb) and torch.equal(m2, m)
+    packed = takes_wgmma(ci, co, shape[1] * shape[2])
+    log("int8", f"int8_conv {shape}->{co} ({'wgmma' if packed else 'mma.sync'}): staged "
+        f"accumulator equal to plain bit for bit; Sigma a^2 relative {e2:.3e}, Sigma a "
+        f"{e1:.3e} of sqrt(n Sigma a^2) (bounds 1e-5); a second launch bit for bit: "
+        f"{again}")
+    if not (e1 <= 1e-5 and e2 <= 1e-5 and again):
+        raise AssertionError(f"int8_conv {shape}->{co}: moments {e1}, {e2}, {again}")
+    out = (x8, w8, hb, m, max(e1, e2))
+    if not timed:
+        return out
+    xb = torch.randn(shape, device=dev, generator=g).bfloat16()
+    wf = torch.randn((co, ci, 3, 3), device=dev, generator=g) / (3 * math.sqrt(ci))
+    # the mma.sync kernel on the same shape: the first version, beside
+    mma_hb, mma_m = _launch(x8, w8, False)
+    if not (torch.equal(mma_hb, hb) and float((mma_m - m).abs().max()
+                                             / m.abs().max()) <= 1e-5):
+        raise AssertionError(f"int8_conv {shape}: the mma.sync kernel disagrees")
+    ms, plain_ms, a_ms, mma_ms = compare_ms(
+        lambda: conv_moments_cuda(x8, w8), lambda: conv_moments_plain(x8, w8),
+        lambda: trunk_conv_cuda(xb, wf), lambda: _launch(x8, w8, False), iters=10,
+        run_ahead=True)
+    b, h, w = shape[:3]
+    ops = 2 * b * h * w * 9 * ci * co
+    least = least_time(ops, nbytes(x8, w8, hb, m), PEAK_INT8_OPS)
+    log("int8", f"int8_conv {shape}->{co}: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} "
+        f"TOPS, {least[0] / ms * 100:.0f}% of the bound {least[0]:.4f} ms, "
+        f"{least[1]}), the mma.sync kernel {mma_ms:.4f} ms, plain (float64 conv) "
+        f"{plain_ms:.4f} ms, kernel A (bf16) at the same shape {a_ms:.4f} ms")
+    return out + (ms, plain_ms, a_ms, mma_ms, least)
+
+
+def check_int8_norm(g: torch.Generator, hb: torch.Tensor, m: torch.Tensor,
+                    timed: bool = False) -> dict:
+    """Kernel E against its plain version in its three modes on kernel D's
+    staged accumulator ``hb`` and moments ``m``, with a bf16 and an f32
+    stream: int8 outputs at most one step apart on at most 1e-4 of them,
+    the stream within one step of its type and one of the norm
+    (``within_ulp``), a second launch bit for bit.  With ``timed`` the times of each mode, its plain version
+    and the bound, by mode."""
+    from nirgan_tpu_torch.ops.int8_trunk import norm_quant_cuda, norm_quant_plain
+
+    dev = torch.device("cuda")
+    c = hb.shape[3]
+    shape = tuple(hb.shape)
+    # per-channel constants of a calibrated trunk's size: eps' = 1e-5 / k^2
+    # with k about the folded weights' scale, scales that put the normalised
+    # values at +-40 quantisation steps or so
+    k = (torch.rand(c, device=dev, generator=g) + 0.5) * m[:, 1].mean().sqrt() / 300
+    eps = 1e-5 / k.square()
+    s = (torch.rand(c, device=dev, generator=g) + 0.5) * 3.0 / 127
+    x = torch.randn(shape, device=dev, generator=g) * 2.0
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        xs = x.to(dtype)
+        tag = f"int8_norm {shape} stream {dtype}"
+        q0 = norm_quant_cuda(0, xs, s)
+        steps_apart(q0, norm_quant_plain(0, xs, s), f"{tag} mode 0")
+        q1 = norm_quant_cuda(1, hb, s, m, eps)
+        steps_apart(q1, norm_quant_plain(1, hb, s, m, eps), f"{tag} mode 1")
+        o2, q2 = norm_quant_cuda(2, hb, s, m, eps, xs)
+        r2, rq2 = norm_quant_plain(2, hb, s, m, eps, xs)
+        steps_apart(q2, rq2, f"{tag} mode 2")
+        within_ulp(o2, r2, f"{tag} mode 2 stream", addend=xs)
+        last, none = norm_quant_cuda(2, hb, None, m, eps, xs)
+        if none is not None or not torch.equal(last, o2):
+            raise AssertionError(f"{tag} mode 2 without a next block")
+        again = norm_quant_cuda(2, hb, s, m, eps, xs)
+        if not (torch.equal(again[0], o2) and torch.equal(again[1], q2)
+                and torch.equal(norm_quant_cuda(1, hb, s, m, eps), q1)):
+            raise AssertionError(f"{tag}: a second launch differs")
+    if not timed:
+        return out
+    xb = x.bfloat16()
+    modes = {0: (lambda: norm_quant_cuda(0, xb, s), lambda: norm_quant_plain(0, xb, s),
+                 nbytes(xb) + xb.numel()),
+             1: (lambda: norm_quant_cuda(1, hb, s, m, eps),
+                 lambda: norm_quant_plain(1, hb, s, m, eps),
+                 nbytes(hb, m) + hb.numel()),
+             2: (lambda: norm_quant_cuda(2, hb, s, m, eps, xb),
+                 lambda: norm_quant_plain(2, hb, s, m, eps, xb),
+                 nbytes(hb, m, xb, xb) + hb.numel())}
+    for mode, (kernel, plain, moved) in modes.items():
+        ms, plain_ms = compare_ms(kernel, plain, iters=20, run_ahead=True)
+        least = least_time(0, moved)
+        log("int8", f"int8_norm {shape} mode {mode}: kernel {ms:.4f} ms "
+            f"({least[0] / ms * 100:.0f}% of the bound {least[0]:.4f} ms, {least[1]}), "
+            f"plain {plain_ms:.4f} ms")
+        out[mode] = (shape, ms, plain_ms, None, least)
+    return out
+
+
+def phase_int8_kernels(g: torch.Generator) -> None:
+    """Kernels D and E against their plain versions at the serving trunk's
+    shape (batch 4 of 512^2 tiles padded to 532^2: 133^2, 256 channels) and
+    at small odd shapes (a Cout that is no multiple of 128, an image whose
+    pixels end inside a tile, a column of width 3), D timed beside kernel A
+    at its shape, E in each mode."""
+    serving = (BATCH, SIDE // 4, SIDE // 4, 256)
+    x8, w8, hb, m, err, *d_times = check_int8_conv(g, serving, 256, timed=True)
+    e_times = check_int8_norm(g, hb, m, timed=True)
+    del x8, w8, hb, m
+    # mma.sync: Cout no multiple of 128, an image ending inside a tile, a
+    # width of 3; wgmma: tiles that straddle two images (N 256 and 128)
+    for shape, co in (((2, 9, 11, 32), 40), ((1, 130, 3, 64), 256),
+                      ((3, 17, 13, 96), 136), ((3, 12, 11, 256), 256),
+                      ((3, 20, 30, 128), 128)):
+        _, _, hb, m, e, = check_int8_conv(g, shape, co)
+        err = max(err, e)
+        check_int8_norm(g, hb, m)
+    ms, plain_ms, a_ms, mma_ms, least = d_times
+    RESULTS["int8_conv"] = entry(
+        "int8_conv", "int8_conv.cu", "nirgan_tpu/ops/int8_trunk.py:103", err,
+        (serving, ms, plain_ms, None, least,
+         dict(kernel="s8 wgmma (igemm_wgmma.cu)", kernel_a_ms=a_ms,
+              mma_sync_ms=mma_ms, share=least[0] / ms,
+              note="no PyTorch call convolves int8 on a card: library_ms null; "
+                   "kernel_a_ms is the bf16 trunk conv at the same shape, "
+                   "mma_sync_ms the mma.sync kernel that other widths take")))
+    RESULTS["int8_norm"] = entry(
+        "int8_norm", "int8_norm.cu", "nirgan_tpu/ops/int8_trunk.py:94", 0.0,
+        e_times[2], mode0=e_times[0], mode1=e_times[1])
+    RESULTS["int8_norm"]["max_abs_err"] = 1.0  # at most one int8 step
+    torch.cuda.synchronize()
+
+
+def phase_int8_serving(satclip: bool = False) -> dict:
+    """The int8 serving forward of the full-width generator (the plain one,
+    or the inject one of ``config_px2px_SatCLIP.yaml``), batch 4 at 532^2,
+    the trunk calibrated on that batch: D and E launches a forward; against
+    the plain route (the same pack through D and E's plain versions) >= 40
+    dB, the JAX package's bound for the int8 trunk summed in another order
+    (``tests/test_int8_trunk.py::test_int8_under_spatial_sharding``: a
+    moment rounded otherwise moves an int8 value by a step, and that passes
+    on through the blocks); against the bf16 float forward within 1 dB of
+    what the method gives on the plain versions throughout (the kernels add
+    nothing to the quantisation's own error) and >= 33 dB, far above what a
+    wrong scale or weight would give; a second forward bit for bit; and its
+    time beside the float forward's."""
+    from nirgan_tpu_torch.config import load_config
+    from nirgan_tpu_torch.models import define_G, define_G_inject
+    from nirgan_tpu_torch.ops.int8_trunk import calibrate_trunk, quantize_trunk
+
+    dev = torch.device("cuda")
+    tag = "int8 serving, inject" if satclip else "int8 serving"
+    seeded = torch.Generator().manual_seed(SEED)
+    if satclip:
+        G = define_G_inject(load_config(SATCLIP_CONFIG), compute_dtype=torch.bfloat16,
+                            generator=seeded).to(dev).eval()
+        embeds = (torch.randn((BATCH, 256), generator=seeded).to(dev),)
+    else:
+        G = define_G(3, 1, 64, "resnet_9blocks", "instance",
+                     compute_dtype=torch.bfloat16, generator=seeded).to(dev).eval()
+        embeds = ()
+    x = (torch.rand((BATCH, SIDE, SIDE, 3),
+                    generator=torch.Generator().manual_seed(1)) * 0.3).to(dev)
+    with torch.inference_mode():
+        calib = calibrate_trunk(G, x, *embeds)
+    with torch.no_grad():
+        pack = quantize_trunk(G.state_dict(), G.n_blocks, calib)
+    with torch.inference_mode():
+        reset_counts()
+        y8 = G(x, *embeds, trunk_q=pack)
+        torch.cuda.synchronize()
+        per_forward, floats = int8_counts(), counts()
+        no_library(tag)
+        log(tag, f"launches per forward {per_forward} (want {INT8_FORWARD}), float "
+            f"kernels {floats}")
+        if per_forward != INT8_FORWARD or floats["trunk_conv"] != 0:
+            raise AssertionError(f"{tag}: launches {per_forward}, {floats}")
+        if tuple(y8.shape) != (BATCH, SIDE, SIDE, 1) or not torch.isfinite(y8).all():
+            raise AssertionError(f"{tag}: bad output {tuple(y8.shape)}")
+        same = torch.equal(G(x, *embeds, trunk_q=pack), y8)
+        with int8_plain_route():
+            y_plain = G(x, *embeds, trunk_q=pack)
+        y_float = G(x, *embeds)
+        db_plain, db_float = psnr(y8, y_plain, 2.0), psnr(y8, y_float, 2.0)
+        # the same comparisons wholly on the plain versions, to tell the
+        # method's error from the kernels'
+        with plain_route():
+            all_plain = psnr(G(x, *embeds, trunk_q=pack), G(x, *embeds), 2.0)
+            float_plain = psnr(G(x, *embeds), y_float, 2.0)
+        log(tag, f"int8 forward vs D and E's plain versions {db_plain:.2f} dB (bound "
+            f"40), vs the bf16 float forward {db_float:.2f} dB (bound: >= 33 and "
+            f"within 1 dB of the plain versions' {all_plain:.2f}); a second forward "
+            f"bit for bit: {same}; the float forward, kernels vs plain "
+            f"{float_plain:.2f} dB")
+        if not (db_plain >= 40.0 and db_float >= max(33.0, all_plain - 1.0) and same):
+            raise AssertionError(f"{tag}: {db_plain}, {db_float} ({all_plain}), {same}")
+        ms8, msf = compare_ms(lambda: G(x, *embeds, trunk_q=pack),
+                              lambda: G(x, *embeds), iters=10)
+        log(tag, f"forward of {BATCH} x {SIDE}^2: int8 trunk {ms8:.3f} ms, bf16 "
+            f"{msf:.3f} ms")
+    return per_forward
+
+
 def phase_generator(satclip: bool = False) -> dict:
     """The full-width generator, plain or (``satclip``) the inject variant
     of ``config_px2px_SatCLIP.yaml`` with seeded embeddings.  Returns the
@@ -943,6 +1304,7 @@ def phase_generator(satclip: bool = False) -> dict:
         y = G(x, *embeds)
         torch.cuda.synchronize()
         per_forward = counts()
+        no_library(tag)
         with plain_route():
             y_plain = G(x, *embeds)
         torch.cuda.synchronize()
@@ -1016,9 +1378,11 @@ def write_tiles(root: str, n: int = 8) -> tuple[np.ndarray, np.ndarray]:
     return hr, lr, coords
 
 
-def phase_serving(tmp: str, config: str = CONFIG, tag: str = "serving") -> dict:
+def phase_serving(tmp: str, config: str = CONFIG, tag: str = "serving",
+                  quant: str | None = None) -> dict:
     """The serving CLI on ``config`` (``tag`` names the run's lines and
-    output folders).  Returns the run's launches."""
+    output folders; ``quant`` is passed as ``--quant``).  Returns the run's
+    launches, the int8 kernels' beside the float ones."""
     from nirgan_tpu_torch import create_synthetic_dataset as cli
     from nirgan_tpu_torch.config import load_config
     from nirgan_tpu_torch.inference import serve_batch
@@ -1031,16 +1395,26 @@ def phase_serving(tmp: str, config: str = CONFIG, tag: str = "serving") -> dict:
         return ["--config", config, "--data", data, "--out",
                 os.path.join(tmp, f"{tag}_{out}"), "--ckpt",
                 os.path.join(tmp, "no.ckpt"), "--device", "cuda",
-                "--batch-size", str(BATCH)]
+                "--batch-size", str(BATCH)] + (["--quant", quant] if quant else [])
 
     reset_counts()
     n = cli.main(argv("synth"))
     torch.cuda.synchronize()
-    launches = counts()
-    log(tag, f"CLI on {os.path.basename(config)} wrote {n} tiles; launches in "
-        f"the run {launches}")
-    if min(launches[k] for k in SERVING_KERNELS) == 0:
+    launches = {**counts(), **int8_counts()}
+    no_library(tag)
+    log(tag, f"CLI on {os.path.basename(config)}{' --quant ' + quant if quant else ''} "
+        f"wrote {n} tiles; launches in the run {launches}")
+    path = ("instance_norm", "head_conv", "int8_conv", "int8_norm") if quant \
+        else SERVING_KERNELS
+    if min(launches[k] for k in path) == 0:
         raise AssertionError(f"a kernel of the path was not launched: {launches}")
+    # int8: the first batch calibrates through one float forward (A's 18
+    # calls), then both batches of 4 serve on D and E
+    if quant and (launches["trunk_conv"] != EVAL_LAUNCHES["trunk_conv"]
+                  or launches["int8_conv"] != 2 * INT8_FORWARD["int8_conv"]
+                  or launches["int8_norm"] != 2 * INT8_FORWARD["int8_norm"]):
+        raise AssertionError(f"{tag}: one calibration forward and D and E twice a "
+                             f"forward's: {launches}")
     out = os.path.join(tmp, f"{tag}_synth")
     files = sorted(os.listdir(out))
     if n != 8 or len(files) != 8:
@@ -1053,7 +1427,10 @@ def phase_serving(tmp: str, config: str = CONFIG, tag: str = "serving") -> dict:
     # the first batch through the plain path: histogram matching maps both
     # onto the S2 reference's values, so near-tied pixels may swap; PSNR
     # over the reference's range >= 35 dB
-    task = Px2PxTask(load_config(config), device="cuda", seed=SEED)
+    cfg = load_config(config)
+    if quant:
+        cfg.tpu.serving_quant = quant
+    task = Px2PxTask(cfg, device="cuda", seed=SEED)
     hr = torch.from_numpy(hr_np[:BATCH]).cuda().permute(0, 2, 3, 1)
     s2 = torch.from_numpy(lr_np[:BATCH, 3:4]).cuda().permute(0, 2, 3, 1)
     with plain_route():
@@ -1148,6 +1525,7 @@ def phase_train(tmp: str, satclip: bool = False) -> tuple[dict, dict]:
     got = loss_terms(metrics)
     torch.cuda.synchronize()
     per_step = counts()
+    no_library(f"{name}: step")
     log("train", f"{name}: launches per step {per_step} (want {STEP_LAUNCHES})")
     if per_step != STEP_LAUNCHES:
         raise AssertionError(f"launches {per_step} != {STEP_LAUNCHES}")
@@ -1247,6 +1625,7 @@ def phase_train(tmp: str, satclip: bool = False) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = counts()
+    no_library(f"{name}: CLI")
     want = {k: 8 * STEP_LAUNCHES[k] + n_eval * EVAL_LAUNCHES[k] for k in STEP_LAUNCHES}
     log("train", f"CLI {' '.join(argv)}: {final.step} steps in {dt:.2f} s (set-up "
         f"included); launches {launches} (want {want})")
@@ -1322,6 +1701,112 @@ def phase_concat() -> None:
     check_gradients(task)
 
 
+# the auxiliary losses' lambdas for the smoke's step, and the index weights:
+# EVI and MSAVI, whose denominators stay away from zero.  NDVI's, NDWI's and
+# SAVI's (prediction + R, G or R + 0.5) and GNDVI's (NDVI + G) pass through
+# zero where the seeded generator's tanh output is about -R, and there the
+# routes' bf16 differences grow without bound (tests/test_torch_aux_losses.py
+# holds all six on fixed inputs)
+AUX_LAMBDAS = {"lambda_ssim": 1.0, "lambda_hist": 10.0, "lambda_rs_losses": 1.0}
+AUX_RS_WEIGHTS = {"lambda_ndvi": 0.0, "lambda_ndwi": 0.0, "lambda_gndvi": 0.0,
+                  "lambda_savi": 0.0, "lambda_msavi": 0.4, "lambda_evi": 0.6}
+
+
+def model_terms(metrics: dict) -> dict:
+    return {k: float(v) for k, v in metrics.items() if k.startswith("model_loss/")}
+
+
+def phase_aux_step() -> None:
+    """One fused step of the flagship ``config_px2px_SatCLIP.yaml`` (batch 8
+    at 276^2) with the three auxiliary losses on: the 8 + 3 loss terms
+    within 2% + 1e-3 of the plain route, every parameter with a gradient,
+    launches a step as without them; the step timed with and without the
+    terms, and ``emd_loss`` (a softmax and a cumulative sum over each
+    image's 65,536 pixels) timed on its own, forward and backward."""
+    from nirgan_tpu_torch.config import load_config
+    from nirgan_tpu_torch.losses import emd_loss
+    from nirgan_tpu_torch.tasks import Px2PxTask
+
+    cfg = load_config(SATCLIP_CONFIG)
+    for key, value in AUX_LAMBDAS.items():
+        cfg.base_configs[key] = value
+    cfg.base_configs.internal_rs_loss_weights = dict(AUX_RS_WEIGHTS)
+    batch = first_batch(cfg)
+    task = Px2PxTask(cfg, device="cuda", seed=SEED)
+    plain = Px2PxTask(cfg, device="cuda", seed=SEED)
+    ex = task.extract_batch(batch)
+    reset_counts()
+    got = model_terms(task.train_step(task.init_state(), ex))
+    torch.cuda.synchronize()
+    per_step = counts()
+    no_library("aux step")
+    if per_step != STEP_LAUNCHES or len(got) != 11:
+        raise AssertionError(f"aux step: launches {per_step}, terms {sorted(got)}")
+    check_gradients(task)
+    with plain_route():
+        ref = model_terms(plain.train_step(plain.init_state(), ex))
+    check_terms("flagship step with SSIM, EMD and the indices, kernels vs plain "
+                "route", got, ref, 2e-2, 1e-3)
+    base = Px2PxTask(load_config(SATCLIP_CONFIG), device="cuda", seed=SEED)
+    state, base_state = task.init_state(), base.init_state()
+    ms, base_ms = compare_ms(lambda: task.train_step(state, ex),
+                             lambda: base.train_step(base_state, ex), iters=5)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    shape = (SATCLIP_BATCH, TRAIN_TILE, TRAIN_TILE, 1)
+    pred = torch.randn(shape, device="cuda", generator=g).bfloat16().requires_grad_(True)
+    nir = torch.rand(shape, device="cuda", generator=g)
+    fwd_ms = time_ms(lambda: emd_loss(pred, nir), iters=20, run_ahead=True)
+    both_ms = time_ms(lambda: emd_loss(pred, nir).backward(), iters=20)
+    log("aux", f"flagship step (batch {SATCLIP_BATCH}) with the auxiliary losses "
+        f"{ms:.3f} ms, without {base_ms:.3f} ms; emd_loss on {shape}: forward "
+        f"{fwd_ms:.4f} ms, forward + backward {both_ms:.4f} ms (torch ops)")
+
+
+def phase_ngf16() -> None:
+    """``config_px2px.yaml`` at ngf 16 and ndf 16, widths kernels A and C
+    are not built for: serving (``predict_step`` on 4 tiles of 512^2) and
+    one fused step (batch 16 at 276^2) take the library routes of the trunk
+    conv and the head, the instance norms and the transposed convs' backward
+    their kernels; each against the plain route."""
+    from nirgan_tpu_torch.config import load_config
+    from nirgan_tpu_torch.tasks import Px2PxTask
+
+    cfg = load_config(CONFIG)
+    cfg.base_configs.ngf, cfg.base_configs.ndf = 16, 16
+    task = Px2PxTask(cfg, device="cuda", seed=SEED)
+    plain = Px2PxTask(cfg, device="cuda", seed=SEED)
+    rgb = np.random.default_rng(3).random((BATCH, 3, TILE, TILE), np.float32) * 0.3
+    reset_counts()
+    y = task.predict_step(rgb)
+    torch.cuda.synchronize()
+    serve, libs = counts(), library_counts()
+    with plain_route():
+        y_plain = plain.predict_step(rgb)
+    db = psnr(torch.from_numpy(y), torch.from_numpy(y_plain), 2.0)
+    log("ngf16", f"predict_step {rgb.shape}: kernels {serve}, library routes {libs}; "
+        f"vs the plain route {db:.2f} dB (bound 40)")
+    want = {"trunk_conv_library": 18, "head_conv_library": 1}
+    if (libs != want or serve["trunk_conv"] or serve["head_conv"]
+            or serve["instance_norm"] != EVAL_LAUNCHES["instance_norm"]
+            or not db >= 40.0 or not np.isfinite(y).all()):
+        raise AssertionError(f"ngf 16 serving: {serve}, {libs}, {db}")
+    batch = first_batch(cfg)
+    ex = task.extract_batch(batch)
+    reset_counts()
+    got = model_terms(task.train_step(task.init_state(), ex))
+    torch.cuda.synchronize()
+    step, libs = counts(), library_counts()
+    log("ngf16", f"step: kernels {step}, library routes {libs}")
+    if (libs != want or step["trunk_conv"] or step["head_conv"]
+            or step["convt_bwd"] != 2 or step["instance_norm_bwd"] != 32):
+        raise AssertionError(f"ngf 16 step: {step}, {libs}")
+    check_gradients(task)
+    with plain_route():
+        ref = model_terms(plain.train_step(plain.init_state(), ex))
+    check_terms("ngf 16 step, kernels and library routes vs plain route", got, ref,
+                2e-2, 1e-3)
+
+
 # kernel-name fragments -> the rows of the profile's breakdown, first match
 PROFILE_GROUPS = (
     ("igemm_wgmma_kernel<256>", "wgmma implicit GEMM, N = 256 (kernel A; B5 dx at u0)"),
@@ -1333,6 +1818,9 @@ PROFILE_GROUPS = (
     ("in_partial_kernel", "streaming sums"),
     ("in_apply_kernel", "streaming elementwise"),
     ("head_conv_mma_kernel", "C head, mma.sync"),
+    ("int8_conv_kernel", "D int8 conv"),
+    ("int8_moments_kernel", "D moments (second launch)"),
+    ("int8_norm_kernel", "E int8 norm"),
     ("head_conv_kernel", "C head, f32 FMA"),
     ("reflection_pad", "reflect pad"),
     ("multi_tensor_apply", "Adam"),
@@ -1384,7 +1872,8 @@ def profile_window(what: str, fn, iters: int) -> None:
 
 def phase_profile() -> None:
     """Where the time goes (``python3 chip_smoke.py --profile``): the
-    serving forward and the fused train step of the full-width configs under
+    serving forward (bf16, and with the int8 trunk calibrated on its batch)
+    and the fused train step of the full-width configs under
     ``torch.profiler``, the plain route (``config_px2px.yaml``) and the
     SatCLIP inject route (``config_px2px_SatCLIP.yaml``), on the kernels and
     on the plain versions; and the head's backward, which is PyTorch's
@@ -1392,6 +1881,7 @@ def phase_profile() -> None:
     from nirgan_tpu_torch.config import load_config
     from nirgan_tpu_torch.models import define_G, define_G_inject
     from nirgan_tpu_torch.ops.head_conv import head_conv_bwd, head_conv_cuda
+    from nirgan_tpu_torch.ops.int8_trunk import calibrate_trunk, quantize_trunk
     from nirgan_tpu_torch.tasks import Px2PxTask
 
     dev = torch.device("cuda")
@@ -1408,6 +1898,15 @@ def phase_profile() -> None:
     def forward():
         with torch.inference_mode():
             G(x)
+
+    with torch.inference_mode():
+        calib = calibrate_trunk(G, x)
+    with torch.no_grad():
+        pack = quantize_trunk(G.state_dict(), G.n_blocks, calib)
+
+    def forward_int8():
+        with torch.inference_mode():
+            G(x, trunk_q=pack)
 
     def forward_inject():
         with torch.inference_mode():
@@ -1427,7 +1926,9 @@ def phase_profile() -> None:
         return lambda: task.train_step(state, ex)
 
     step, step_inject = stepper(CONFIG), stepper(SATCLIP_CONFIG)
-    runs = (("serving forward", forward, 10), ("train step, batch 16", step, 5),
+    runs = (("serving forward", forward, 10),
+            ("serving forward, int8 trunk", forward_int8, 10),
+            ("train step, batch 16", step, 5),
             ("serving forward, inject", forward_inject, 10),
             ("train step, inject, batch 8", step_inject, 5))
     # all event timings first: once the profiler has attached, every
@@ -1590,11 +2091,16 @@ def main() -> None:
     phase_kernels()
     per_forward = phase_generator()
     sat_forward = phase_generator(satclip=True)
+    int8_forward = phase_int8_serving()
+    sat_int8_forward = phase_int8_serving(satclip=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         serving = phase_serving(tmp)
         sat_serving = phase_serving(tmp, SATCLIP_CONFIG, "serving, inject")
+        int8_serving = phase_serving(tmp, CONFIG, "serving, int8", quant="int8")
         launches, per_step = phase_train(tmp)
         sat_launches, sat_step = phase_train(tmp, satclip=True)
+    phase_aux_step()
+    phase_ngf16()
     phase_concat()
     phase_norm_launches()
     if min(launches.values()) == 0 or min(sat_launches.values()) == 0:
@@ -1611,6 +2117,18 @@ def main() -> None:
             kernel["serving"]["per_forward"] = per_forward[name]
             kernel["satclip"]["serving_launches"] = sat_serving[name]
             kernel["satclip"]["per_forward"] = sat_forward[name]
+        entries.append(kernel)
+    # A's VALID mode (conv3x3_pallas): the models use the reflect mode only
+    pad0 = RESULTS["trunk_conv"]
+    entries.append({**pad0["pad0"], "name": "trunk_conv_pad0", "route": "cuda",
+                    "source": pad0["source"], "max_abs_err": pad0["max_abs_err"],
+                    "launches": 0, "per_step": 0,
+                    "serving": pad0["pad0_serving"]})
+    # D and E: launches in the int8 serving CLI's run (two batches of 4)
+    for name in INT8_FORWARD:
+        kernel = {**RESULTS[name], "launches": int8_serving[name],
+                  "per_forward": int8_forward[name],
+                  "satclip": {"per_forward": sat_int8_forward[name]}}
         entries.append(kernel)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

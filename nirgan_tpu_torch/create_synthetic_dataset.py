@@ -7,7 +7,9 @@ predictions to the S2 NIR reference, write fp16 ``.npz`` tiles.
         --data data/synthDataset --ckpt ckpts/S2.ckpt --device cuda
 
 With a SatCLIP config (``--config configs/config_px2px_SatCLIP.yaml``) each
-tile's coordinates condition the generator.
+tile's coordinates condition the generator.  ``--quant int8`` (or
+``tpu.serving_quant: int8`` in the config) serves the residual trunk in
+int8 on kernels D and E, calibrated on the first batch.
 """
 
 from __future__ import annotations
@@ -32,12 +34,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="torch device; cuda runs the hand-written kernels")
     p.add_argument("--mesh", action="store_true", help="not ported yet")
     p.add_argument("--quant", choices=["none", "int8"], default=None,
-                   help="not ported yet")
+                   help="serving quantisation, overrides tpu.serving_quant: "
+                        "int8 runs the residual trunk on the int8 kernels")
     args = p.parse_args(argv)
     if args.mesh:
         p.error("--mesh: multi-device serving is not ported yet")
-    if args.quant not in (None, "none"):
-        p.error("--quant int8: the int8 serving trunk is not ported yet")
     if args.ckpt and os.path.isdir(args.ckpt):
         p.error(f"--ckpt {args.ckpt}: orbax checkpoint directories need the "
                 "JAX package; pass a reference .ckpt file")
@@ -58,6 +59,10 @@ def main(argv=None) -> int:
     from nirgan_tpu_torch.weights import load_reference_ckpt
 
     config = load_config(args.config)
+    if args.quant is not None:
+        # reference-schema configs have no tpu: section: create it
+        config["tpu"] = config.get("tpu") or {}
+        config.tpu.serving_quant = args.quant
     task = Px2PxTask(config, device=device, seed=0)
     if args.ckpt and os.path.exists(args.ckpt):
         task.bind(load_reference_ckpt(args.ckpt, config))

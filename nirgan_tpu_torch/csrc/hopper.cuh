@@ -2,8 +2,9 @@
 // mbarriers, cp.async (signalled through an mbarrier, as the wgmma kernels
 // do, or waited for by commit groups, as the instance norm does) and bulk
 // copies into shared memory, 128-byte-swizzled wgmma descriptors and the
-// wgmma instructions themselves, and the warp-level ldmatrix / mma.sync pair
-// for operands that no wgmma descriptor can name.  Everything is inline PTX;
+// wgmma instructions themselves (bf16 -> f32 and s8 -> s32), and the
+// warp-level ldmatrix / mma.sync pair for operands that no wgmma descriptor
+// can name.  Everything is inline PTX;
 // nothing here launches a kernel.
 //
 // Shared-memory operand tiles are rows of 128 bytes (64 bf16) in the
@@ -338,6 +339,123 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t desc_a,
     wgmma_m64n192k16<TransA, TransB>(d, desc_a, desc_b, scale_d);
   else
     wgmma_m64n256k16<TransA, TransB>(d, desc_a, desc_b, scale_d);
+}
+
+// D (64 x 128, s32) (+)= A (64 x 32) * B (32 x 128), s8 operands in shared
+// memory, both K-major (8-bit wgmma has no transposed form)
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 256, s32) (+)= A (64 x 32) * B (32 x 256), s8 operands in shared
+// memory, both K-major (8-bit wgmma has no transposed form)
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, "
+      " %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103, "
+      " %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, "
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_k32_s8(int (&d)[N / 2], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  static_assert(N == 128 || N == 256, "no s8 wgmma of this width");
+  if constexpr (N == 128)
+    wgmma_m64n128k32_s8(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_m64n256k32_s8(d, desc_a, desc_b, scale_d);
+}
+
+// keeps the compiler from reading an s32 accumulator ahead of the wait above it
+template <int N>
+__device__ __forceinline__ void settle(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 }  // namespace hopper

@@ -1,6 +1,7 @@
 // Gathered implicit GEMM on Hopper's warpgroup MMA: the engine of kernel A
-// (trunk 3x3 conv, reflect border) and of kernel B5's input gradient (k3/s2
-// transposed conv backward).  Both are out[m, n] = sum_{tap, c} src[pixel(m,
+// (trunk 3x3 conv, reflect border), of kernel B5's input gradient (k3/s2
+// transposed conv backward) and, in its s8 form, of kernel D (the int8
+// trunk conv with the instance norm's moments).  Both are out[m, n] = sum_{tap, c} src[pixel(m,
 // tap), c] W[tap, c, n] over 9 taps whose source pixel is index math, so one
 // kernel serves both with the gather as a parameter (igemm_wgmma.h).
 //
@@ -29,6 +30,14 @@
 //   * Epilogue: bias in f32, one rounding to bf16, stored from the
 //     accumulator registers (each quad of lanes writes 16 contiguous bytes);
 //     rows past the last pixel are masked.
+//   * The s8 form moves the same bytes: a 128-byte row is 128 int8 channels,
+//     each k32 step of wgmma's s8 -> s32 product advances 32 bytes as a k16
+//     bf16 step does, so the ring, the table and the swizzle are unchanged.
+//     Its epilogue rounds the exact s32 sums to bf16 and adds each column's
+//     Sigma a and Sigma a^2 (f32, of the unrounded sums) over the tile's rows
+//     of one image at a time: lanes by a butterfly, then the 8 consumer
+//     warps in order through shared memory, into a per-tile slot of scratch
+//     that a second launch adds up in tile order (no float atomics).
 
 #include "igemm_wgmma.h"
 
@@ -42,7 +51,7 @@ using namespace hopper;
 constexpr int STAGES = 4;
 constexpr int THREADS = 384;  // consumer warpgroups 0 and 1, producer 2
 
-template <int N>
+template <int N, bool S8>
 struct Tile {
   static constexpr int R = 256 / N;  // 64-row blocks of one consumer warpgroup
   static constexpr int BM = 128 * R;
@@ -50,9 +59,21 @@ struct Tile {
   static constexpr int B_BYTES = N * 128;
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
   static constexpr int TAB_BYTES = 9 * BM * 4;
+  static constexpr int BAR_BYTES = 2 * STAGES * 8;
+  // the s8 epilogue's column sums of the 8 consumer warps
+  static constexpr int RED_BYTES = S8 ? 8 * N * 2 * 4 : 0;
   // 1024 spare bytes: the ring is moved up to a 1024-byte boundary
   static constexpr int SMEM_BYTES =
-      1024 + STAGES * STAGE_BYTES + TAB_BYTES + 2 * STAGES * 8;
+      1024 + STAGES * STAGE_BYTES + TAB_BYTES + BAR_BYTES + RED_BYTES;
+};
+
+template <bool S8>
+struct Accum {
+  using type = float;
+};
+template <>
+struct Accum<true> {
+  using type = int;
 };
 
 __device__ __forceinline__ int reflect_idx(int i, int n) {
@@ -66,13 +87,104 @@ __device__ __forceinline__ void producer_sync() {
   asm volatile("bar.sync 1, 128;\n" ::: "memory");
 }
 
+// a barrier of the two consumer warpgroups alone
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 2, 256;\n" ::: "memory");
+}
+
+// The s8 epilogue of one tile: the staged accumulator, then the moments of
+// its columns over its rows of each image it touches (slot 0: the image of
+// its first row, slot 1: the next).  hw >= BM, so no tile spans three.
 template <int N>
+__device__ __forceinline__ void s8_epilogue(
+    const int (&d)[256 / N][N / 2], int tile, long long m0, long long M,
+    int hw, int wg, int warp, int lane, float* red,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ part) {
+  constexpr int R = 256 / N;
+  constexpr int BM = 128 * R;
+  const long long end = m0 + BM < M ? m0 + BM : M;
+  const int img0 = (int)(m0 / hw), img1 = (int)((end - 1) / hw);
+  // the image of each of this thread's rows, -1 past the last pixel
+  int rimg[R][2];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long row = m0 + wg * (64 * R) + r * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      rimg[r][h] = row + 8 * h < M ? (int)((row + 8 * h) / hw) : -1;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const float v0 = __int2float_rn(d[r][4 * j]), v1 = __int2float_rn(d[r][4 * j + 1]);
+      const float v2 = __int2float_rn(d[r][4 * j + 2]), v3 = __int2float_rn(d[r][4 * j + 3]);
+      __nv_bfloat16* o0 = out + row * N + 8 * j + 2 * (lane & 3);
+      if (rimg[r][0] >= 0)
+        *reinterpret_cast<__nv_bfloat162*>(o0) = __floats2bfloat162_rn(v0, v1);
+      if (rimg[r][1] >= 0)
+        *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * N) = __floats2bfloat162_rn(v2, v3);
+    }
+  }
+  const int cw = wg * 4 + warp;  // consumer warp, 0 .. 7
+  const int ct = wg * 128 + warp * 32 + lane;  // consumer thread, 0 .. 255
+  for (int img = img0; img <= img1; ++img) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (rimg[r][h] != img) continue;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = __int2float_rn(d[r][4 * j + 2 * h + e]);
+            s1[e] = __fadd_rn(s1[e], v);
+            s2[e] = __fadd_rn(s2[e], __fmul_rn(v, v));
+          }
+        }
+      }
+      // the 8 lanes of a column pair meet by a butterfly (a + b is b + a)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s1[e] = __fadd_rn(s1[e], __shfl_xor_sync(0xffffffffu, s1[e], off));
+          s2[e] = __fadd_rn(s2[e], __shfl_xor_sync(0xffffffffu, s2[e], off));
+        }
+      }
+      if (lane < 4) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float* dst = red + ((long long)cw * N + 8 * j + 2 * lane + e) * 2;
+          dst[0] = s1[e];
+          dst[1] = s2[e];
+        }
+      }
+    }
+    consumer_sync();
+    for (int c = ct; c < N; c += 256) {
+      // the 8 warps in order
+      float t1 = red[(long long)c * 2], t2 = red[(long long)c * 2 + 1];
+#pragma unroll
+      for (int w = 1; w < 8; ++w) {
+        t1 = __fadd_rn(t1, red[((long long)w * N + c) * 2]);
+        t2 = __fadd_rn(t2, red[((long long)w * N + c) * 2 + 1]);
+      }
+      float* dst = part + ((long long)tile * 2 + (img - img0)) * 2 * N + c;
+      dst[0] = t1;
+      dst[N] = t2;
+    }
+    consumer_sync();  // red is free for the next image or tile
+  }
+}
+
+template <int N, bool S8>
 __global__ void __launch_bounds__(THREADS, 1)
 igemm_wgmma_kernel(const __nv_bfloat16* __restrict__ src,
                    const uint8_t* __restrict__ wp,
                    const float* __restrict__ bias,
-                   __nv_bfloat16* __restrict__ out, Shape g) {
-  using T = Tile<N>;
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ part,
+                   Shape g) {
+  using T = Tile<N, S8>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -80,6 +192,9 @@ igemm_wgmma_kernel(const __nv_bfloat16* __restrict__ src,
                                     STAGES * T::STAGE_BYTES);
   const uint32_t bars = base + STAGES * T::STAGE_BYTES + T::TAB_BYTES;
   // full[s] = bars + 8 s, empty[s] = bars + 8 (STAGES + s)
+  float* red = reinterpret_cast<float*>(smem_raw + (base - raw) +
+                                        STAGES * T::STAGE_BYTES + T::TAB_BYTES +
+                                        T::BAR_BYTES);
 
   const int tid = threadIdx.x;
   const long long M = (long long)g.B * g.Ho * g.Wo;
@@ -173,11 +288,11 @@ igemm_wgmma_kernel(const __nv_bfloat16* __restrict__ src,
     // ----------------------------------------------------------- consumers
     reg_inc<224>();
     const int warp = (tid & 127) >> 5, lane = tid & 31;
-    float d[T::R][N / 2];
+    typename Accum<S8>::type d[T::R][N / 2];
 #pragma unroll
     for (int r = 0; r < T::R; ++r)
 #pragma unroll
-      for (int i = 0; i < N / 2; ++i) d[r][i] = 0.f;
+      for (int i = 0; i < N / 2; ++i) d[r][i] = 0;
 
     int s = 0, prev = 0;
     uint32_t phase = 0;
@@ -195,7 +310,10 @@ igemm_wgmma_kernel(const __nv_bfloat16* __restrict__ src,
           for (int r = 0; r < T::R; ++r) {
             const uint64_t da = smem_desc(a_s + r * 8192 + 32 * k, 16, 1024);
             // the tile's first product overwrites the accumulators
-            wgmma_k16<N, 0, 0>(d[r], da, db, (it | k) != 0);
+            if constexpr (S8)
+              wgmma_k32_s8<N>(d[r], da, db, (it | k) != 0);
+            else
+              wgmma_k16<N, 0, 0>(d[r], da, db, (it | k) != 0);
           }
         }
         wgmma_commit();
@@ -215,8 +333,14 @@ igemm_wgmma_kernel(const __nv_bfloat16* __restrict__ src,
 #pragma unroll
       for (int r = 0; r < T::R; ++r) settle(d[r]);
 
-      // accumulator layout of m64nNk16: lane l of warp w holds rows 16 w +
-      // l / 4 and + 8, columns 8 j + 2 (l % 4) and + 1 of each 8-wide block j
+      // accumulator layout of m64nNk16 (and of m64nNk32's s32): lane l of
+      // warp w holds rows 16 w + l / 4 and + 8, columns 8 j + 2 (l % 4) and
+      // + 1 of each 8-wide block j
+      if constexpr (S8) {
+        s8_epilogue<N>(d, tile, m0, M, g.Ho * g.Wo, wg, warp, lane, red, out,
+                       part);
+        continue;
+      }
 #pragma unroll
       for (int r = 0; r < T::R; ++r) {
         const long long row = m0 + wg * (64 * T::R) + r * 64 + warp * 16 +
@@ -243,11 +367,11 @@ igemm_wgmma_kernel(const __nv_bfloat16* __restrict__ src,
   }
 }
 
-template <int N>
+template <int N, bool S8>
 cudaError_t launch_n(const void* src, const void* wp, const float* bias,
-                     void* out, Shape g, cudaStream_t stream) {
-  using T = Tile<N>;
-  auto kernel = igemm_wgmma_kernel<N>;
+                     void* out, float* part, Shape g, cudaStream_t stream) {
+  using T = Tile<N, S8>;
+  auto kernel = igemm_wgmma_kernel<N, S8>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
   if (err != cudaSuccess) return err;
@@ -261,7 +385,7 @@ cudaError_t launch_n(const void* src, const void* wp, const float* bias,
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
   kernel<<<grid, THREADS, T::SMEM_BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(src), static_cast<const uint8_t*>(wp),
-      bias, static_cast<__nv_bfloat16*>(out), g);
+      bias, static_cast<__nv_bfloat16*>(out), part, g);
   return cudaGetLastError();
 }
 
@@ -274,8 +398,21 @@ cudaError_t launch(int N, const void* src, const void* wp, const float* bias,
       (long long)g.B * g.Hs * g.Ws >= (1LL << 31) ||
       (long long)g.B * g.Ho * g.Wo >= (1LL << 31))
     return cudaErrorInvalidValue;
-  return N == 256 ? launch_n<256>(src, wp, bias, out, g, stream)
-                  : launch_n<128>(src, wp, bias, out, g, stream);
+  return N == 256 ? launch_n<256, false>(src, wp, bias, out, nullptr, g, stream)
+                  : launch_n<128, false>(src, wp, bias, out, nullptr, g, stream);
+}
+
+cudaError_t launch_s8(int N, const void* src, const void* wp, void* out,
+                      float* part, Shape g, cudaStream_t stream) {
+  if (!takes_s8(N, g.Cs, g.Ho * g.Wo) || g.B <= 0 || g.gather != CONV_REFLECT ||
+      g.Hs != g.Ho || g.Ws != g.Wo ||
+      (long long)g.B * g.Hs * g.Ws >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  // the gather moves bytes: a pixel is Cs / 2 16-bit elements
+  Shape b = g;
+  b.Cs = g.Cs / 2;
+  return N == 256 ? launch_n<256, true>(src, wp, nullptr, out, part, b, stream)
+                  : launch_n<128, true>(src, wp, nullptr, out, part, b, stream);
 }
 
 }  // namespace igemm

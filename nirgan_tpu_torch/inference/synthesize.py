@@ -5,7 +5,9 @@
 Per batch, on the task's device: DN -> reflectance, on the SatCLIP routes the
 tiles' coordinates through the frozen location tower (the embedding feeds
 the inject generator, or joins as the concat route's 4th channel),
-reflect-pad to the shape bucket, the generator (with its reflect-pad-10), crop, the x4 bilinear
+reflect-pad to the shape bucket, the generator (with its reflect-pad-10; with
+``serving_quant: int8`` its trunk in int8, calibrated once on the first
+batch), crop, the x4 bilinear
 upsample of the S2 NIR followed by a second resize to the prediction size
 (the reference's double-interpolation quirk, kept), histogram matching, and
 the fp16 cast.  The host only copies the fp16 tiles back and hands them to
@@ -65,7 +67,10 @@ def serve_batch(task, hr: torch.Tensor, s2: torch.Tensor,
         cond.update(task.condition(hr, coords, embeds))
     x = reflect_pad_to(task._dn_to_reflectance(cond["rgb"], task.compute_dtype),
                        size, size)
-    pred = task.g_apply(x, cond.get("embeds")).float()[:, :h, :w, :]
+    # int8 serving: the first batch calibrates the trunk, as
+    # nirgan_tpu/inference/synthesize.py:154-162 does
+    trunk_q = task.trunk_q_for(x, cond.get("embeds"))
+    pred = task.g_apply(x, cond.get("embeds"), trunk_q).float()[:, :h, :w, :]
     if match_histograms:
         s2 = task._dn_to_reflectance(s2, torch.float32)
         up = resize_bilinear(s2, s2.shape[1] * 4, s2.shape[2] * 4)

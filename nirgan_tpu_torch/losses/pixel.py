@@ -1,8 +1,10 @@
 """Pixel losses and image-quality terms on NHWC tensors, counterpart of
-``nirgan_tpu/losses/pixel.py:26-95``: L1, MSE, PSNR as ``kornia.metrics.psnr``
-and SSIM as ``kornia.metrics.ssim`` (Gaussian window, sigma 1.5,
-reflect-padded "same" filtering as two depthwise 1-D convolutions), in f32.
-``ssim_loss`` and ``emd_loss`` are not ported yet."""
+``nirgan_tpu/losses/pixel.py``: L1, MSE, PSNR as ``kornia.metrics.psnr``,
+SSIM as ``kornia.metrics.ssim`` (Gaussian window, sigma 1.5, reflect-padded
+"same" filtering as two depthwise 1-D convolutions) and its loss, and the
+softmax-CDF earth mover's proxy of the reference's histogram loss
+(``utils/losses.py:64-78``), in f32.  No TPU kernel stands behind any of
+them: on a card they are PyTorch's own ops."""
 
 from __future__ import annotations
 
@@ -62,3 +64,20 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     num = (2.0 * mu_xy + c1) * (2.0 * sigma_xy + c2)
     den = (mu_xx + mu_yy + c1) * (sigma_x + sigma_y + c2)
     return (num / (den + 1e-12)).permute(0, 2, 3, 1)
+
+
+def ssim_loss(img1: torch.Tensor, img2: torch.Tensor,
+              window_size: int = 11) -> torch.Tensor:
+    """1 - mean SSIM (reference ``utils/losses.py:10-29``)."""
+    return 1.0 - torch.mean(ssim(img1, img2, window_size))
+
+
+def emd_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Softmax-CDF earth mover's proxy (reference ``utils/losses.py:64-78``):
+    per sample, flatten, softmax, cumulative sum, then the mean |difference|
+    of the two CDFs over the batch.  The reference's NaN/Inf asserts are
+    left out, as in the JAX package."""
+    p = pred.float().reshape(pred.shape[0], -1)
+    t = target.float().reshape(target.shape[0], -1)
+    return torch.mean(torch.abs(torch.cumsum(torch.softmax(p, dim=1), dim=1)
+                                - torch.cumsum(torch.softmax(t, dim=1), dim=1)))

@@ -15,9 +15,13 @@ location embedding becomes a 128 x 128 plane (``fc``), is resized to the
 feature map after ``nd0`` and combined with it *before* that norm's ReLU, so
 there kernel B runs without its fused ReLU and a plain ReLU follows the
 combination; the optional post-correction multiplies after kernel C's tanh.
-The TPU
-layout variants of the JAX module (blocked stem, pad folds, the int8 trunk)
-compute the same function and are not carried over.
+At widths a kernel is not built for (an ``ngf`` under 32 in bf16, any head
+but 64 -> 1), the trunk convs and the head take their ops' library routes
+(``trunk_conv_library``, ``head_conv_library``), chosen by shape.  With an
+int8 pack (``forward(..., trunk_q=)``, serving only) the residual blocks run
+as ``ops/int8_trunk.int8_trunk_forward``, on kernels D and E.  The TPU
+layout variants of the JAX module (blocked stem, pad folds) compute the same
+function and are not carried over.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from nirgan_tpu_torch.models.layers import (
 )
 from nirgan_tpu_torch.ops.head_conv import head_conv
 from nirgan_tpu_torch.ops.initializers import Init, normal
+from nirgan_tpu_torch.ops.int8_trunk import int8_trunk_forward
 from nirgan_tpu_torch.ops.pad import reflect_pad2d
 from nirgan_tpu_torch.ops.resize import resize_bilinear
 from nirgan_tpu_torch.ops.trunk_conv import trunk_conv
@@ -108,6 +113,7 @@ class ResnetGenerator(nn.Module):
         self.embed_plane = int(embed_plane)
         self.compute_dtype = dtype_of(compute_dtype)
         self.n_blocks = n_blocks
+        self.norm_type = norm_type
         bias = use_bias_for(norm_type)
         kw = dict(use_bias=bias, device=device)
         self.c0 = TorchConv(input_nc, ngf, 7, **kw)
@@ -173,11 +179,18 @@ class ResnetGenerator(nn.Module):
             return h + scaled
         return h * (1.0 + scaled)
 
-    def forward(self, x: torch.Tensor,
-                embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, embeds: Optional[torch.Tensor] = None,
+                trunk_q: Optional[dict] = None) -> torch.Tensor:
         """x (B, H, W, input_nc) NHWC [, embeds (B, embed_dim)] ->
         (B, H, W, output_nc) in ``compute_dtype``; values in [-1, 1] before
-        the post-correction."""
+        the post-correction.  ``trunk_q``, a pack of
+        ``ops/int8_trunk.quantize_trunk``, runs the residual trunk in int8:
+        serving only, so it raises under autograd, and only with the
+        affine-free instance norm the pack's arithmetic assumes."""
+        if trunk_q is not None and (torch.is_grad_enabled()
+                                    or self.norm_type != "instance"):
+            raise ValueError("int8 trunk is a serving-only path and requires "
+                             "affine-free InstanceNorm (norm_type='instance')")
         h = x.to(self.compute_dtype)
         h = self.n0(self.c0(reflect_pad2d(h, 3)), relu=True)
         if self.inject:
@@ -186,7 +199,9 @@ class ResnetGenerator(nn.Module):
         else:
             h = self.nd0(self.d0(h), relu=True)
         h = self.nd1(self.d1(h), relu=True)
-        for i in range(self.n_blocks):
+        if trunk_q is not None:
+            h = int8_trunk_forward(h, trunk_q)
+        for i in range(self.n_blocks if trunk_q is None else 0):
             h = getattr(self, f"r{i}")(h)
         h = self.nu0(self.u0(h), relu=True)
         h = self.nu1(self.u1(h), relu=True)

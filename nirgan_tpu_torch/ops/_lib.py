@@ -30,7 +30,7 @@ PKG_ROOT = Path(__file__).resolve().parent.parent
 CSRC = PKG_ROOT / "csrc"
 BUILD_DIR = PKG_ROOT / "_build"
 SOURCES = ("trunk_conv.cu", "instance_norm.cu", "head_conv.cu",
-           "convt_bwd.cu", "igemm_wgmma.cu")
+           "convt_bwd.cu", "igemm_wgmma.cu", "int8_conv.cu", "int8_norm.cu")
 HEADERS = ("hopper.cuh", "igemm_wgmma.h")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
@@ -52,6 +52,10 @@ _SIGNATURES = {
     "nirgan_head_conv": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "nirgan_convt_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _P),
+    "nirgan_int8_conv": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _P),
+    "nirgan_int8_norm": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _P),
 }
 
 

@@ -12,7 +12,11 @@ takes the f32-FMA kernel with the weight as (ky, kx, C).  The source's
 header has the design.
 
 ``head_conv`` is one ``torch.autograd.Function``.  Forward: a CPU tensor
-takes ``head_conv_plain``; a CUDA tensor launches the kernel or raises.
+takes ``head_conv_plain``; a CUDA tensor of the shape the kernel is built
+for (64 channels in, one out: ``takes_kernel``) launches it or raises; any
+other CUDA tensor takes the library route, ``head_conv_library``:
+``F.conv2d`` with the bias, then ``torch.tanh``, counted apart from the
+kernel.  The choice is by shape alone (``forward_route``), not a fallback.
 Backward: as ``pallas_head.py``'s custom VJP, tanh' = 1 - y^2 on the saved
 output, then PyTorch's own convolution gradients for dx and the weight, and
 a sum for the bias.
@@ -45,6 +49,39 @@ def head_conv_plain(x_padded: torch.Tensor, weight: torch.Tensor,
     if bias is not None:
         y = y + bias.to(y.dtype).view(1, -1, 1, 1)
     return torch.tanh(y).permute(0, 2, 3, 1).contiguous()
+
+
+def head_conv_library(x_padded: torch.Tensor, weight: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The library route for the widths no kernel is built for (any Cin,
+    any Cout): ``torch.tanh`` of ``F.conv2d`` with the bias (cuDNN on a
+    card).  Counts its calls in ``launches``."""
+    b = bias.to(x_padded.dtype) if bias is not None else None
+    y = torch.tanh(F.conv2d(x_padded.permute(0, 3, 1, 2),
+                            weight.to(x_padded.dtype), b))
+    head_conv_library.launches += 1
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+head_conv_library.launches = 0
+
+
+def takes_kernel(dtype: torch.dtype, w_shape: tuple) -> bool:
+    """The head kernel C is built for: a (1, 64, 7, 7) weight, bf16 or f32
+    activations."""
+    return (dtype in (torch.float32, torch.bfloat16)
+            and tuple(w_shape) == (1, CIN, K, K))
+
+
+def forward_route(x_padded: torch.Tensor, weight: torch.Tensor):
+    """The forward the op takes, by device and shape: the plain version on
+    the CPU, kernel C on a card where ``takes_kernel``, else the library
+    route."""
+    if not _lib.route(x_padded, NAME):
+        return head_conv_plain
+    if takes_kernel(x_padded.dtype, tuple(weight.shape)):
+        return head_conv_cuda
+    return head_conv_library
 
 
 def takes_mma(dtype: torch.dtype) -> bool:
@@ -142,17 +179,17 @@ def head_conv_bwd(x_padded: torch.Tensor, weight: torch.Tensor,
         [0, 0], 1, [needs[0], needs[1], False])
     dx = dx.permute(0, 2, 3, 1).contiguous() if needs[0] else None
     dw = dw.to(weight.dtype) if needs[1] else None
-    db = gz.float().sum().reshape(1) if needs[2] else None
+    db = gz.float().sum(dim=(0, 1, 2)) if needs[2] else None
     return dx, dw, db
 
 
 class HeadConv(torch.autograd.Function):
-    """Forward kernel C (the plain version on the CPU), backward
-    ``head_conv_bwd``."""
+    """Forward kernel C (the plain version on the CPU, the library route at
+    widths the kernel is not built for), backward ``head_conv_bwd``."""
 
     @staticmethod
     def forward(ctx, x_padded, weight, bias):
-        fwd = head_conv_cuda if _lib.route(x_padded, NAME) else head_conv_plain
+        fwd = forward_route(x_padded, weight)
         y = fwd(x_padded, weight, bias)
         ctx.save_for_backward(x_padded, weight, y)
         return y
@@ -165,7 +202,7 @@ class HeadConv(torch.autograd.Function):
 
 def head_conv(x_padded: torch.Tensor, weight: torch.Tensor,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``tanh(conv2d(x_padded, weight) + bias)`` for the 7x7 one-channel
-    head on an NHWC input that is already reflect-padded by 3,
+    """``tanh(conv2d(x_padded, weight) + bias)`` for the 7x7 head on an NHWC
+    input that is already reflect-padded by 3,
     differentiable in all three."""
     return HeadConv.apply(x_padded, weight, bias)

@@ -1,0 +1,404 @@
+"""The int8 residual trunk for serving, counterpart of
+``nirgan_tpu/ops/int8_trunk.py`` (``tpu.serving_quant: int8``), and its two
+hand-written kernels, D and E.
+
+The formulation is the JAX package's:
+
+  * Affine-free instance norm is invariant to a per-output-channel scale
+    and shift, so the int8 conv's int32 accumulator is normalised directly
+    in accumulator units, with ``eps' = eps / k^2`` per output channel, and
+    the conv bias drops out.
+  * Per-input-channel activation scales are folded into the weights, which
+    are then quantised per output channel (symmetric, +-127).
+  * The accumulator is staged in bf16; its f32 moments (sum and sum of
+    squares per image and channel) come from the unrounded accumulator.
+  * The residual stream stays in the float compute dtype: only the conv
+    inputs are quantised, so the error does not compound along the skips.
+  * ``calibrate_trunk`` is one float forward with hooks that keeps the
+    per-channel absolute maximum of every block input and of every block's
+    inner activation; only (C,) vectors leave the device.
+
+**Kernel D** (``csrc/int8_conv.cu``) replaces ``_conv_moments(_pad2d(x8),
+w8)`` (``nirgan_tpu/ops/int8_trunk.py:103-108``), an XLA convolution with
+an int32 result, not a Pallas kernel: the 3x3 conv of int8 NHWC x8 with the
+reflect border gathered in the kernel, exact s8 x s8 -> s32 sums on the
+tensor cores, and in the epilogue the accumulator rounded to bf16 and
+Sigma a, Sigma a^2 per (image, channel) in f32 of the unrounded one.  At
+the serving shape (4, 133^2, 256) it is 83.5 G int8 operations against 55
+MB moved: bound by the tensor cores, 0.042 ms at the H100's 1,979 TOPS.
+The generator's trunk (``takes_wgmma``: Cin % 128 == 0, Cout 128 or 256)
+runs the s8 form of kernel A's wgmma engine (``csrc/igemm_wgmma.cu``: the
+same gather and ring, 128 int8 channels a 128-byte row, ``wgmma`` s8), the
+weight packed by ``pack_weight``; other widths an implicit GEMM on
+``mma.sync.m16n8k32``.  Each tile's column sums cover the rows of one image
+at a time and go to scratch, and a second launch adds them in tile order,
+so a batch repeats bit for bit.  Its plain version convolves the int8
+values in float64, which is exact (|acc| <= 127^2 * 9 * C, 3.7e7 at C =
+256, far below 2^53; f32 would not be, 3.7e7 > 2^24).
+
+**Kernel E** (``csrc/int8_norm.cu``) replaces ``_norm_from_moments`` and the
+``_q8`` after it (``int8_trunk.py:94-100,148-154``): an elementwise pass
+over the staged accumulator with the mean and rstd of each (image, channel)
+from the moments.  Mode 0 quantises the trunk's input stream, mode 1 (after
+conv1) applies the ReLU, divides by ``s_mid`` and quantises, mode 2 (after
+conv2) adds the skip in the stream's dtype, writes the stream and, where a
+next block exists, its quantised input.  Bound by memory: 54 MB in mode 1
+and 127 MB in mode 2 at the serving shape, 0.016 and 0.038 ms.  It divides
+(``x / s`` is a true f32 division in JAX), rounds half to even and clips to
++-127, as ``_q8`` does.
+
+Each wrapper dispatches as the port's other kernels do: a CPU tensor takes
+the plain version, a CUDA tensor launches the kernel or raises.  Torch has
+no int8 convolution on a card, so there is no library route.  Stage 2
+(``int8_d1_forward``, the d1 conv in int8) is not ported: the JAX package
+ships it off, measured slower on the TPU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from nirgan_tpu_torch.ops import _lib
+from nirgan_tpu_torch.ops._pack import laid_out, pack_b128
+from nirgan_tpu_torch.ops.pad import reflect_pad2d
+
+CONV_NAME = "int8_conv"
+NORM_NAME = "int8_norm"
+IN_EPS = 1e-5  # torch InstanceNorm2d's default, as ops/instance_norm.py
+CALIB_ROWS = 16  # the rows of a batch that calibrate (build_trunk_q)
+
+
+# ------------------------------------------------------------ quantisation
+def q8(v: torch.Tensor) -> torch.Tensor:
+    """Round half to even, clip to +-127, int8 (``_q8``)."""
+    return torch.clamp(torch.round(v), -127, 127).to(torch.int8)
+
+
+def quant_folded(w: torch.Tensor, s_in: torch.Tensor,
+                 eps: float = IN_EPS) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold the per-input-channel scales ``s_in`` into a (Cout, Cin, 3, 3)
+    weight, quantise per output channel, and return (w8, eps') for the norm
+    in accumulator units (``_quant_folded``)."""
+    wf = w.float() * s_in.float()[None, :, None, None]
+    k = torch.clamp(wf.abs().amax(dim=(1, 2, 3)) / 127.0, min=1e-12)
+    # a true division, as JAX divides: a Python number over a tensor would
+    # be its reciprocal times the number in torch
+    return q8(wf / k[:, None, None, None]), torch.tensor(eps, dtype=torch.float32, device=k.device) / k.square()
+
+
+def quantize_trunk(state_dict, n_blocks: int, calib: dict) -> dict:
+    """The int8 trunk pack from a generator's state_dict (``r{i}.conv1`` and
+    ``conv2`` weights) and the scales of ``calibrate_trunk``: per block w1,
+    w2 (Cout, Cin, 3, 3) int8, eps1, eps2, s_in and s_mid (C,) f32, on the
+    weights' device."""
+    pack = {key: [] for key in ("w1", "w2", "eps1", "eps2", "s_in", "s_mid")}
+    for i in range(n_blocks):
+        w1 = state_dict[f"r{i}.conv1.weight"]
+        si = torch.as_tensor(calib["in"][i], dtype=torch.float32, device=w1.device)
+        sm = torch.as_tensor(calib["mid"][i], dtype=torch.float32, device=w1.device)
+        w1q, e1 = quant_folded(w1, si)
+        w2q, e2 = quant_folded(state_dict[f"r{i}.conv2.weight"], sm)
+        for key, v in (("w1", w1q), ("w2", w2q), ("eps1", e1), ("eps2", e2),
+                       ("s_in", si), ("s_mid", sm)):
+            pack[key].append(v)
+    return pack
+
+
+@torch.no_grad()
+def calibrate_trunk(netG, x_padded: torch.Tensor,
+                    embeds: Optional[torch.Tensor] = None,
+                    margin: float = 1.2) -> dict:
+    """One float forward of ``netG`` with hooks -> the per-channel
+    quantisation scales (absmax * margin / 127) of each block's input stream
+    and of each block's inner activation (``calibrate_trunk``): {"in":
+    [(C,)] * n_blocks, "mid": [(C,)] * n_blocks} as f32 CPU tensors.
+
+    ``x_padded`` carries the serving reflect padding.  The inputs are the
+    output of ``nd1`` (which applies its ReLU) and of blocks 0 .. n-2, the
+    inner activations the outputs of each block's ``norm1`` (ReLU fused).
+    Each hook reduces its tensor to a (C,) vector on the device at once, so
+    no activation is kept.  A channel dead on the calibration batch gets a
+    floor of 1e-3 of the tensor's largest scale (its folded weights are
+    about 0 anyway)."""
+    nb = netG.n_blocks
+    found: dict = {}
+
+    def keep(name, absolute):
+        def hook(module, args, out):
+            v = out.float().abs() if absolute else out.float()
+            found[name] = v.amax(dim=(0, 1, 2))
+        return hook
+
+    taps = [(netG.nd1, "in0", False)]
+    taps += [(getattr(netG, f"r{i}"), f"in{i + 1}", True) for i in range(nb - 1)]
+    taps += [(getattr(netG, f"r{i}").norm1, f"mid{i}", False) for i in range(nb)]
+    handles = [m.register_forward_hook(keep(name, a)) for m, name, a in taps]
+    try:
+        netG(x_padded, *(() if embeds is None else (embeds,)))
+    finally:
+        for h in handles:
+            h.remove()
+    k = margin / 127.0
+
+    def clamp(v):
+        v = v.cpu()
+        return (v * k).clamp(min=max(float(v.max()) * k * 1e-3, 1e-12))
+
+    return {"in": [clamp(found[f"in{i}"]) for i in range(nb)],
+            "mid": [clamp(found[f"mid{i}"]) for i in range(nb)]}
+
+
+# ---------------------------------------------------------------- kernel D
+def conv_i8_plain(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """The int32 accumulator of the 3x3 conv of int8 NHWC x8 with its
+    reflect border and a (Cout, Cin, 3, 3) int8 weight: float64 sums of
+    integers, exact (``_conv_i8`` on the padded input)."""
+    xp = reflect_pad2d(x8.double(), 1)
+    acc = F.conv2d(xp.permute(0, 3, 1, 2), w8.double())
+    return acc.permute(0, 2, 3, 1).to(torch.int32)
+
+
+def conv_moments_plain(x8: torch.Tensor,
+                       w8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_conv_moments``: (the accumulator rounded to bf16, NHWC; its f32
+    moments (B, 2, Cout): Sigma a and Sigma a^2 over the pixels of each image,
+    of the accumulator in f32 before the bf16 rounding)."""
+    a32 = conv_i8_plain(x8, w8).float()
+    moments = torch.stack([a32.sum(dim=(1, 2)), a32.square().sum(dim=(1, 2))], 1)
+    return a32.to(torch.bfloat16), moments
+
+
+def kernel_weight(w8: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) -> (3, 3, Cout, Cin): kernel D's B operand, each
+    output channel's Cin values of a tap contiguous (K-major, as the
+    ``mma.sync`` fragment of B reads them)."""
+    return w8.permute(2, 3, 0, 1).contiguous()
+
+
+def pack_weight(w8: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) int8 -> the wgmma kernel's B images: tap-major,
+    then 128-channel slices of Cin, each (Cout rows, 128 bytes) in the
+    128-byte swizzle, packed as kernel A's bf16 images are with two int8
+    channels as one 16-bit element."""
+    co, ci = w8.shape[:2]
+    w16 = w8.permute(2, 3, 0, 1).reshape(9, co, ci).contiguous().view(torch.int16)
+    return pack_b128(w16)
+
+
+def tile_rows(co: int) -> int:
+    """The output pixels of a tile of the wgmma kernel (igemm::tile_rows)."""
+    return 128 * (256 // co)
+
+
+def takes_wgmma(ci: int, co: int, hw: int) -> bool:
+    """The shapes that go to the wgmma kernel (igemm::takes_s8): Cin % 128
+    == 0, Cout 128 or 256, and images of at least a tile's pixels, so that
+    no tile spans three images.  The rule is written here only: the C entry
+    runs the kernel ``packed`` names and refuses a shape it cannot take."""
+    return ci > 0 and ci % 128 == 0 and co in (128, 256) and hw >= tile_rows(co)
+
+
+def takes_conv(ci: int, co: int) -> bool:
+    """The channel counts kernel D is built for: Cin % 32 == 0 (its K step
+    is 32 bytes), Cout % 8 == 0 (two channels a store, eight a fragment).
+    Every trunk of an ngf that is a multiple of 8 qualifies."""
+    return ci > 0 and co > 0 and ci % 32 == 0 and co % 8 == 0
+
+
+def conv_tiles(hw: int) -> int:
+    """The row tiles of one image (128 pixels each, never two images')."""
+    return -(-hw // 128)
+
+
+def _launch(x8: torch.Tensor, w8: torch.Tensor,
+            packed: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """One call of kernel D, the wgmma kernel (``packed``) or the mma.sync
+    kernel; the C entry refuses a shape the one named cannot take."""
+    req = _lib.require
+    req(x8.is_cuda and x8.dtype == torch.int8 and x8.dim() == 4
+        and x8.is_contiguous(), CONV_NAME, "x8 must be a contiguous int8 "
+        "(B, H, W, C) CUDA tensor")
+    b, h, w, ci = x8.shape
+    co = w8.shape[0]
+    req(w8.dtype == torch.int8 and tuple(w8.shape) == (co, ci, 3, 3), CONV_NAME,
+        f"w8 must be int8 (Cout, {ci}, 3, 3), got {w8.dtype} {tuple(w8.shape)}")
+    req(takes_conv(ci, co), CONV_NAME,
+        f"channels {ci}->{co}: the kernel needs Cin % 32 == 0 and Cout % 8 == 0")
+    req(h >= 2 and w >= 2 and b > 0, CONV_NAME, "reflect padding needs H, W >= 2")
+    req(b * h * w * max(ci, co) < 2 ** 31, CONV_NAME, "tensor too large")
+    wk = laid_out(w8, x8.device, torch.int8, pack_weight if packed else kernel_weight)
+    if packed:
+        tiles = -(-b * h * w // tile_rows(co))
+        scratch = (tiles, 2, 2, co)
+    else:
+        tiles = conv_tiles(h * w)
+        scratch = (b, tiles, 2, co)
+    hb = torch.empty((b, h, w, co), device=x8.device, dtype=torch.bfloat16)
+    part = torch.empty(scratch, device=x8.device, dtype=torch.float32)
+    moments = torch.empty((b, 2, co), device=x8.device, dtype=torch.float32)
+    req(_lib.aligned(x8, wk, hb), CONV_NAME, "tensors must be 16-byte aligned")
+    err = _lib.library().nirgan_int8_conv(
+        x8.device.index, x8.data_ptr(), wk.data_ptr(), hb.data_ptr(),
+        part.data_ptr(), moments.data_ptr(), b, h, w, ci, co, tiles,
+        int(packed), _lib.stream_of(x8))
+    _lib.check(err, CONV_NAME)
+    return hb, moments
+
+
+def conv_moments_cuda(x8: torch.Tensor,
+                      w8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel D on contiguous int8 NHWC x8 on a card, the wgmma
+    kernel where ``takes_wgmma``: the arguments and results of
+    ``conv_moments_plain``."""
+    _lib.require(x8.dim() == 4, CONV_NAME, "x8 must be (B, H, W, C)")
+    out = _launch(x8, w8, takes_wgmma(x8.shape[3], w8.shape[0],
+                                      x8.shape[1] * x8.shape[2]))
+    conv_moments_cuda.launches += 1
+    return out
+
+
+conv_moments_cuda.launches = 0
+
+
+def conv_moments(x8: torch.Tensor, w8: torch.Tensor):
+    """Kernel D on a card, its plain version on the CPU."""
+    fwd = conv_moments_cuda if _lib.route(x8, CONV_NAME) else conv_moments_plain
+    return fwd(x8, w8)
+
+
+# ---------------------------------------------------------------- kernel E
+def norm_from_moments(hb: torch.Tensor, moments: torch.Tensor,
+                      eps_adj: torch.Tensor) -> torch.Tensor:
+    """``_norm_from_moments``: (hb - mean) * rsqrt(var + eps') in f32, with
+    mean and var of each (image, channel) from the moments over H W."""
+    # a true division, as JAX's and kernel E's: torch divides a CUDA tensor
+    # by a Python number through its reciprocal
+    n = torch.full_like(moments[:, 0], hb.shape[1] * hb.shape[2])
+    mean = moments[:, 0] / n
+    var = moments[:, 1] / n - mean.square()
+    rstd = torch.rsqrt(var + eps_adj)
+    return (hb.float() - mean[:, None, None, :]) * rstd[:, None, None, :]
+
+
+def quantize_plain(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Mode 0: the stream quantised, ``q8(x.f32 / s)``."""
+    return q8(x.float() / s)
+
+
+def norm_relu_quant_plain(hb: torch.Tensor, moments: torch.Tensor,
+                          eps_adj: torch.Tensor, s_mid: torch.Tensor) -> torch.Tensor:
+    """Mode 1, after conv1: ``q8(relu(norm) / s_mid)``, the norm kept in f32
+    up to the division."""
+    return q8(torch.relu(norm_from_moments(hb, moments, eps_adj)) / s_mid)
+
+
+def norm_skip_quant_plain(hb: torch.Tensor, moments: torch.Tensor,
+                          eps_adj: torch.Tensor, x: torch.Tensor,
+                          s_next: Optional[torch.Tensor]):
+    """Mode 2, after conv2: the stream ``x + norm.to(x.dtype)`` in x's dtype,
+    and, where a next block exists (``s_next``), its quantised input
+    ``q8(stream.f32 / s_next)``, else None."""
+    out = x + norm_from_moments(hb, moments, eps_adj).to(x.dtype)
+    return out, (quantize_plain(out, s_next) if s_next is not None else None)
+
+
+def norm_quant_plain(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
+                     moments: Optional[torch.Tensor] = None,
+                     eps_adj: Optional[torch.Tensor] = None,
+                     x: Optional[torch.Tensor] = None):
+    """Kernel E's plain version under the kernel wrapper's signature: mode 0
+    ``quantize_plain``, 1 ``norm_relu_quant_plain``, 2
+    ``norm_skip_quant_plain``."""
+    if mode == 0:
+        return quantize_plain(src, s)
+    if mode == 1:
+        return norm_relu_quant_plain(src, moments, eps_adj, s)
+    return norm_skip_quant_plain(src, moments, eps_adj, x, s)
+
+
+def norm_quant_cuda(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
+                    moments: Optional[torch.Tensor] = None,
+                    eps_adj: Optional[torch.Tensor] = None,
+                    x: Optional[torch.Tensor] = None):
+    """Launch kernel E in ``mode`` (0, 1 or 2) on a card.  ``src``: the
+    stream (mode 0, bf16 or f32) or the staged bf16 accumulator (modes 1,
+    2), contiguous NHWC; ``s``: the (C,) scale the quantised output is
+    divided by (None in mode 2 after the last block); ``moments`` (B, 2, C)
+    and ``eps_adj`` (C,) f32 in modes 1 and 2; ``x`` the stream the skip
+    adds to, in mode 2.  Returns the int8 output (mode 0, 1) or (stream,
+    int8 or None) (mode 2)."""
+    req = _lib.require
+    req(mode in (0, 1, 2), NORM_NAME, f"mode must be 0, 1 or 2, got {mode}")
+    req(src.is_cuda and src.dim() == 4 and src.is_contiguous(), NORM_NAME,
+        "src must be a contiguous (B, H, W, C) CUDA tensor")
+    b, h, w, c = src.shape
+    req(c % 8 == 0 and c <= 2048 and b * h * w > 0, NORM_NAME,
+        f"C = {c} must be a multiple of 8 and at most 2048")
+    if mode == 0:
+        code = _lib.dtype_code(src, NORM_NAME)
+    else:
+        req(src.dtype == torch.bfloat16, NORM_NAME, "the staged accumulator is bf16")
+        req(moments is not None and moments.dtype == torch.float32
+            and tuple(moments.shape) == (b, 2, c) and moments.is_contiguous()
+            and eps_adj is not None and tuple(eps_adj.shape) == (c,), NORM_NAME,
+            f"moments must be ({b}, 2, {c}) f32 and eps_adj ({c},)")
+        code = 1
+    if mode == 2:
+        req(x is not None and x.shape == src.shape and x.is_contiguous(),
+            NORM_NAME, "x must be a contiguous stream of src's shape")
+        code = _lib.dtype_code(x, NORM_NAME)
+    else:
+        req(s is not None, NORM_NAME, f"mode {mode} needs a scale")
+
+    def f32(t):
+        return None if t is None else t.to(device=src.device, dtype=torch.float32).contiguous()
+
+    s32, eps32 = f32(s), f32(eps_adj)
+    q = torch.empty(src.shape, device=src.device, dtype=torch.int8) if s is not None else None
+    out = torch.empty_like(x) if mode == 2 else None
+    tensors = [t for t in (src, x, q, out) if t is not None]
+    req(_lib.aligned(*tensors), NORM_NAME, "tensors must be 16-byte aligned")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _lib.library().nirgan_int8_norm(
+        src.device.index, mode, code, src.data_ptr(), ptr(moments), ptr(eps32),
+        ptr(s32), ptr(x), ptr(out), ptr(q), b, h * w, c, _lib.stream_of(src))
+    _lib.check(err, NORM_NAME)
+    norm_quant_cuda.launches += 1
+    return (out, q) if mode == 2 else q
+
+
+norm_quant_cuda.launches = 0
+
+
+def norm_quant(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
+               moments: Optional[torch.Tensor] = None,
+               eps_adj: Optional[torch.Tensor] = None,
+               x: Optional[torch.Tensor] = None):
+    """Kernel E on a card, its plain version on the CPU (the arguments of
+    ``norm_quant_cuda``)."""
+    fwd = norm_quant_cuda if _lib.route(src, NORM_NAME) else norm_quant_plain
+    return fwd(mode, src, s, moments, eps_adj, x)
+
+
+# ------------------------------------------------------------------ trunk
+def int8_trunk_forward(x: torch.Tensor, pack: dict) -> torch.Tensor:
+    """The residual trunk in int8 (``int8_trunk_forward``): x (B, H, W, C)
+    the float stream after ``nd1``; returns the stream after the last block,
+    in x's dtype.  A forward is one launch of E to quantise the input, then
+    per block D, E (mode 1), D, E (mode 2): 2n launches of D, 2n + 1 of E."""
+    n_blocks = len(pack["w1"])
+    x = x.contiguous()
+    x8 = norm_quant(0, x, pack["s_in"][0])
+    for i in range(n_blocks):
+        hb, m = conv_moments(x8, pack["w1"][i])
+        h8 = norm_quant(1, hb, pack["s_mid"][i], m, pack["eps1"][i])
+        hb, m = conv_moments(h8, pack["w2"][i])
+        s_next = pack["s_in"][i + 1] if i + 1 < n_blocks else None
+        x, x8 = norm_quant(2, hb, s_next, m, pack["eps2"][i], x)
+    return x

@@ -12,7 +12,11 @@ go to it packed by ``_pack.pack_b128``), WMMA on other bf16 shapes and SIMT
 f32 on float32.  The source's header has the design.
 
 ``trunk_conv`` is one ``torch.autograd.Function``.  Forward: a CPU tensor
-takes ``trunk_conv_plain``; a CUDA tensor launches the kernel or raises.
+takes ``trunk_conv_plain``; a CUDA tensor whose channel counts the kernel is
+built for (``takes_kernel``) launches it or raises; any other CUDA tensor
+takes the library route, ``trunk_conv_library``: ``F.conv2d`` with the bias
+on the reflect-padded input, counted apart from the kernel.  The choice is
+by shape alone (``forward_route``), not a fallback.
 Backward: PyTorch's own convolution gradients on the reflect-padded input,
 then the adjoint of the pad (fixed-order adds, so a step's gradients repeat
 bit for bit), as the JAX package trains the trunk through XLA's
@@ -45,6 +49,43 @@ def trunk_conv_plain(x: torch.Tensor, weight: torch.Tensor,
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def trunk_conv_library(x: torch.Tensor, weight: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None,
+                       pad: int = 1) -> torch.Tensor:
+    """The library route for the channel counts no kernel is built for:
+    ``F.conv2d`` with the bias on the reflect-padded input (cuDNN on a
+    card).  Counts its calls in ``launches``."""
+    xp = reflect_pad2d(x, pad) if pad else x
+    b = bias.to(x.dtype) if bias is not None else None
+    y = F.conv2d(xp.permute(0, 3, 1, 2), weight.to(x.dtype), b)
+    trunk_conv_library.launches += 1
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+trunk_conv_library.launches = 0
+
+
+def takes_kernel(dtype: torch.dtype, ci: int, co: int) -> bool:
+    """The channel counts kernel A is built for: bf16 with Cin % 32 == 0 and
+    Cout % 128 == 0 (wgmma or WMMA), f32 with Cin % 16 == 0 and Cout % 64
+    == 0 (SIMT)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return False
+    k_ci, k_co = (32, 128) if dtype == torch.bfloat16 else (16, 64)
+    return ci > 0 and co > 0 and ci % k_ci == 0 and co % k_co == 0
+
+
+def forward_route(x: torch.Tensor, weight: torch.Tensor):
+    """The forward the op takes for x and a (Cout, Cin, 3, 3) weight, by
+    device and shape: the plain version on the CPU, kernel A on a card where
+    ``takes_kernel``, else the library route."""
+    if not _lib.route(x, NAME):
+        return trunk_conv_plain
+    if takes_kernel(x.dtype, x.shape[-1], weight.shape[0]):
+        return trunk_conv_cuda
+    return trunk_conv_library
+
+
 def takes_wgmma(dtype: torch.dtype, ci: int, co: int) -> bool:
     """The shapes that go to the wgmma kernel, with packed weights.  The
     rule is written here only: ``nirgan_trunk_conv`` runs the kernel it is
@@ -74,9 +115,9 @@ def launch_plan(dtype: torch.dtype, x_shape: tuple, w_shape: tuple,
     co = w_shape[0]
     req(tuple(w_shape) == (co, ci, 3, 3), NAME,
         f"weight {tuple(w_shape)} is not (Cout, {ci}, 3, 3)")
-    k_ci, k_co = (32, 128) if dtype == torch.bfloat16 else (16, 64)
-    req(ci % k_ci == 0 and co % k_co == 0, NAME,
-        f"channels {ci}->{co} need Cin % {k_ci} == 0 and Cout % {k_co} == 0")
+    req(takes_kernel(dtype, ci, co), NAME,
+        f"channels {ci}->{co}: the kernel is not built for them (bf16 needs "
+        "Cin % 32 == 0 and Cout % 128 == 0, f32 Cin % 16 and Cout % 64)")
     if pad:
         req(hi >= 2 and wi >= 2, NAME, "reflect padding needs H, W >= 2")
         ho, wo = hi, wi
@@ -141,12 +182,13 @@ def trunk_conv_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
 
 
 class TrunkConv(torch.autograd.Function):
-    """Forward kernel A (the plain version on the CPU), backward
+    """Forward kernel A (the plain version on the CPU, the library route at
+    channel counts the kernel is not built for), backward
     ``trunk_conv_bwd``."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, pad):
-        fwd = trunk_conv_cuda if _lib.route(x, NAME) else trunk_conv_plain
+        fwd = forward_route(x, weight)
         ctx.pad = pad
         ctx.save_for_backward(x, weight)
         return fwd(x, weight, bias, pad)

@@ -25,20 +25,35 @@ detached prediction (fake, then real), then the generator loss through the
   D:  gan(fake, 0) + gan(real, 1)            (x0.5 only with
                                               ``legacy_halve_d_loss``)
   G:  lambda_GAN * gan(fake, 1) + lambda_L1 * L1
+      [+ lambda_ssim * (1 - SSIM) + lambda_hist * EMD
+       + lambda_rs_losses * weighted spectral-index loss]
+
+The three auxiliary terms join only where their lambda is > 0, each under
+its ``model_loss/*`` key, as ``g_loss_on_pred`` adds them
+(``nirgan_tpu/tasks/px2px.py:312-326``).
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
 from nirgan_tpu_torch.config import ConfigNode, tpu_section
-from nirgan_tpu_torch.losses import calculate_metrics, gan_loss, l1_loss
+from nirgan_tpu_torch.losses import (
+    RemoteSensingIndices,
+    calculate_metrics,
+    emd_loss,
+    gan_loss,
+    l1_loss,
+    ssim_loss,
+)
 from nirgan_tpu_torch.models import define_D, define_G, define_G_inject
 from nirgan_tpu_torch.models.layers import dtype_of
+from nirgan_tpu_torch.ops.int8_trunk import CALIB_ROWS, calibrate_trunk, quantize_trunk
 from nirgan_tpu_torch.ops.pad import reflect_pad2d, reflect_pad_to
 from nirgan_tpu_torch.ops.resize import resize_bicubic
 from nirgan_tpu_torch.train.state import TrainState, adam_for
@@ -78,9 +93,10 @@ class Px2PxTask:
         self.shape_buckets = sorted(int(b) for b in tpu.shape_buckets)
         # train metrics every 10th step, as the reference (pix2pix.py:183)
         self.train_metrics_every = int(tpu.get("train_metrics_every", 10))
-        if str(tpu.get("serving_quant", "none")) != "none":
-            raise NotImplementedError("tpu.serving_quant: the int8 serving "
-                                      "trunk is not ported yet")
+        # "int8" serves the residual trunk in int8 (ops/int8_trunk.py,
+        # kernels D and E), calibrated on the first batch served
+        self.serving_quant = str(tpu.get("serving_quant", "none"))
+        self._trunk_q = None
         sc = config.get("satclip", ConfigNode({"use_satclip": False}))
         self.satclip = bool(sc.get("use_satclip", False))
         self.satclip_style = sc.get("satclip_style", None) if self.satclip else None
@@ -123,28 +139,39 @@ class Px2PxTask:
         self.gan_mode = self.opt.gan_mode
         self.lambda_gan = float(self.opt.lambda_GAN)
         self.lambda_l1 = float(self.opt.lambda_L1)
-        for key in ("lambda_ssim", "lambda_hist", "lambda_rs_losses"):
-            if float(self.opt.get(key, 0.0)) > 0.0:
-                raise NotImplementedError(f"base_configs.{key} > 0: the "
-                                          "auxiliary losses are not ported yet")
+        self.lambda_ssim = float(self.opt.get("lambda_ssim", 0.0))
+        self.lambda_hist = float(self.opt.get("lambda_hist", 0.0))
+        self.lambda_rs = float(self.opt.get("lambda_rs_losses", 0.0))
+        self.rs_losses = (
+            RemoteSensingIndices(mode="loss", criterion=self.opt.rs_losses_criterium)
+            if self.lambda_rs > 0.0 else None)
+        self.rs_weights = (dict(self.opt.internal_rs_loss_weights)
+                           if "internal_rs_loss_weights" in self.opt else None)
         if self.gan_mode not in ("lsgan", "vanilla", "wgangp"):
             raise NotImplementedError(f"gan mode {self.gan_mode} not implemented")
         # legacy Pix2PixModel halves the D loss; the PL port does not
         self.legacy_halve_d_loss = bool(self.opt.get("legacy_halve_d_loss", False))
+
+        self.uses_dropout = not self.opt.get("no_dropout", True)
+        if self.serving_quant == "int8" and not self.wants_int8_serving():
+            warnings.warn(
+                "tpu.serving_quant: int8 ignored - the mode needs a resnet "
+                "generator with affine-free instance norm and no dropout "
+                "(ops/int8_trunk.py); serving will run the float path.")
 
         # reflect-pad against edge artifacts (reference model/pix2pix.py:91-108)
         self.use_padding = bool(config.Data.padding)
         self.pad_amount = int(config.Data.padding_amount) if self.use_padding else 0
 
     # ------------------------------------------------------------- applies
-    def g_apply(self, rgb: torch.Tensor,
-                embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def g_apply(self, rgb: torch.Tensor, embeds: Optional[torch.Tensor] = None,
+                trunk_q: Optional[dict] = None) -> torch.Tensor:
         """Reflect-pad -> generator -> crop on NHWC reflectance (reference
         forward, ``model/pix2pix.py:88-110``); ``embeds`` (B, E) feed the
-        inject route only."""
+        inject route only; ``trunk_q`` runs the trunk in int8 (serving)."""
         p = self.pad_amount
         x = reflect_pad2d(rgb, p) if self.use_padding else rgb
-        pred = self.netG(x, embeds) if self.inject else self.netG(x)
+        pred = self.netG(x, embeds if self.inject else None, trunk_q=trunk_q)
         if self.use_padding:
             pred = pred[:, p:-p, p:-p, :]
         return pred
@@ -232,8 +259,8 @@ class Px2PxTask:
     def train_step(self, state: TrainState, batch: Mapping) -> dict:
         """One fused GAN step on an ``extract_batch`` batch; updates the
         networks, the optimizers and ``state.step`` in place and returns the
-        8 ``model_loss/*`` terms and the 4 ``train/*`` metrics as 0-d f32
-        tensors on the device (the metrics NaN except every
+        8 ``model_loss/*`` terms (and each auxiliary term whose lambda is
+        > 0) and the 4 ``train/*`` metrics as 0-d f32 tensors on the device (the metrics NaN except every
         ``train_metrics_every``-th step), and on the inject route the
         updated ``scale_param`` / ``post_correction_param``."""
         rgb = self._dn_to_reflectance(batch["rgb"], self.compute_dtype)
@@ -265,6 +292,21 @@ class Px2PxTask:
         loss_g_gan = gan_loss(logits_g, True, self.gan_mode)
         loss_g_l1 = l1_loss(pred, nir)
         loss_g = loss_g_gan * self.lambda_gan + loss_g_l1 * self.lambda_l1
+        aux = {}
+        if self.lambda_ssim > 0.0:
+            aux["model_loss/generator_ssim"] = term = ssim_loss(pred, nir)
+            loss_g = loss_g + term * self.lambda_ssim
+        if self.lambda_hist > 0.0:
+            aux["model_loss/generator_hist"] = term = emd_loss(pred, nir)
+            loss_g = loss_g + term * self.lambda_hist
+        if self.lambda_rs > 0.0:
+            # the indices see the RGB only: the concat route's 4th channel
+            # is the embedding plane
+            aux["model_loss/indices_loss_weighted"] = term = (
+                self.rs_losses.get_and_weight_losses(
+                    rgb[..., :self.opt.input_nc], nir, pred,
+                    loss_config=self.rs_weights))
+            loss_g = loss_g + term * self.lambda_rs
         state.opt_g.zero_grad(set_to_none=True)
         loss_g.backward()
         state.opt_g.step()
@@ -274,6 +316,7 @@ class Px2PxTask:
                      loss_d_fake, loss_d_real, loss_d, loss_g_gan, loss_g_l1,
                      loss_g)
             metrics = {k: v.detach().float() for k, v in zip(LOSS_KEYS, terms)}
+            metrics.update({k: v.detach().float() for k, v in aux.items()})
             if (state.step + 1) % max(self.train_metrics_every, 1) == 0:
                 metrics.update(calculate_metrics(pred_sg, nir, phase="train"))
             else:
@@ -299,6 +342,49 @@ class Px2PxTask:
                                     mask=batch.get("_valid"))
         return pred.float(), metrics
 
+    # ---------------------------------------------------- int8 serving trunk
+    def wants_int8_serving(self) -> bool:
+        """``serving_quant: int8`` on a config that can take it: a resnet
+        generator with blocks, affine-free instance norm (the formulation
+        normalises the int32 accumulator through it) and no dropout."""
+        return (self.serving_quant == "int8"
+                and getattr(self.netG, "n_blocks", 0) > 0
+                and self.opt.get("norm", "instance") == "instance"
+                and not self.uses_dropout)
+
+    def build_trunk_q(self, x: torch.Tensor, embeds: Optional[torch.Tensor] = None,
+                      stage2: bool = False) -> dict:
+        """Quantise the bound generator's residual trunk for serving
+        (``nirgan_tpu/tasks/px2px.py:476-502``).  ``x``: a calibration input
+        exactly as ``g_apply`` receives it (NHWC reflectance, the concat
+        route's plane attached); its first 16 rows, reflect-padded by the
+        task's pad, go through one float forward with hooks, then the
+        weights are quantised per output channel.  ``stage2`` (the d1 conv
+        in int8, ``int8_d1_forward``) is not ported."""
+        if stage2:
+            raise NotImplementedError("build_trunk_q(stage2=True): the int8 d1 "
+                                      "conv (int8_d1_forward) is not ported "
+                                      "(ROADMAP A7-stage2)")
+        x = x[:CALIB_ROWS]
+        xp = reflect_pad2d(x, self.pad_amount) if self.use_padding else x
+        e = embeds[:CALIB_ROWS].to(self.device) if self.inject and embeds is not None else None
+        with torch.no_grad():
+            calib = calibrate_trunk(self.netG, xp.to(self.compute_dtype), e)
+            # the pack outlives the inference-mode call that calibrates: its
+            # tensors are made as normal ones, so kernel D keeps their layout
+            with torch.inference_mode(False):
+                return quantize_trunk(self.netG.state_dict(), self.netG.n_blocks,
+                                      calib)
+
+    def trunk_q_for(self, x: torch.Tensor,
+                    embeds: Optional[torch.Tensor] = None) -> Optional[dict]:
+        """The int8 pack to serve with, or None on the float path: built
+        from ``x`` (and ``embeds``) on the first call with the bound weights,
+        then kept until ``bind`` changes them."""
+        if self.wants_int8_serving() and self._trunk_q is None:
+            self._trunk_q = self.build_trunk_q(x, embeds)
+        return self._trunk_q
+
     # ---------------------------------------------------------------- serve
     def bucket_for(self, h: int, w: int) -> int:
         """Smallest static bucket covering (h, w); grows in bucket-sized
@@ -318,7 +404,9 @@ class Px2PxTask:
         NIR as f32 numpy.  The input (with the concat route's plane
         attached) is reflect-padded to its shape bucket, as the JAX task
         does for its static shapes, which changes the instance-norm
-        statistics; the result is cropped back."""
+        statistics; the result is cropped back.  With ``serving_quant:
+        int8`` the first batch calibrates the int8 trunk, which then serves
+        every batch until ``bind``."""
         rgb = np.asarray(rgb, np.float32)
         _, _, h, w = rgb.shape
         cond = {"rgb": self._ingest(rgb)}
@@ -328,13 +416,16 @@ class Px2PxTask:
                                  "prediction")
             cond.update(self.condition(cond["rgb"], coords))
         size = self.bucket_for(h, w)
-        x = reflect_pad_to(cond["rgb"], size, size)
-        pred = self.g_apply(x.to(self.compute_dtype), cond.get("embeds")).float()
+        x = reflect_pad_to(cond["rgb"], size, size).to(self.compute_dtype)
+        trunk_q = self.trunk_q_for(x, cond.get("embeds"))
+        pred = self.g_apply(x, cond.get("embeds"), trunk_q).float()
         return pred[:, :h, :w, :].permute(0, 3, 1, 2).cpu().numpy()
 
     def bind(self, state_dict: Mapping[str, torch.Tensor]) -> "Px2PxTask":
         """Load generator weights (the port's state_dict names, as
         ``weights.params_from_jax`` or ``weights.load_reference_ckpt``
-        give them) for serving."""
+        give them) for serving; an int8 pack of the earlier weights is
+        dropped and rebuilt on the next batch served."""
         self.netG.load_state_dict(state_dict, strict=True)
+        self._trunk_q = None
         return self

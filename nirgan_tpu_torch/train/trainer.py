@@ -11,6 +11,8 @@
     left at 0.1 as the reference's quirk, and their counters in
     ``sched_state_{last,best}.json``, the JAX package's format
   * the finite-loss guard, ``perf/images_per_sec`` and ``perf/step_ms``
+  * with ``lambda_rs_losses`` > 0, the six ``indices_loss/*`` errors of the
+    first ``Logging.num_val_images`` validation batches, as plain metrics
   * a SIGTERM checkpoints ``last`` at the next step boundary and returns
   * JSONL logging (``utils/loggers.py``); the JAX package's TensorBoard
     and Weights & Biases backends are not ported
@@ -59,6 +61,7 @@ class Trainer:
         # 0: validate once an epoch, as the reference
         self.val_check_interval = int(cc.Training.get("val_check_interval", 0))
         self.log_every = int(log_every)
+        self.num_val_images = int(cc.Logging.get("num_val_images", 1))
         self._config_saved = False
         project = cc.Logging.get("wandb_project", "nirgan_tpu")
 
@@ -198,6 +201,18 @@ class Trainer:
         return state
 
     # ----------------------------------------------------------- validation
+    def _log_rs_indices(self, batch, pred: torch.Tensor, step_no: int) -> None:
+        """The ``indices_loss/*`` logging dict of one validation batch
+        (``nirgan_tpu/train/trainer.py:469-475``): the task's index losses
+        on the host, on the batch's first three channels and its NIR as the
+        loader gave them, and the prediction."""
+        rgb = torch.from_numpy(np.asarray(batch["rgb"], np.float32)[:, :3])
+        nir = torch.from_numpy(np.asarray(batch["nir"], np.float32))
+        d = self.task.rs_losses.get_and_weight_losses(
+            rgb.permute(0, 2, 3, 1), nir.permute(0, 2, 3, 1),
+            pred.float().cpu()[:len(rgb)], mode="logging_dict")
+        self.logger.log_metrics({k: float(v) for k, v in d.items()}, step_no)
+
     def _run_validation(self, state, epoch: int, step_no: int) -> None:
         agg: dict = {}
         n_batches = 0
@@ -205,10 +220,12 @@ class Trainer:
                 self.dm.val_dataloader(self.task.embed_coords)):
             if i >= self.limit_val_batches:
                 break
-            _, metrics = self.task.eval_step(self.task.extract_batch(batch))
+            pred, metrics = self.task.eval_step(self.task.extract_batch(batch))
             for k, v in _pull(metrics).items():
                 agg[k] = agg.get(k, 0.0) + v
             n_batches += 1
+            if i < self.num_val_images and self.task.rs_losses is not None:
+                self._log_rs_indices(batch, pred, step_no)
         if n_batches == 0:
             return
         val = {k: v / n_batches for k, v in agg.items()}
