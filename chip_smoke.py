@@ -17,7 +17,8 @@ never prints the final ``"ok": true`` line:
    532^2), and every kernel at the train step's, at the batch of both
    train configs (16 and 8 of 256^2 tiles padded to 276^2; the instance
    norm at all six, C = 512 included, with the ReLU and the skip fused and
-   not, and at odd shapes on either side of its two regimes).  The trunk conv is timed in both pad modes.  The
+   not, at odd shapes on either side of its two regimes, and B and B4 at
+   the seven norm shapes of the unet_256 step, 128^2 x 64 to 2^2 x 512).  The trunk conv is timed in both pad modes.  The
    instance norm is timed over a rotation of inputs larger than the L2
    cache (``ms``) and on one input (``warm_ms``).  The trunk conv and the
    transposed conv's backward are also held at a shape that their wgmma
@@ -80,6 +81,23 @@ never prints the final ``"ok": true`` line:
    served and stepped once, where the trunk conv and the head take their
    library routes (whose counts must be 0 at the flagship widths
    everywhere else).
+   The model variants, at full width, bf16 over f32 params, seed 0:
+   ``unet_256`` (ngf 64, basic D, instance norm, unpadded): the serving
+   forward of 4 x 512^2 against the plain route (>= 40 dB), twice bit for
+   bit, B's 13 calls; ``predict_step`` in f32 card against CPU (<= 1e-3);
+   one step at batch 16 of 256^2 (B and B4 22 calls each, every gradient,
+   within 2% + 1e-3 of the plain route, bit for bit from the same seed).
+   pix2pix, upstream's defaults (``unet_256``, batch norm, ``no_dropout:
+   false``, vanilla GAN, lambda_L1 100, batch 16): two steps, the running
+   statistics moved, step 1 bit for bit again, the eval-mode forward.
+   ``resnet_9blocks`` with dropout, the replicate and zero trunks (kernel A
+   in its ``pad=0`` mode; a forward and a step each, bit for bit) and the
+   pixel D: one step each against the plain route; ``gradient_penalty``
+   through a batch-norm D, card against CPU, and through kernel B, where
+   its backward must raise.  The baselines: ``python -m
+   nirgan_tpu_torch.train --baseline y --max-steps 4`` (batch 32 of
+   256^2), then a step and a forward of each of Linear_NIR, MLP_NIR and
+   CNN_NIR.
 6. launches: one call of the instance norm at each timed shape under
    ``torch.profiler``: one kernel where the plan is resident, two where it
    streams.  Then the 10980^2 scene's window loop under the profiler: its
@@ -111,7 +129,10 @@ conv's backward) its times, bound and plan at that route's batch of 8; the
 head's entries state the kernel that ran, the time of the f32-FMA kernel it
 replaced (``old_ms``), the two-call library route and ``share`` =
 ``bound_ms / ms``; the trunk conv's
-``pad0`` entries hold its times on a pre-padded input; the instance norm's
+``pad0`` entries hold its times on a pre-padded input, and the
+``trunk_conv_pad0`` entry its calls on the replicate and zero trunks;
+the instance norm's ``unet`` entry its calls in the unet_256 forward and
+step, and ``unet_shapes`` its times at the U-Net's shapes; the instance norm's
 entries state their launch plan (``regime``, ``cluster``, ``smem_bytes``)
 and the kernels that one call launched on the card under ``torch.profiler``
 (``cuda_launches``), and list every main-path shape under ``shapes``,
@@ -590,11 +611,58 @@ def check_head_odd(g: torch.Generator) -> None:
         raise AssertionError("head_conv: the mma kernel took an f32 input")
 
 
+F32_U = 2.0 ** -24  # f32's unit roundoff
+
+
+def few_pixel_f32_bound(x: torch.Tensor) -> torch.Tensor:
+    """The f32 bound of kernel B against its plain version where an image
+    has few pixels (the U-Net's 2^2 ... 8^2 norms): both compute mean and
+    E[x^2] over n pixels in f32, in other orders, each sum off by at most
+    (n - 1) u of its terms' sum, and var = E[x^2] - E[x]^2 cancels, so
+    y = (x - mean) r moves by up to r (n - 1) u mean|x| + |y| (n - 1) u
+    E[x^2] / (var + eps), on each side; plus a rounding of y.  Never under
+    the abs 1e-5 of the main path's shapes, where it is the smaller."""
+    x64 = x.double()
+    n = x.shape[1] * x.shape[2]
+    mean = x64.mean(dim=(1, 2), keepdim=True)
+    m2 = (x64 * x64).mean(dim=(1, 2), keepdim=True)
+    var = m2 - mean * mean
+    r = torch.rsqrt(var + 1e-5)
+    y = (x64 - mean) * r
+    k = (n - 1) * F32_U
+    bound = 2 * (k * r * x64.abs().mean(dim=(1, 2), keepdim=True)
+                 + k * y.abs() * m2 / (var + 1e-5)) + 4 * F32_U * y.abs()
+    return bound.clamp(min=1e-5).float()
+
+
+def few_pixel_f32_bwd_bound(x: torch.Tensor, g: torch.Tensor,
+                            stats: torch.Tensor) -> torch.Tensor:
+    """B4's f32 bound against its plain version at few pixels, on the same
+    statistics: dx = r (g - mean(g) - y mean(g y)); the two means over n
+    pixels in other orders differ by up to (n - 1) u of their terms' sums on
+    each side, times r (and |y|); plus a rounding of dx.  Never under abs
+    1e-5."""
+    n = x.shape[1] * x.shape[2]
+    mean = stats[:, 0, None, None, :].double()
+    r = stats[:, 1, None, None, :].double()
+    y = (x.double() - mean) * r
+    g64 = g.double()
+    k = (n - 1) * F32_U
+    dx = r * (g64 - g64.mean(dim=(1, 2), keepdim=True)
+              - y * (g64 * y).mean(dim=(1, 2), keepdim=True))
+    bound = 2 * k * r * (g64.abs().mean(dim=(1, 2), keepdim=True)
+                         + y.abs() * (g64 * y).abs().mean(dim=(1, 2), keepdim=True)) \
+        + 4 * F32_U * dx.abs()
+    return bound.clamp(min=1e-5).float()
+
+
 def check_norm(x: torch.Tensor, relu: bool,
-               residual: torch.Tensor | None = None) -> float:
+               residual: torch.Tensor | None = None,
+               few_pixels: bool = False) -> float:
     """Kernel B against its plain version on f32 x and on x in bf16, with
-    the skip fused where ``residual`` is given.  Returns the bf16 max
-    |err|."""
+    the skip fused where ``residual`` is given.  ``few_pixels`` holds the
+    f32 comparison to ``few_pixel_f32_bound`` in place of abs 1e-5.
+    Returns the bf16 max |err|."""
     from nirgan_tpu_torch.ops.instance_norm import (
         instance_norm_cuda,
         instance_norm_plain,
@@ -603,11 +671,19 @@ def check_norm(x: torch.Tensor, relu: bool,
     shape = tuple(x.shape)
     what = f"{shape} relu={relu} skip={residual is not None}"
     # f32: same formula, sums in another order: abs 1e-5
-    err = float((instance_norm_cuda(x, relu=relu, residual=residual)
-                 - instance_norm_plain(x, relu=relu, residual=residual)).abs().max())
-    log("kernels", f"instance_norm f32 {what}: max|err| {err:.3e} (bound 1e-05)")
-    if not err <= 1e-5:
-        raise AssertionError(f"instance_norm f32 {what}: {err}")
+    diff = (instance_norm_cuda(x, relu=relu, residual=residual)
+            - instance_norm_plain(x, relu=relu, residual=residual)).abs()
+    err = float(diff.max())
+    if few_pixels:
+        rel = float((diff / few_pixel_f32_bound(x)).max())
+        log("kernels", f"instance_norm f32 {what}: max|err| {err:.3e}, worst |err| / "
+            f"bound {rel:.3f} (the few-pixel bound)")
+        if not rel <= 1.0:
+            raise AssertionError(f"instance_norm f32 {what}: {rel}")
+    else:
+        log("kernels", f"instance_norm f32 {what}: max|err| {err:.3e} (bound 1e-05)")
+        if not err <= 1e-5:
+            raise AssertionError(f"instance_norm f32 {what}: {err}")
     # bf16: both sides round mean, scale, x - mean and the product to bf16;
     # an f32 statistic summed in another order can round to the
     # neighbouring bf16 value, which moves x - mean and y by a step each:
@@ -638,16 +714,18 @@ def check_norm(x: torch.Tensor, relu: bool,
     return float(err.max())
 
 
-def check_norm_bwd(x: torch.Tensor, dy: torch.Tensor, relu: bool) -> float:
+def check_norm_bwd(x: torch.Tensor, dy: torch.Tensor, relu: bool,
+                   few_pixels: bool = False) -> float:
     """Kernel B4 against its plain version on f32 and bf16.  Both sides
     take the kernel's forward statistics, which ``check_norm`` holds against
     the plain forward.  f32: the same f32 formula with sums in another
     order: abs 1e-5.  bf16: both compute in f32 from the same bf16 inputs
     and round dx once, so where an f32 sum in another order straddles a
     rounding boundary the two differ by one bf16 step: |err| <= 2^-7 |dx|
-    (+ 1e-5 for the f32 difference).  The mask that B4 takes from x must be
-    the forward kernel's ``out > 0`` bit for bit.  Returns the bf16 max
-    |err|."""
+    (+ 1e-5 for the f32 difference).  ``few_pixels`` puts
+    ``few_pixel_f32_bwd_bound`` in place of both 1e-5.  The mask that B4
+    takes from x must be the forward kernel's ``out > 0`` bit for bit.
+    Returns the bf16 max |err|."""
     from nirgan_tpu_torch.ops.instance_norm import (
         _normalized,
         instance_norm_bwd_cuda,
@@ -665,11 +743,15 @@ def check_norm_bwd(x: torch.Tensor, dy: torch.Tensor, relu: bool) -> float:
         ref = instance_norm_bwd_plain(xd, gd, stats, relu).float()
         got = instance_norm_bwd_cuda(xd, gd, stats, relu).float()
         err = (got - ref).abs()
+        f32_part = (few_pixel_f32_bwd_bound(xd.float(), gd.float(), stats)
+                    if few_pixels else 1e-5)
+        part = "the few-pixel bound" if few_pixels else "1e-5"
         if dtype == torch.float32:
-            ok, bound = float(err.max()) <= 1e-5, "abs 1e-5"
+            ok = bool((err <= f32_part).all())
+            bound = part if few_pixels else "abs 1e-5"
         else:
-            ok = bool((err <= 2 ** -7 * ref.abs() + 1e-5).all())
-            bound = "2^-7 |dx| + 1e-5"
+            ok = bool((err <= 2 ** -7 * ref.abs() + f32_part).all())
+            bound = f"2^-7 |dx| + {part}"
             worst = float(err.max())
         log("kernels", f"instance_norm_bwd {dtype} {shape} relu={relu}: "
             f"max|err| {float(err.max()):.3e} (bound {bound})")
@@ -843,6 +925,7 @@ def phase_kernels() -> None:
         max(e1, e2, e3), (train, *t_times), (serving, *s_times),
         satclip_step=(satclip, *c_times))
     phase_norms(g)
+    phase_unet_norms(g)
     phase_convt_bwd(g)
     phase_int8_kernels(g)
     torch.cuda.synchronize()
@@ -2252,10 +2335,482 @@ def phase_ngf16() -> None:
                 2e-2, 1e-3)
 
 
+# ------------------------------------------------------------ model variants
+BASELINE_CONFIG = os.path.join(ROOT, "configs", "config_baselines.yaml")
+BASELINE_MODELS = ("Linear_NIR", "MLP_NIR", "CNN_NIR")
+# the U-Net serves unpadded tiles (a 512^2 tile divides by 2^8)
+UNET_TILE = TILE
+# wrapper calls of one unet_256 forward (6 norms on the way down, 7 on the
+# way up, kernel B without the ReLU) and of one fused step (G's 13 and the
+# PatchGAN's 3 in each of D's three forwards; the backward of G's 13, of
+# D's 6 for the D loss and of its 3 for the G loss)
+UNET_FORWARD = {"trunk_conv": 0, "instance_norm": 13, "instance_norm_bwd": 0,
+                "head_conv": 0, "convt_bwd": 0}
+UNET_STEP = {"trunk_conv": 0, "instance_norm": 22, "instance_norm_bwd": 22,
+             "head_conv": 0, "convt_bwd": 0}
+# the kernels' wrapper calls on the new paths, for the kernels line
+VARIANTS: dict = {}
+
+
+def unet_config(**overrides):
+    """``config_px2px.yaml`` with ``unet_256``, unpadded (``Data.padding:
+    false``: the U-Net's sides must divide by 2^8), made in memory, and any
+    other ``base_configs`` values given."""
+    from nirgan_tpu_torch.config import load_config
+
+    cfg = load_config(CONFIG)
+    cfg.base_configs.netG = "unet_256"
+    cfg.Data.padding = False
+    for key, value in overrides.items():
+        cfg.base_configs[key] = value
+    return cfg
+
+
+def unet_norm_shapes() -> list:
+    """The seven shapes of the unet_256 step's instance norms at batch 16 of
+    256^2: 128^2 x 64 (the last way up) down to 2^2 x 512 (the innermost)."""
+    n, s = TRAIN_BATCH, TRAIN_TILE
+    return [(n, s // 2, s // 2, 64), (n, s // 4, s // 4, 128), (n, s // 8, s // 8, 256),
+            (n, s // 16, s // 16, 512), (n, s // 32, s // 32, 512),
+            (n, s // 64, s // 64, 512), (n, s // 128, s // 128, 512)]
+
+
+def check_tiny_slab_plans(g: torch.Generator) -> None:
+    """B and B4 in f32 at the U-Net's 2^2 and 4^2 x 512 shapes under every
+    resident plan the kernels take (clusters of 1 up to one pixel a rank)
+    and the streaming one, against their plain versions within the
+    few-pixel bounds: ``launch_plan`` picks one block a slab there, so the
+    split of a tiny slab over a cluster's ranks runs only here."""
+    from nirgan_tpu_torch.ops.instance_norm import (
+        _launch,
+        _launch_bwd,
+        instance_norm_bwd_plain,
+        instance_norm_plain,
+        resident_plans,
+        streaming_plan,
+    )
+
+    for shape in ((TRAIN_BATCH, 2, 2, 512), (TRAIN_BATCH, 4, 4, 512)):
+        b, h, w, c = shape
+        x = torch.randn(shape, device="cuda", generator=g) * 3.0 + 1.5
+        dy = torch.randn(shape, device="cuda", generator=g)
+        ref, stats = instance_norm_plain(x, return_stats=True)
+        ref_dx = instance_norm_bwd_plain(x, dy, stats)
+        fwd_bound = few_pixel_f32_bound(x)
+        bwd_bound = few_pixel_f32_bwd_bound(x, dy, stats)
+        for backward in (False, True):
+            plans = resident_plans(h * w, c, 4, backward) + [streaming_plan(b, h * w, c, 4)]
+            worst = []
+            for plan in plans:
+                if backward:
+                    err = (_launch_bwd(x, dy, stats, False, plan=plan) - ref_dx).abs()
+                    rel = float((err / bwd_bound).max())
+                else:
+                    err = (_launch(x, 1e-5, False, None, plan=plan)[0] - ref).abs()
+                    rel = float((err / fwd_bound).max())
+                worst.append((plan.regime, plan.cluster, round(rel, 3)))
+                if not rel <= 1.0:
+                    raise AssertionError(f"{'B4' if backward else 'B'} {shape} under "
+                                         f"{plan}: |err| / bound {rel}")
+            log("unet", f"{'B4' if backward else 'B'} f32 {shape} under every plan "
+                f"(regime, cluster, worst |err| / few-pixel bound): {worst}")
+
+
+def phase_unet_norms(g: torch.Generator) -> None:
+    """B and B4 against their plain versions at the U-Net's seven norm
+    shapes, without the ReLU (the U-Net fuses none), f32 and bf16, each timed
+    with its bound and its library call; the entries go under
+    ``unet_shapes``."""
+    dev = torch.device("cuda")
+    fwd_all, bwd_all, worst, worst_bwd = [], [], 0.0, 0.0
+    for shape in unet_norm_shapes():
+        x = torch.randn(shape, device=dev, generator=g) * 3.0 + 1.5
+        dy = torch.randn(shape, device=dev, generator=g)
+        # a 2^2 ... 8^2 image's statistics: the few-pixel f32 bound
+        few = shape[1] * shape[2] <= 64
+        worst = max(worst, check_norm(x, False, few_pixels=few))
+        worst_bwd = max(worst_bwd, check_norm_bwd(x, dy, False, few_pixels=few))
+        xb, gb = x.bfloat16(), dy.bfloat16()
+        fwd_all.append(times(shape, *norm_times(xb, False)))
+        bwd_all.append(times(shape, *bwd_times(xb, gb, False)))
+    check_tiny_slab_plans(g)
+    RESULTS["instance_norm"]["unet_shapes"] = fwd_all
+    RESULTS["instance_norm_bwd"]["unet_shapes"] = bwd_all
+    for name, err in (("instance_norm", worst), ("instance_norm_bwd", worst_bwd)):
+        RESULTS[name]["max_abs_err"] = max(RESULTS[name]["max_abs_err"], err)
+    shares = [e["bound_ms"] / e["ms"] for e in fwd_all + bwd_all]
+    log("unet", f"B and B4 at the U-Net's norm shapes: share of the bound "
+        f"{min(shares) * 100:.1f}-{max(shares) * 100:.1f}%")
+    if max(shares) > 1.0:
+        raise AssertionError(f"a kernel under its bound: {fwd_all + bwd_all}")
+
+
+def buffers_of(task) -> dict:
+    """Every buffer (the batch norms' running statistics) of both
+    networks, copied."""
+    return {f"{tag}.{k}": b.detach().clone()
+            for tag, net in (("G", task.netG), ("D", task.netD))
+            for k, b in net.named_buffers()}
+
+
+def grads_and_stats(task) -> dict:
+    """Every gradient and every running statistic of both networks, copied."""
+    return {**{f"{tag}.{k}.grad": p.grad.detach().clone()
+               for tag, net in (("G", task.netG), ("D", task.netD))
+               for k, p in net.named_parameters()}, **buffers_of(task)}
+
+
+def check_repeat(what: str, cfg, ex: dict, got: dict, seen: dict, netg=None) -> None:
+    """Step 1 of a new task from the same seed (and the same dropout
+    generator state) on the same batch: terms, gradients and running
+    statistics bit for bit.  ``netg`` makes the new task's generator."""
+    from nirgan_tpu_torch.tasks import Px2PxTask
+
+    again = Px2PxTask(cfg, device="cuda", seed=SEED)
+    if netg is not None:
+        again.netG = netg(again)
+    repeat = loss_terms(again.train_step(again.init_state(), ex))
+    now = grads_and_stats(again)
+    differ = [k for k, v in seen.items() if not torch.equal(v, now[k])]
+    log(what, f"the step again from the same seed: {len(differ)} of {len(seen)} "
+        f"gradients and statistics differ, terms equal: {repeat == got}")
+    if differ or repeat != got:
+        raise AssertionError(f"{what}: the step did not repeat: {differ[:8]}, "
+                             f"{repeat} vs {got}")
+
+
+def phase_unet() -> dict:
+    """``unet_256`` at full width (ngf 64, ndf 64, basic D, instance norm,
+    bf16 over f32 params): the serving forward of 4 x 512^2 on the kernels
+    against the plain route (>= 40 dB), bit for bit twice, B's 13 calls,
+    timed; ``predict_step`` in f32 on the card (TF32 off) against the CPU on
+    2 x 256^2 (<= 1e-3); one fused step at batch 16 of 256^2 (launches,
+    every gradient, within 2% + 1e-3 of the plain route, bit for bit from
+    the same seed), timed.  Returns the wrapper calls of the forward and
+    of the step."""
+    from nirgan_tpu_torch.models import define_G
+    from nirgan_tpu_torch.tasks import Px2PxTask
+
+    dev = torch.device("cuda")
+    seeded = torch.Generator().manual_seed(SEED)
+    G = define_G(3, 1, 64, "unet_256", "instance", compute_dtype=torch.bfloat16,
+                 generator=seeded).to(dev).eval()
+    x = (torch.rand((BATCH, UNET_TILE, UNET_TILE, 3),
+                    generator=torch.Generator().manual_seed(1)) * 0.3).to(dev)
+    with torch.inference_mode():
+        reset_counts()
+        y = G(x)
+        torch.cuda.synchronize()
+        per_forward = counts()
+        no_library("unet forward")
+        again = G(x)
+        with plain_route():
+            y_plain = G(x)
+        db = psnr(y, y_plain, 2.0)
+        log("unet", f"forward of {tuple(x.shape)}: launches {per_forward} (want "
+            f"{UNET_FORWARD}); kernels vs plain route PSNR {db:.2f} dB (bound 40), "
+            f"max|err| {float((y.float() - y_plain.float()).abs().max()):.3e}; "
+            f"again bit for bit: {torch.equal(y, again)}")
+        if (per_forward != UNET_FORWARD or tuple(y.shape) != (BATCH, UNET_TILE, UNET_TILE, 1)
+                or not bool(torch.isfinite(y).all()) or not db >= 40.0
+                or not torch.equal(y, again)):
+            raise AssertionError(f"unet forward: {per_forward}, {db} dB")
+
+        def plain_forward():
+            with plain_route():
+                return G(x)
+
+        ms, plain_ms = compare_ms(lambda: G(x), plain_forward, iters=10)
+        log("unet", f"bf16 forward of {BATCH} x {UNET_TILE}^2: kernels {ms:.3f} ms "
+            f"({BATCH / ms * 1e3:.2f} tiles/s), plain {plain_ms:.3f} ms")
+    del G, x, y, again, y_plain
+
+    # f32 on the card (kernels, TF32 off) against the same seeded task on
+    # the CPU (plain versions)
+    cfg = unet_config()
+    cfg.tpu.compute_dtype = "float32"
+    rgb = np.random.default_rng(2).random((2, 3, TRAIN_TILE, TRAIN_TILE),
+                                          dtype=np.float32) * 0.3
+    reset_counts()
+    got = Px2PxTask(cfg, device="cuda", seed=SEED).predict_step(rgb)
+    on_card = counts()
+    ref = Px2PxTask(cfg, device="cpu", seed=SEED).predict_step(rgb)
+    err = float(np.abs(got - ref).max())
+    log("unet", f"predict_step f32 {rgb.shape}, card vs CPU: max|err| {err:.3e} "
+        f"(bound 1e-03), launches {on_card}")
+    if got.shape != (2, 1, TRAIN_TILE, TRAIN_TILE) or not err <= 1e-3 \
+            or on_card != UNET_FORWARD:
+        raise AssertionError(f"unet predict_step card vs CPU: {got.shape}, {err}, "
+                             f"{on_card}")
+
+    # --- one fused step at batch 16 of 256^2, kernels vs plain route
+    cfg = unet_config()
+    batch = first_batch(cfg)
+    if batch["rgb"].shape != (TRAIN_BATCH, 3, TRAIN_TILE, TRAIN_TILE):
+        raise AssertionError(f"unet train batch {batch['rgb'].shape}")
+    task = Px2PxTask(cfg, device="cuda", seed=SEED)
+    plain = Px2PxTask(cfg, device="cuda", seed=SEED)
+    state, plain_state = task.init_state(), plain.init_state()
+    ex = task.extract_batch(batch)
+    reset_counts()
+    got = loss_terms(task.train_step(state, ex))
+    torch.cuda.synchronize()
+    per_step = counts()
+    no_library("unet step")
+    log("unet", f"launches per step {per_step} (want {UNET_STEP})")
+    if per_step != UNET_STEP:
+        raise AssertionError(f"unet step launches {per_step} != {UNET_STEP}")
+    check_gradients(task)
+    check_repeat("unet", cfg, ex, got, grads_and_stats(task))
+    with plain_route():
+        ref = loss_terms(plain.train_step(plain_state, ex))
+    check_terms("unet_256: bf16 step 1, kernels vs plain route", got, ref, 2e-2, 1e-3)
+
+    def plain_step():
+        with plain_route():
+            plain.train_step(plain_state, ex)
+
+    ms, plain_ms = compare_ms(lambda: task.train_step(state, ex), plain_step, iters=5)
+    log("unet", f"bf16 fused step, batch {TRAIN_BATCH} at {TRAIN_TILE}^2: kernels "
+        f"{ms:.3f} ms ({TRAIN_BATCH / ms * 1e3:.2f} images/s), plain {plain_ms:.3f} ms")
+    return {"per_forward": per_forward, "per_step": per_step}
+
+
+def phase_pix2pix() -> None:
+    """Upstream pix2pix's defaults on the repo's batch: ``unet_256`` with
+    batch norm, ``no_dropout: false`` (the U-Net of the JAX package, which
+    the port keeps, has no layer that drops out), the vanilla GAN loss, the
+    basic D, lambda_L1 100, batch 16 of 256^2, bf16.  Two steps: terms
+    finite, every gradient, the running statistics moved (G's once a step,
+    D's three times) and finite; step 1 again from the same seed bit for
+    bit; the serving forward in eval mode twice bit for bit.  No kernel of
+    the port's is on this path (batch norm and the k4 convs are PyTorch's)."""
+    from nirgan_tpu_torch.tasks import Px2PxTask
+
+    cfg = unet_config(norm="batch", no_dropout=False, gan_mode="vanilla")
+    bc = cfg.base_configs
+    if (bc.netD, float(bc.lambda_L1)) != ("basic", 100.0):
+        raise AssertionError(f"pix2pix config: {bc.netD}, {bc.lambda_L1}")
+    batch = first_batch(cfg)
+    task = Px2PxTask(cfg, device="cuda", seed=SEED)
+    state = task.init_state()
+    ex = task.extract_batch(batch)
+    start = buffers_of(task)
+    reset_counts()
+    got = loss_terms(task.train_step(state, ex))
+    first = grads_and_stats(task)
+    second = loss_terms(task.train_step(state, ex))
+    torch.cuda.synchronize()
+    launched = counts()
+    check_gradients(task)
+    now = buffers_of(task)
+    moved = [k for k in start if "running" in k and not torch.equal(start[k], now[k])]
+    finite = all(bool(torch.isfinite(v).all()) for v in now.values())
+    tracked = (int(task.netG.unet.sub.downnorm.num_batches_tracked),
+               int(task.netD.norm1.num_batches_tracked))
+    n_running = sum(1 for k in start if "running" in k)
+    log("pix2pix", f"two steps: terms {got} then {second}; {len(moved)} of "
+        f"{n_running} running statistics moved, all finite: {finite}; "
+        f"num_batches_tracked G {tracked[0]}, D {tracked[1]}; kernel calls {launched}")
+    if (len(moved) != n_running or not finite or tracked != (2, 6)
+            or not all(math.isfinite(v) for v in {**got, **second}.values())
+            or any(launched.values())):
+        raise AssertionError(f"pix2pix steps: {moved}, {finite}, {tracked}, {launched}")
+    check_repeat("pix2pix", cfg, ex, got, first)
+    rgb = np.random.default_rng(4).random((BATCH, 3, TRAIN_TILE, TRAIN_TILE),
+                                          dtype=np.float32) * 0.3
+    a, b = task.predict_step(rgb), task.predict_step(rgb)
+    log("pix2pix", f"serving forward in eval mode {rgb.shape}: finite "
+        f"{bool(np.isfinite(a).all())}, twice bit for bit {np.array_equal(a, b)}, "
+        f"G in training mode after it: {task.netG.training}")
+    if not (np.isfinite(a).all() and np.array_equal(a, b) and not task.netG.training):
+        raise AssertionError("pix2pix serving forward")
+    ms = time_ms(lambda: task.train_step(state, ex), iters=5)
+    log("pix2pix", f"bf16 fused step, batch {TRAIN_BATCH} at {TRAIN_TILE}^2: "
+        f"{ms:.3f} ms ({TRAIN_BATCH / ms * 1e3:.2f} images/s)")
+
+
+def padded_generator(padding: str):
+    """A maker of the full-width resnet_9blocks generator with the trunk's
+    ``padding`` (replicate or zero), bf16, holding a task's own weights."""
+    from nirgan_tpu_torch.models import ResnetGenerator
+
+    def make(task):
+        G = ResnetGenerator(3, 1, 64, n_blocks=9, padding_type=padding,
+                            compute_dtype=torch.bfloat16, device=task.device)
+        G.load_state_dict(task.netG.state_dict(), strict=True)
+        return G.eval()
+    return make
+
+
+def phase_variants() -> dict:
+    """resnet_9blocks with dropout: one step (launches, gradients, the
+    plain route, bit for bit from the same seed and dropout generator).
+    The replicate and zero trunks (kernel A's ``pad=0`` mode after the pad):
+    one serving forward of 4 x 532^2 and one step each, kernel A's calls
+    counted, against the plain route, the step bit for bit (the replicate
+    pad's fixed-order adjoint).  ``netD: pixel``: one step.
+    ``gradient_penalty`` through a batch-norm D in f32 on the card against
+    the CPU, all three ``gp_type``s; through kernel B its backward raises.
+    Returns kernel A's calls on the padded trunks."""
+    from nirgan_tpu_torch.config import load_config
+    from nirgan_tpu_torch.losses import gan
+    from nirgan_tpu_torch.models import define_D
+    from nirgan_tpu_torch.tasks import Px2PxTask
+
+    dev = torch.device("cuda")
+
+    def step_checked(what, cfg, want, netg=None):
+        task = Px2PxTask(cfg, device="cuda", seed=SEED)
+        plain = Px2PxTask(cfg, device="cuda", seed=SEED)
+        if netg is not None:
+            task.netG, plain.netG = netg(task), netg(plain)
+        ex = task.extract_batch(first_batch(cfg))
+        reset_counts()
+        got = loss_terms(task.train_step(task.init_state(), ex))
+        torch.cuda.synchronize()
+        per_step = counts()
+        no_library(what)
+        log("variants", f"{what}: launches per step {per_step} (want {want})")
+        if per_step != want:
+            raise AssertionError(f"{what}: launches {per_step} != {want}")
+        check_gradients(task)
+        check_repeat(what, cfg, ex, got, grads_and_stats(task), netg)
+        with plain_route():
+            ref = loss_terms(plain.train_step(plain.init_state(), ex))
+        check_terms(f"{what}: bf16 step 1, kernels vs plain route", got, ref, 2e-2, 1e-3)
+        return per_step
+
+    cfg = load_config(CONFIG)
+    cfg.base_configs.no_dropout = False
+    step_checked("resnet_9blocks with dropout", cfg, STEP_LAUNCHES)
+
+    x = (torch.rand((BATCH, SIDE, SIDE, 3),
+                    generator=torch.Generator().manual_seed(1)) * 0.3).to(dev)
+    pad0 = {}
+    for padding in ("replicate", "zero"):
+        make = padded_generator(padding)
+        G = make(Px2PxTask(load_config(CONFIG), device="cuda", seed=SEED))
+        with torch.inference_mode():
+            reset_counts()
+            y = G(x)
+            torch.cuda.synchronize()
+            forward = counts()
+            with plain_route():
+                y_plain = G(x)
+        db = psnr(y, y_plain, 2.0)
+        log("variants", f"{padding} trunk forward {tuple(x.shape)}: launches "
+            f"{forward}, kernels vs plain route PSNR {db:.2f} dB (bound 40)")
+        if forward != EVAL_LAUNCHES or not db >= 40.0 or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{padding} trunk forward: {forward}, {db}")
+        del G, y, y_plain
+        step = step_checked(f"{padding} trunk", load_config(CONFIG), STEP_LAUNCHES, make)
+        pad0[padding] = {"per_forward": forward["trunk_conv"],
+                         "per_step": step["trunk_conv"],
+                         "launches": forward["trunk_conv"] + step["trunk_conv"]}
+
+    cfg = load_config(CONFIG)
+    cfg.base_configs.netD = "pixel"
+    # the pixel D's one norm a forward: D's three forwards, its backward in
+    # the D loss (two) and in the G loss (one)
+    want = {**STEP_LAUNCHES, "instance_norm": 26, "instance_norm_bwd": 26}
+    step_checked("netD pixel", cfg, want)
+
+    # gradient_penalty: f32 (TF32 off), the same weights and alpha on both
+    g = torch.Generator().manual_seed(SEED)
+    real, fake = (torch.rand((2, TRAIN_TILE, TRAIN_TILE, 4), generator=g)
+                  for _ in range(2))
+    alpha = torch.rand((2, 1, 1, 1), generator=g)
+    nets = {d: define_D(4, 64, "basic", norm="batch",
+                        generator=torch.Generator().manual_seed(SEED)).to(d)
+            for d in ("cuda", "cpu")}
+    with mock.patch.object(gan, "interpolation_weights",
+                            lambda n, ndim, generator, device: alpha.to(device)):
+        for gp_type in ("mixed", "real", "fake"):
+            vals = {}
+            for d, net in nets.items():
+                net.zero_grad(set_to_none=True)
+                p = gan.gradient_penalty(net, real.to(d), fake.to(d), gp_type)
+                p.backward()
+                vals[d] = (float(p.detach()), {k: q.grad.detach().cpu() for k, q in
+                                      net.named_parameters() if q.grad is not None})
+            err = abs(vals["cuda"][0] - vals["cpu"][0]) / abs(vals["cpu"][0])
+            gerr = max(float((vals["cuda"][1][k] - v).abs().max())
+                       / max(float(v.abs().max()), 1e-30)
+                       for k, v in vals["cpu"][1].items())
+            log("variants", f"gradient_penalty {gp_type} through a batch-norm D, card "
+                f"vs CPU: {vals['cuda'][0]:.6g} vs {vals['cpu'][0]:.6g}, relative "
+                f"{err:.2e} (bound 1e-4); D's gradients relative {gerr:.2e} "
+                "(bound 1e-3)")
+            if not (err <= 1e-4 and gerr <= 1e-3):
+                raise AssertionError(f"gradient_penalty {gp_type}: {err}, {gerr}")
+    D_in = define_D(4, 64, "basic", norm="instance").to(dev)
+    reset_counts()
+    penalty = gan.gradient_penalty(D_in, real.to(dev), fake.to(dev),
+                                   generator=torch.Generator(device=dev))
+    launched = counts()
+    try:
+        penalty.backward()
+    except RuntimeError as e:
+        log("variants", f"gradient_penalty through kernel B ({launched}): its "
+            f"backward raises: {str(e).splitlines()[0][:120]}")
+    else:
+        raise AssertionError("gradient_penalty through kernel B: a double backward "
+                             "did not raise")
+    if not launched["instance_norm"] or not launched["instance_norm_bwd"]:
+        raise AssertionError(f"gradient_penalty did not go through B and B4: {launched}")
+    return pad0
+
+
+def phase_baselines(tmp: str) -> None:
+    """``python -m nirgan_tpu_torch.train --baseline y --max-steps 4`` (its
+    ``main``: ``config_baselines.yaml``, Linear_NIR, batch 32 of 256^2, bf16,
+    on the card); then each of Linear_NIR, MLP_NIR and CNN_NIR: one step on
+    the config's first batch and one forward of 4 tiles, finite, timed."""
+    from nirgan_tpu_torch.config import load_config
+    from nirgan_tpu_torch.tasks import BaselineTask
+    from nirgan_tpu_torch.train import cli
+
+    run = os.path.join(tmp, "run_baseline")
+    reset_counts()
+    t0 = time.perf_counter()
+    final = cli.main(["--baseline", "y", "--max-steps", "4", "--logdir", run,
+                      "--log-every", "1"])
+    dt = time.perf_counter() - t0
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    train = [r for r in rows if "train/loss" in r]
+    val = [r for r in rows if "val/L1" in r]
+    log("baselines", f"CLI --baseline y: {final.step} steps in {dt:.2f} s (set-up "
+        f"included); train/loss {[round(r['train/loss'], 5) for r in train]}; val "
+        f"rows at {[r['step'] for r in val]}; kernel calls {counts()}")
+    if (final.step != 4 or len(train) != 4 or not val
+            or not all(math.isfinite(r["train/loss"]) for r in train)
+            or not os.path.isfile(os.path.join(run, "last.pt"))):
+        raise AssertionError(f"baseline CLI: {final.step}, {len(train)}, {len(val)}")
+    for name in BASELINE_MODELS:
+        cfg = load_config(BASELINE_CONFIG)
+        cfg.base_configs.model_name = name
+        task = BaselineTask(cfg, device="cuda", seed=SEED)
+        state = task.init_state()
+        batch = first_batch(cfg)
+        ex = task.extract_batch(batch)
+        m = {k: float(v) for k, v in task.train_step(state, ex).items()}
+        out = task.predict_step(batch["rgb"][:BATCH])
+        ms = time_ms(lambda: task.train_step(state, ex), iters=5)
+        log("baselines", f"{name}: step on {batch['rgb'].shape}: train/loss "
+            f"{m['train/loss']:.5f}, {ms:.3f} ms a step; forward {out.shape} finite "
+            f"{bool(np.isfinite(out).all())}")
+        if (not all(math.isfinite(v) for v in m.values())
+                or out.shape != (BATCH, 1, TRAIN_TILE, TRAIN_TILE)
+                or not np.isfinite(out).all()):
+            raise AssertionError(f"baseline {name}: {m}, {out.shape}")
+
+
 # kernel-name fragments -> the rows of the profile's breakdown, first match
 PROFILE_GROUPS = (
-    ("igemm_wgmma_kernel<256>", "wgmma implicit GEMM, N = 256 (kernel A; B5 dx at u0)"),
-    ("igemm_wgmma_kernel<128>", "wgmma implicit GEMM, N = 128 (B5 dx at u1)"),
+    ("igemm_wgmma_kernel<256", "wgmma implicit GEMM, N = 256 (kernel A; B5 dx at u0)"),
+    ("igemm_wgmma_kernel<128", "wgmma implicit GEMM, N = 128 (B5 dx at u1)"),
     ("trunk_conv_", "kernel A, WMMA / SIMT"),
     ("convt_dw_", "B5 dW and its reduce"),
     ("convt_dx_", "B5 dx, WMMA / SIMT"),
@@ -2269,6 +2824,7 @@ PROFILE_GROUPS = (
     ("head_conv_kernel", "C head, f32 FMA"),
     ("reflection_pad", "reflect pad"),
     ("multi_tensor_apply", "Adam"),
+    ("CatArrayBatchedCopy", "concatenations (D's inputs, U-Net skips)"),
     ("cudnn", "cuDNN convs"), ("xmma", "cuDNN convs"), ("cutlass", "cuDNN convs"),
     ("convolve", "cuDNN convs"), ("wgrad", "cuDNN convs"), ("dgrad", "cuDNN convs"),
     ("nchwToNhwc", "cuDNN layout"), ("nhwcToNchw", "cuDNN layout"),
@@ -2319,9 +2875,10 @@ def phase_profile() -> None:
     """Where the time goes (``python3 chip_smoke.py --profile``): the
     serving forward (bf16, and with the int8 trunk calibrated on its batch)
     and the fused train step of the full-width configs under
-    ``torch.profiler``, the plain route (``config_px2px.yaml``) and the
-    SatCLIP inject route (``config_px2px_SatCLIP.yaml``), on the kernels and
-    on the plain versions; and the head's backward, which is PyTorch's
+    ``torch.profiler``, the plain route (``config_px2px.yaml``), the SatCLIP
+    inject route (``config_px2px_SatCLIP.yaml``), the ``unet_256`` forward
+    and step and the pix2pix (batch-norm U-Net) step, on the kernels and on
+    the plain versions; and the head's backward, which is PyTorch's
     convolution gradients, timed on its own."""
     from nirgan_tpu_torch.config import load_config
     from nirgan_tpu_torch.models import define_G, define_G_inject
@@ -2370,12 +2927,31 @@ def phase_profile() -> None:
         ex = task.extract_batch(first_batch(cfg))
         return lambda: task.train_step(state, ex)
 
+    def unet_stepper(**overrides):
+        cfg = unet_config(**overrides)
+        task = Px2PxTask(cfg, device="cuda", seed=SEED)
+        state = task.init_state()
+        ex = task.extract_batch(first_batch(cfg))
+        return lambda: task.train_step(state, ex)
+
+    G_unet = define_G(3, 1, 64, "unet_256", "instance", compute_dtype=torch.bfloat16,
+                      generator=seeded).to(dev).eval()
+    x_unet = x[:, :UNET_TILE, :UNET_TILE].contiguous()
+
+    def forward_unet():
+        with torch.inference_mode():
+            G_unet(x_unet)
+
     step, step_inject = stepper(CONFIG), stepper(SATCLIP_CONFIG)
     runs = (("serving forward", forward, 10),
             ("serving forward, int8 trunk", forward_int8, 10),
             ("train step, batch 16", step, 5),
             ("serving forward, inject", forward_inject, 10),
-            ("train step, inject, batch 8", step_inject, 5))
+            ("train step, inject, batch 8", step_inject, 5),
+            ("unet_256 serving forward, 4 x 512^2", forward_unet, 10),
+            ("unet_256 train step, batch 16", unet_stepper(), 5),
+            ("pix2pix (unet_256, batch norm) train step, batch 16",
+             unet_stepper(norm="batch", no_dropout=False, gan_mode="vanilla"), 5))
     # all event timings first: once the profiler has attached, every
     # launch costs the host more, and the step is close to host-bound
     for what, fn, iters in runs:
@@ -2560,6 +3136,11 @@ def main() -> None:
     phase_aux_step()
     phase_ngf16()
     phase_concat()
+    unet = phase_unet()
+    phase_pix2pix()
+    pad0 = phase_variants()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase_baselines(tmp)
     phase_norm_launches()
     phase_host_waits()
     if min(launches.values()) == 0 or min(sat_launches.values()) == 0:
@@ -2580,12 +3161,20 @@ def main() -> None:
             kernel["satclip"]["serving_launches"] = sat_serving[name]
             kernel["satclip"]["per_forward"] = sat_forward[name]
         entries.append(kernel)
-    # A's VALID mode (conv3x3_pallas): the models use the reflect mode only
-    pad0 = RESULTS["trunk_conv"]
-    entries.append({**pad0["pad0"], "name": "trunk_conv_pad0", "route": "cuda",
-                    "source": pad0["source"], "max_abs_err": pad0["max_abs_err"],
-                    "launches": 0, "per_step": 0,
-                    "serving": pad0["pad0_serving"]})
+        if name in ("instance_norm", "instance_norm_bwd"):
+            # the unet_256 forward (4 x 512^2) and step (batch 16 of 256^2)
+            kernel["unet"] = {"launches": unet["per_step"][name],
+                              "per_forward": unet["per_forward"][name],
+                              "per_step": unet["per_step"][name]}
+    # A's VALID mode (conv3x3_pallas): the replicate and zero trunks, a
+    # serving forward and a step each
+    a = RESULTS["trunk_conv"]
+    entries.append({**a["pad0"], "name": "trunk_conv_pad0", "route": "cuda",
+                    "source": a["source"], "max_abs_err": a["max_abs_err"],
+                    "launches": sum(v["launches"] for v in pad0.values()),
+                    "per_step": pad0["zero"]["per_step"],
+                    "per_forward": pad0["zero"]["per_forward"], "trunks": pad0,
+                    "serving": a["pad0_serving"]})
     # D and E: launches in the int8 serving CLI's run (two batches of 4)
     for name in INT8_FORWARD:
         kernel = {**RESULTS[name], "launches": int8_serving[name],

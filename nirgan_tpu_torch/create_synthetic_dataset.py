@@ -59,6 +59,12 @@ def main(argv=None) -> int:
     from nirgan_tpu_torch.weights import load_reference_ckpt
 
     config = load_config(args.config)
+    if "model_name" in config.base_configs:
+        # the JAX CLI builds the GAN task alone, which a baseline config
+        # cannot make
+        raise ValueError(f"{args.config}: a baseline config; the bulk synthesis "
+                         "serves the GAN generator (baselines serve through "
+                         "BaselineTask.predict_step)")
     if args.quant is not None:
         # reference-schema configs have no tpu: section: create it
         config["tpu"] = config.get("tpu") or {}

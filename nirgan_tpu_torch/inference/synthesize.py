@@ -58,6 +58,7 @@ def serve_batch(task, hr: torch.Tensor, s2: torch.Tensor,
     ``task.embed_coords`` made of them] -> (B, H, W, 1) fp16."""
     h, w = hr.shape[1], hr.shape[2]
     size = task.bucket_for(h, w)
+    task.check_unet_side(size)
     cond = {"rgb": hr}
     if task.satclip:
         if coords is None and embeds is None:

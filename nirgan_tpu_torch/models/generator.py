@@ -22,6 +22,13 @@ int8 pack (``forward(..., trunk_q=)``, serving only) the residual blocks run
 as ``ops/int8_trunk.int8_trunk_forward``, on kernels D and E.  The TPU
 layout variants of the JAX module (blocked stem, pad folds) compute the same
 function and are not carried over.
+
+The trunk's ``padding_type`` other than reflect (replicate, zero) pads
+first (``ops/pad.py``; the replicate pad's adjoint adds in a fixed order)
+and runs kernel A in its VALID mode (``pad=0``, the port of
+``conv3x3_pallas``).  With ``use_dropout`` each block drops out after its
+first norm's ReLU (which stays fused in kernel B).  ``norm_type`` "batch"
+and "none" run those norms on PyTorch's ops (``models/layers.Norm``).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 from torch import nn
 
 from nirgan_tpu_torch.models.layers import (
+    Dropout,
     Norm,
     TorchConv,
     TorchConvTranspose,
@@ -41,40 +49,43 @@ from nirgan_tpu_torch.models.layers import (
 from nirgan_tpu_torch.ops.head_conv import head_conv
 from nirgan_tpu_torch.ops.initializers import Init, normal
 from nirgan_tpu_torch.ops.int8_trunk import int8_trunk_forward
-from nirgan_tpu_torch.ops.pad import reflect_pad2d
+from nirgan_tpu_torch.ops.pad import reflect_pad2d, replicate_pad2d, zero_pad2d
 from nirgan_tpu_torch.ops.resize import resize_bilinear
 from nirgan_tpu_torch.ops.trunk_conv import trunk_conv
 
 
-def _check_supported(padding_type: str, use_dropout: bool) -> None:
-    if padding_type != "reflect":
-        raise NotImplementedError(
-            f"padding [{padding_type}] is not ported yet (reflect only)")
-    if use_dropout:
-        raise NotImplementedError("generator dropout is not ported yet")
-
-
 class ResnetBlock(nn.Module):
-    """pad -> conv3 -> norm -> relu -> pad -> conv3 -> norm, plus identity
-    skip (reference ``model/networks.py:377-434``); each pad + conv is one
-    call of kernel A, and the skip is added inside the second norm's
-    kernel."""
+    """pad -> conv3 -> norm -> relu (-> dropout) -> pad -> conv3 -> norm,
+    plus identity skip (reference ``model/networks.py:377-434``).  With
+    reflect padding each pad + conv is one call of kernel A; with replicate
+    or zero padding the pad comes first and kernel A runs VALID.  The skip
+    is added inside the second norm's kernel."""
 
     def __init__(self, dim: int, padding_type: str = "reflect",
                  norm_type: str = "instance", use_dropout: bool = False,
                  use_bias: bool = True, device: Optional[torch.device] = None):
         super().__init__()
-        _check_supported(padding_type, use_dropout)
+        if padding_type not in ("reflect", "replicate", "zero"):
+            raise NotImplementedError(
+                f"padding [{padding_type}] is not implemented")
+        self.padding_type = padding_type
         self.conv1 = TorchConv(dim, dim, 3, use_bias=use_bias, device=device)
-        self.norm1 = Norm(norm_type)
+        self.norm1 = Norm(norm_type, dim, device)
+        self.dropout = Dropout(0.5) if use_dropout else None
         self.conv2 = TorchConv(dim, dim, 3, use_bias=use_bias, device=device)
-        self.norm2 = Norm(norm_type)
+        self.norm2 = Norm(norm_type, dim, device)
+
+    def _conv(self, x: torch.Tensor, conv: TorchConv) -> torch.Tensor:
+        if self.padding_type == "reflect":
+            return trunk_conv(x, conv.weight, conv.bias)
+        pad = replicate_pad2d if self.padding_type == "replicate" else zero_pad2d
+        return trunk_conv(pad(x, 1), conv.weight, conv.bias, pad=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = trunk_conv(x, self.conv1.weight, self.conv1.bias)
-        h = self.norm1(h, relu=True)
-        h = trunk_conv(h, self.conv2.weight, self.conv2.bias)
-        return self.norm2(h, residual=x)
+        h = self.norm1(self._conv(x, self.conv1), relu=True)
+        if self.dropout is not None:
+            h = self.dropout(h)
+        return self.norm2(self._conv(h, self.conv2), residual=x)
 
 
 class ResnetGenerator(nn.Module):
@@ -103,7 +114,6 @@ class ResnetGenerator(nn.Module):
         super().__init__()
         if n_blocks < 0:
             raise ValueError("n_blocks must be >= 0")
-        _check_supported(padding_type, use_dropout)
         if inject and inject_style not in ("add", "multiply"):
             raise NotImplementedError(
                 f"inject style [{inject_style}] is not implemented")
@@ -114,21 +124,22 @@ class ResnetGenerator(nn.Module):
         self.compute_dtype = dtype_of(compute_dtype)
         self.n_blocks = n_blocks
         self.norm_type = norm_type
+        self.padding_type = padding_type
         bias = use_bias_for(norm_type)
         kw = dict(use_bias=bias, device=device)
         self.c0 = TorchConv(input_nc, ngf, 7, **kw)
-        self.n0 = Norm(norm_type)
+        self.n0 = Norm(norm_type, ngf, device)
         self.d0 = TorchConv(ngf, ngf * 2, 3, stride=2, padding=1, **kw)
-        self.nd0 = Norm(norm_type)
+        self.nd0 = Norm(norm_type, ngf * 2, device)
         self.d1 = TorchConv(ngf * 2, ngf * 4, 3, stride=2, padding=1, **kw)
-        self.nd1 = Norm(norm_type)
+        self.nd1 = Norm(norm_type, ngf * 4, device)
         for i in range(n_blocks):
             self.add_module(f"r{i}", ResnetBlock(
                 ngf * 4, padding_type, norm_type, use_dropout, bias, device))
         self.u0 = TorchConvTranspose(ngf * 4, ngf * 2, **kw)
-        self.nu0 = Norm(norm_type)
+        self.nu0 = Norm(norm_type, ngf * 2, device)
         self.u1 = TorchConvTranspose(ngf * 2, ngf, **kw)
-        self.nu1 = Norm(norm_type)
+        self.nu1 = Norm(norm_type, ngf, device)
         # head bias is always on (networks.py:367)
         self.c1 = TorchConv(ngf, output_nc, 7, use_bias=True, device=device)
         self.scale_param = self.post_correction_param = None
@@ -143,13 +154,16 @@ class ResnetGenerator(nn.Module):
                     (), float(post_correction_init), device=device))
 
     def reset_parameters(self, generator: torch.Generator, init: Init) -> None:
-        """Draw every conv weight from ``init`` (biases zero), in a fixed
-        module order; then ``fc`` from N(0, 0.02) with a zero bias, as the
-        JAX module's dense layer, so the convs of the plain and the inject
-        generator are the same from one seed."""
+        """Draw every conv weight from ``init`` (biases zero) and every batch
+        norm's scale from N(1, 0.02), in a fixed module order; then ``fc``
+        from N(0, 0.02) with a zero bias, as the JAX module's dense layer,
+        so the convs of the plain and the inject generator are the same from
+        one seed."""
         for m in self.modules():
             if isinstance(m, (TorchConv, TorchConvTranspose)):
                 m.reset_parameters(init, generator)
+            elif isinstance(m, Norm):
+                m.reset_parameters(generator)
         if self.inject:
             normal(0.02)(self.fc.weight, generator)
             with torch.no_grad():
@@ -191,6 +205,11 @@ class ResnetGenerator(nn.Module):
                                     or self.norm_type != "instance"):
             raise ValueError("int8 trunk is a serving-only path and requires "
                              "affine-free InstanceNorm (norm_type='instance')")
+        if trunk_q is not None and self.padding_type != "reflect":
+            # kernel D gathers the reflect border inside the kernel
+            raise NotImplementedError(
+                f"the int8 trunk with padding [{self.padding_type}] is not "
+                "ported (reflect only; ROADMAP A8)")
         h = x.to(self.compute_dtype)
         h = self.n0(self.c0(reflect_pad2d(h, 3)), relu=True)
         if self.inject:

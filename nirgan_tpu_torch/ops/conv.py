@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from nirgan_tpu_torch.ops import _lib
 from nirgan_tpu_torch.ops import convt_bwd as _convt_bwd
@@ -53,6 +54,7 @@ class ConvTransposeK3S2(torch.autograd.Function):
                                         padding=1, output_padding=1))
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
         bwd = (_convt_bwd.convt_k3s2_bwd_cuda

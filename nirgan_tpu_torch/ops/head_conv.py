@@ -28,6 +28,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from nirgan_tpu_torch.ops import _lib
 from nirgan_tpu_torch.ops._pack import head_toeplitz, laid_out, mma_b_fragments
@@ -195,6 +196,7 @@ class HeadConv(torch.autograd.Function):
         return y
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
         x_padded, weight, y = ctx.saved_tensors
         return head_conv_bwd(x_padded, weight, y, g, ctx.needs_input_grad)

@@ -28,6 +28,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from nirgan_tpu_torch.ops import _lib
 
@@ -301,6 +302,7 @@ class InstanceNorm(torch.autograd.Function):
         return y
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g: torch.Tensor):
         x, stats = ctx.saved_tensors
         g = g.contiguous()

@@ -40,6 +40,58 @@ def reflect_pad2d_adjoint(g: torch.Tensor, pad: int) -> torch.Tensor:
     return out
 
 
+def replicate_pad2d_adjoint(g: torch.Tensor, pad: int) -> torch.Tensor:
+    """The adjoint of ``replicate_pad2d`` on an NHWC cotangent of the padded
+    shape: the top and bottom pad rows added onto the first and last rows,
+    then the left and right pad columns onto the first and last columns,
+    each in a fixed order.  torch's ``replication_pad2d_backward`` adds with
+    atomics on a card, so its result changes from run to run; this one does
+    not."""
+    if pad == 0:
+        return g
+    p = pad
+    h, w = g.shape[1] - 2 * p, g.shape[2] - 2 * p
+    rows = g[:, p:p + h].clone()
+    for r in range(p):
+        rows[:, 0] += g[:, r]
+    for r in range(p):
+        rows[:, h - 1] += g[:, p + h + r]
+    out = rows[:, :, p:p + w].clone()
+    for c in range(p):
+        out[:, :, 0] += rows[:, :, c]
+    for c in range(p):
+        out[:, :, w - 1] += rows[:, :, p + w + c]
+    return out
+
+
+class ReplicatePad2d(torch.autograd.Function):
+    """Edge padding (``jnp.pad`` mode "edge", torch ``nn.ReplicationPad2d``)
+    of NHWC x, whose backward is ``replicate_pad2d_adjoint``."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, pad: int) -> torch.Tensor:
+        ctx.pad = pad
+        y = F.pad(x.permute(0, 3, 1, 2), (pad, pad, pad, pad), mode="replicate")
+        return y.permute(0, 2, 3, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return replicate_pad2d_adjoint(g, ctx.pad), None
+
+
+def replicate_pad2d(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Replicate (edge) padding of an NHWC tensor; a contiguous result whose
+    gradient adds in a fixed order."""
+    return x if pad == 0 else ReplicatePad2d.apply(x, pad)
+
+
+def zero_pad2d(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero padding of an NHWC tensor (its gradient is a slice)."""
+    if pad == 0:
+        return x
+    return F.pad(x, (0, 0, pad, pad, pad, pad)).contiguous()
+
+
 def _reflect_index(n: int, size: int, device) -> torch.Tensor:
     """Source index of each of ``size`` positions when a side of ``n`` is
     reflect-padded at its end: a triangle wave of period 2(n - 1), which is

@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from nirgan_tpu_torch.ops import _lib
 from nirgan_tpu_torch.ops._pack import laid_out, pack_b128, taps_first
@@ -194,6 +195,7 @@ class TrunkConv(torch.autograd.Function):
         return fwd(x, weight, bias, pad)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
         dx, dw, db = trunk_conv_bwd(x, weight, g.contiguous(), ctx.pad,

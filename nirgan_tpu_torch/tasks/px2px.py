@@ -31,6 +31,16 @@ detached prediction (fake, then real), then the generator loss through the
 The three auxiliary terms join only where their lambda is > 0, each under
 its ``model_loss/*`` key, as ``g_loss_on_pred`` adds them
 (``nirgan_tpu/tasks/px2px.py:312-326``).
+
+Batch-norm nets (``norm: batch``) and dropout (``no_dropout: false``) train
+as the JAX step runs them: the generator's one forward in training mode
+updates its running statistics once and draws its dropout from the train
+state's generator; the discriminator runs in training mode all three
+times, so its statistics move three times in JAX's order (fake, real, then
+the G loss's fake through the updated D).  Everything that serves
+(``eval_step``, ``predict_step``, ``g_apply`` by default, and with it the
+bulk and the scene serving) runs the generator in eval mode: the running
+averages normalise, the dropout is off.
 """
 
 from __future__ import annotations
@@ -53,11 +63,11 @@ from nirgan_tpu_torch.losses import (
     ssim_loss,
 )
 from nirgan_tpu_torch.models import define_D, define_G, define_G_inject
-from nirgan_tpu_torch.models.layers import dtype_of
+from nirgan_tpu_torch.models.layers import dtype_of, set_dropout_generator
 from nirgan_tpu_torch.ops.int8_trunk import CALIB_ROWS, calibrate_trunk, quantize_trunk
 from nirgan_tpu_torch.ops.pad import reflect_pad2d, reflect_pad_to
 from nirgan_tpu_torch.ops.resize import resize_bicubic
-from nirgan_tpu_torch.train.state import TrainState, adam_for
+from nirgan_tpu_torch.train.state import TrainState, adam_for, check_param_dtype
 
 __all__ = ["Px2PxTask"]
 
@@ -73,6 +83,12 @@ LOSS_KEYS = (
     "model_loss/generator_total_loss",
 )
 METRIC_KEYS = ("train/L1", "train/L2", "train/PSNR", "train/SSIM")
+
+
+def _set_mode(module: torch.nn.Module, train: bool) -> None:
+    """Training or eval mode, switched only where it changes."""
+    if module.training != train:
+        module.train(train)
 
 
 def _requires_grad(module: torch.nn.Module, flag: bool) -> None:
@@ -93,6 +109,7 @@ class Px2PxTask:
         # pinned buffers and a copy stream of their own
         self.stager = DeviceStager(self.device)
         tpu = tpu_section(config)
+        check_param_dtype(tpu)
         self.compute_dtype = dtype_of(tpu.compute_dtype)
         self.dn_scale = float(config.Data.get("dn_scale", 10000.0))
         self.shape_buckets = sorted(int(b) for b in tpu.shape_buckets)
@@ -137,6 +154,9 @@ class Px2PxTask:
         # legacy Pix2PixModel halves the D loss; the PL port does not
         self.legacy_halve_d_loss = bool(self.opt.get("legacy_halve_d_loss", False))
 
+        # batch-norm nets carry running statistics; dropout needs a random
+        # stream (the train state's generator)
+        self.has_bn = self.opt.get("norm", "instance") == "batch"
         self.uses_dropout = not self.opt.get("no_dropout", True)
         if self.serving_quant == "int8" and not self.wants_int8_serving():
             warnings.warn(
@@ -176,10 +196,17 @@ class Px2PxTask:
 
     # ------------------------------------------------------------- applies
     def g_apply(self, rgb: torch.Tensor, embeds: Optional[torch.Tensor] = None,
-                trunk_q: Optional[dict] = None) -> torch.Tensor:
+                trunk_q: Optional[dict] = None, train: bool = False,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """Reflect-pad -> generator -> crop on NHWC reflectance (reference
         forward, ``model/pix2pix.py:88-110``); ``embeds`` (B, E) feed the
-        inject route only; ``trunk_q`` runs the trunk in int8 (serving)."""
+        inject route only; ``trunk_q`` runs the trunk in int8 (serving).
+        ``train`` runs the generator in training mode (its batch norms
+        update their running statistics, its dropout draws from ``rng``);
+        else in eval mode."""
+        _set_mode(self.netG, train)
+        if train:
+            set_dropout_generator(self.netG, rng)
         p = self.pad_amount
         x = reflect_pad2d(rgb, p) if self.use_padding else rgb
         pred = self.netG(x, embeds if self.inject else None, trunk_q=trunk_q)
@@ -277,10 +304,11 @@ class Px2PxTask:
         return torch.cat([rgb, plane.to(rgb.dtype)], dim=-1)
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
-        """Adam for G and for D at ``base_configs.lr``, step 0.  A ``seed``
-        other than the one the task was built with draws both networks
-        anew from it, in place (the JAX task's ``init_state(seed)`` makes
-        its params from the seed)."""
+        """Adam for G and for D at ``base_configs.lr``, step 0, and the
+        dropout's generator on the task's device, seeded with the task's
+        seed.  A ``seed`` other than the one the task was built with draws
+        both networks anew from it, in place (the JAX task's
+        ``init_state(seed)`` makes its params from the seed)."""
         if seed is not None and int(seed) != self.seed:
             netG, netD = self._networks(int(seed))
             with torch.no_grad():
@@ -288,8 +316,9 @@ class Px2PxTask:
                 self.netD.load_state_dict(netD.state_dict())
             self.seed, self._trunk_q = int(seed), None
         lr, beta1 = float(self.opt.lr), float(self.opt.beta1)
+        rng = torch.Generator(device=self.device).manual_seed(self.seed)
         return TrainState(step=0, opt_g=adam_for(self.netG, lr, beta1),
-                          opt_d=adam_for(self.netD, lr, beta1))
+                          opt_d=adam_for(self.netD, lr, beta1), rng=rng)
 
     def train_step(self, state: TrainState, batch: Mapping) -> dict:
         """One fused GAN step on an ``extract_batch`` batch; updates the
@@ -302,8 +331,10 @@ class Px2PxTask:
         nir = self._dn_to_reflectance(batch["nir"], torch.float32)
 
         # --- one generator forward, its graph kept for the G update
-        pred = self.g_apply(rgb, batch.get("embeds"))
+        pred = self.g_apply(rgb, batch.get("embeds"), train=True, rng=state.rng)
         pred_sg = pred.detach()
+        # D in training mode for all three of its forwards
+        _set_mode(self.netD, True)
 
         # --- discriminator update (optimizer_idx 0; pix2pix.py:195-212)
         logits_fake = self.netD(torch.cat([rgb, pred_sg], dim=-1))
@@ -444,17 +475,39 @@ class Px2PxTask:
         every batch until ``bind``."""
         rgb = np.asarray(rgb, np.float32)
         _, _, h, w = rgb.shape
+        size = self.bucket_for(h, w)
+        self.check_unet_side(size)
         cond = {"rgb": self._ingest(rgb)[0]}
         if self.satclip:
             if coords is None:
                 raise ValueError("SatCLIP model requires coords (B, 2) for "
                                  "prediction")
             cond.update(self.condition(cond["rgb"], coords))
-        size = self.bucket_for(h, w)
         x = reflect_pad_to(cond["rgb"], size, size).to(self.compute_dtype)
         trunk_q = self.trunk_q_for(x, cond.get("embeds"))
         pred = self.g_apply(x, cond.get("embeds"), trunk_q).float()
         return self.stager.to_host(pred[:, :h, :w, :].permute(0, 3, 1, 2)).result()
+
+    def check_unet_side(self, side: int) -> None:
+        """A U-Net's input side (the bucket plus twice the task's pad) must
+        divide by 2^num_downs; the reference's torch U-Net fails alike under
+        its reflect pad, so U-Nets serve with ``Data.padding: false``.
+        Raises ValueError otherwise."""
+        downs = getattr(self.netG, "num_downs", None)
+        eff = side + 2 * self.pad_amount
+        if downs is not None and eff % (1 << downs):
+            raise ValueError(
+                f"{self.opt.netG} needs (tile + 2 padding_amount) divisible by "
+                f"{1 << downs}, got {eff}: serve U-Nets with Data.padding: "
+                "false and a power-of-two tile")
+
+    def load_torch_weights(self, path: str) -> dict:
+        """Weights-only warm start from a reference Lightning ``.ckpt``
+        (``train.py:61-65``): {"netG": ..., "netD": ...} state_dicts of
+        whatever towers it has."""
+        from nirgan_tpu_torch.weights import load_reference_weights
+
+        return load_reference_weights(path, self.config)
 
     def bind(self, state_dict: Mapping[str, torch.Tensor]) -> "Px2PxTask":
         """Load generator weights (the port's state_dict names, as

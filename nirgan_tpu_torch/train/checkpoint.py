@@ -4,8 +4,10 @@ The reference's mechanisms (PL ``ModelCheckpoint(monitor='val/L1',
 mode='min', save_last=True, save_top_k=1)``, ``train.py:99-103``): ``last``
 after every validation and ``best`` on an improvement of the monitored
 metric, each one ``torch.save`` file of {step, G, D, both optimizer states,
-lr_g, lr_d} written under a private name and renamed, so a crash never
-leaves half a checkpoint.  ``merge_state_dict`` is the strict=False warm
+lr_g, lr_d, the dropout generator's state} written under a private name and
+renamed, so a crash never leaves half a checkpoint.  The state_dicts carry
+the batch norms' running statistics; a task without a discriminator (the
+baselines) saves no D.  ``merge_state_dict`` is the strict=False warm
 start of ``merge_params``.  The JAX package's orbax directories are not read.
 """
 
@@ -62,11 +64,15 @@ class CheckpointManager:
     def save(self, task, state, metrics: Mapping) -> bool:
         """Save ``last``, and ``best`` on an improvement of the monitored
         metric.  Returns True if this was a new best."""
-        blob = {"step": int(state.step),
-                "G": task.netG.state_dict(), "D": task.netD.state_dict(),
+        blob = {"step": int(state.step), "G": task.netG.state_dict(),
                 "opt_g": state.opt_g.state_dict(),
-                "opt_d": state.opt_d.state_dict(),
                 "lr_g": state.lr_g, "lr_d": state.lr_d}
+        if getattr(task, "netD", None) is not None:
+            blob["D"] = task.netD.state_dict()
+        if state.opt_d is not None:
+            blob["opt_d"] = state.opt_d.state_dict()
+        if state.rng is not None:
+            blob["rng"] = state.rng.get_state()
         value = metrics.get(self.monitor)
         improved = False
         if value is not None:
@@ -90,9 +96,12 @@ class CheckpointManager:
         blob = torch.load(self.path(which), map_location=task.device,
                           weights_only=True)
         task.netG.load_state_dict(blob["G"], strict=True)
-        task.netD.load_state_dict(blob["D"], strict=True)
         state.opt_g.load_state_dict(blob["opt_g"])
-        state.opt_d.load_state_dict(blob["opt_d"])
+        if "D" in blob:
+            task.netD.load_state_dict(blob["D"], strict=True)
+            state.opt_d.load_state_dict(blob["opt_d"])
+        if "rng" in blob and state.rng is not None:
+            state.rng.set_state(blob["rng"].cpu())
         state.step = int(blob["step"])
         state.set_lr(blob["lr_g"], blob["lr_d"])
         return state

@@ -3,12 +3,15 @@
 
     python -m nirgan_tpu_torch.train --satclip y      # SatCLIP-conditioned (flagship)
     python -m nirgan_tpu_torch.train --satclip n      # plain Pix2Pix cGAN
+    python -m nirgan_tpu_torch.train --baseline y     # baseline regressors
     python -m nirgan_tpu_torch.train --config configs/config_px2px.yaml \
         --max-steps 8 --device cuda [--resume RUN_DIR]
 
 Without ``--config`` the flags pick the config as the reference does
-(``train.py:32-42``; SatCLIP conditioning is the default); the baseline
-regressors are not ported yet and raise.
+(``train.py:32-42``; SatCLIP conditioning is the default,
+``configs/config_baselines.yaml`` with ``--baseline y``).  A config whose
+``base_configs`` names a ``model_name`` trains ``BaselineTask``, any other
+``Px2PxTask`` (``train.py:50-59``).
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--satclip", type=str2bool, default=True,
                    help="SatCLIP conditioning (default: True)")
     p.add_argument("--baseline", type=str2bool, default=False,
-                   help="train the baseline regressors (not ported yet)")
+                   help="train the baseline regressors (default: False)")
     p.add_argument("--config", default=None,
                    help="explicit config path (overrides flag-based selection)")
     p.add_argument("--max-steps", type=int, default=None)
@@ -53,27 +56,29 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.baseline:
-        raise NotImplementedError("--baseline y: the baseline regressors are "
-                                  "not ported yet")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to run the plain versions)")
 
     from nirgan_tpu_torch.config import load_config
     from nirgan_tpu_torch.data import dataset_selector
-    from nirgan_tpu_torch.tasks import Px2PxTask
+    from nirgan_tpu_torch.tasks import BaselineTask, Px2PxTask
     from nirgan_tpu_torch.train.trainer import Trainer
 
     if args.config:
         config = load_config(args.config)
+    elif args.baseline:
+        print("Baseline:", args.baseline)
+        config = load_config("configs/config_baselines.yaml")
     else:
         print("Satclip:", args.satclip)
         config = load_config("configs/config_px2px_SatCLIP.yaml" if args.satclip
                              else "configs/config_px2px.yaml")
     if args.resume:
         config.custom_configs.Model.load_checkpoint = args.resume
-    task = Px2PxTask(config, device=args.device, seed=0)
+    kind = (BaselineTask if args.baseline or "model_name" in config.base_configs
+            else Px2PxTask)
+    task = kind(config, device=args.device, seed=0)
     dm = dataset_selector(config)
     trainer = Trainer(task, dm, config, logdir=args.logdir,
                       max_steps=args.max_steps, log_every=args.log_every)

@@ -24,6 +24,9 @@
   * JSONL logging (``utils/loggers.py``); the JAX package's TensorBoard
     and Weights & Biases backends are not ported
 
+The task is a ``Px2PxTask`` or a ``BaselineTask``: the loop assumes no
+discriminator (the baselines have none; their state has no ``opt_d``).
+
 Not ported yet: the spider callback (``save_val_df``), which waits for the
 ``validation/`` package.
 """
@@ -143,13 +146,10 @@ class Trainer:
         state = self.task.init_state(seed=self.seed)
         cc = self.config.custom_configs
         if cc.Model.get("load_weights_only") and cc.Model.get("weights_path"):
-            from nirgan_tpu_torch.weights import load_reference_weights
-
-            loaded = load_reference_weights(cc.Model.weights_path, self.config)
-            if "netG" in loaded:
-                merge_state_dict(self.task.netG, loaded["netG"])
-            if "netD" in loaded:
-                merge_state_dict(self.task.netD, loaded["netD"])
+            loaded = self.task.load_torch_weights(cc.Model.weights_path)
+            for name in ("netG", "netD"):
+                if name in loaded and getattr(self.task, name, None) is not None:
+                    merge_state_dict(getattr(self.task, name), loaded[name])
             print(f"Loaded (only) weights from: {cc.Model.weights_path}")
         if cc.Model.get("load_checkpoint"):
             mgr = CheckpointManager(self._resume_dir or self.logdir)

@@ -1,27 +1,37 @@
 """Weights between the JAX package's parameter trees and the port's
 state_dict.
 
-``params_from_jax`` maps a (numpy) flax tree of ``ResnetGenerator``, plain
-or inject, onto the port's names: conv kernels HWIO -> OIHW, conv-transpose
+``params_from_jax`` maps a (numpy) flax tree of a generator onto the port's
+names: ``ResnetGenerator``, plain or inject, or ``UnetGenerator`` (its
+nested ``unet.sub.sub...`` tree).  Conv kernels HWIO -> OIHW, conv-transpose
 kernels HWIO -> IOHW with no flip, the inject variant's dense ``fc`` kernel
 (in, out) -> (out, in) and its two scalars as they are (the inverse of
 ``_conv`` / ``_convT`` / ``_dense`` in ``nirgan_tpu/train/torch_convert.py``;
-its ``_rev_*`` do the same).  ``d_params_from_jax`` does the same for the
-``NLayerDiscriminator`` tree.  ``load_reference_weights`` and
-``load_reference_ckpt`` read a reference Lightning ``.ckpt`` (``netG.*``,
-``netD.*``) directly: its tensors are torch's layout already, so only the
-``nn.Sequential`` indices are mapped onto the port's layer names.
+its ``_rev_*`` do the same); a batch norm's ``bn`` ``scale`` / ``bias``
+become ``weight`` / ``bias``, and with ``batch_stats`` its ``mean`` / ``var``
+become ``running_mean`` / ``running_var`` (``_bn_split`` in reverse), with
+``num_batches_tracked`` 0, which flax does not count.
+``d_params_from_jax`` does the same for ``NLayerDiscriminator`` and
+``PixelDiscriminator`` trees, ``baseline_params_from_jax`` for the baseline
+regressors.
+
+``load_reference_weights`` and ``load_reference_ckpt`` read a reference
+Lightning ``.ckpt`` (``netG.*``, ``netD.*``) directly: its tensors are
+torch's layout already, so only the ``nn.Sequential`` indices are mapped
+onto the port's layer names, batch norms with their buffers.
+``load_baseline_weights`` does it for a baseline's ``.ckpt``.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
 _CONVS = ("c0", "d0", "d1", "c1")
 _CONVTS = ("u0", "u1")
+_NORMS = ("n0", "nd0", "nd1", "nu0", "nu1")
 # the inject variant's extras, under the reference's state_dict names
 # (``model/generator_inject.py:88-100``)
 _SCALARS = ("scale_param", "post_correction_param")
@@ -37,16 +47,52 @@ def _put(out: dict, name: str, p: Mapping, perm: tuple) -> None:
         out[f"{name}.bias"] = _tensor(p["bias"])
 
 
-def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
-    """Flax params of ``ResnetGenerator`` (plain or inject) -> the port's
+def _put_norm(out: dict, name: str, p: Optional[Mapping],
+              stats: Optional[Mapping]) -> None:
+    """A flax ``Norm``'s batch norm (``{"bn": {"scale", "bias"}}`` and its
+    ``{"bn": {"mean", "var"}}`` statistics) under the port's names; nothing
+    for an instance norm, which has no parameters."""
+    if p is not None and "bn" in p:
+        out[f"{name}.weight"] = _tensor(p["bn"]["scale"])
+        out[f"{name}.bias"] = _tensor(p["bn"]["bias"])
+    if stats is not None and "bn" in stats:
+        out[f"{name}.running_mean"] = _tensor(stats["bn"]["mean"])
+        out[f"{name}.running_var"] = _tensor(stats["bn"]["var"])
+        out[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+
+
+def _sub(tree: Optional[Mapping], key: str) -> Optional[Mapping]:
+    return None if tree is None else tree.get(key)
+
+
+def _unet_from_jax(out: dict, prefix: str, params: Mapping,
+                   stats: Optional[Mapping]) -> None:
+    _put(out, f"{prefix}down", params["down"], (3, 2, 0, 1))
+    _put_norm(out, f"{prefix}downnorm", params.get("downnorm"),
+              _sub(stats, "downnorm"))
+    if "sub" in params:
+        _unet_from_jax(out, f"{prefix}sub.", params["sub"], _sub(stats, "sub"))
+    _put(out, f"{prefix}up", params["up"], (2, 3, 0, 1))
+    _put_norm(out, f"{prefix}upnorm", params.get("upnorm"),
+              _sub(stats, "upnorm"))
+
+
+def params_from_jax(params: Mapping,
+                    batch_stats: Optional[Mapping] = None) -> dict[str, torch.Tensor]:
+    """Flax params of ``ResnetGenerator`` (plain or inject) or of
+    ``UnetGenerator`` [and their ``batch_stats``] -> the port's
     state_dict."""
+    out: dict[str, torch.Tensor] = {}
+    if "unet" in params:
+        _unet_from_jax(out, "unet.", params["unet"], _sub(batch_stats, "unet"))
+        return out
     unknown = [k for k in params
-               if k not in _CONVS + _CONVTS + _SCALARS + ("fc",)
+               if k not in _CONVS + _CONVTS + _NORMS + _SCALARS + ("fc",)
                and not (k[:1] == "r" and k[1:].isdigit())]
     if unknown:
         raise ValueError(f"params of ResnetGenerator expected; unknown "
                          f"entries {unknown}")
-    out: dict[str, torch.Tensor] = {}
+    stats = batch_stats or {}
     for name in _CONVS:
         _put(out, name, params[name], (3, 2, 0, 1))
     for name in _CONVTS:
@@ -56,6 +102,12 @@ def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     for name in blocks:
         for conv in ("conv1", "conv2"):
             _put(out, f"{name}.{conv}", params[name][conv], (3, 2, 0, 1))
+    for name in _NORMS:
+        _put_norm(out, name, params.get(name), stats.get(name))
+    for name in blocks:
+        for norm in ("norm1", "norm2"):
+            _put_norm(out, f"{name}.{norm}", params[name].get(norm),
+                      _sub(stats.get(name), norm))
     if "fc" in params:
         _put(out, "fc", params["fc"], (1, 0))
     for name in _SCALARS:
@@ -64,16 +116,36 @@ def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
-def d_params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
-    """Flax params of ``NLayerDiscriminator`` (``conv0`` ... ``conv{n+1}``)
+def d_params_from_jax(params: Mapping,
+                      batch_stats: Optional[Mapping] = None) -> dict[str, torch.Tensor]:
+    """Flax params of ``NLayerDiscriminator`` or ``PixelDiscriminator``
+    (``conv0`` ... ``conv{k}``, ``norm1`` ...) [and their ``batch_stats``]
     -> the port's state_dict."""
-    names = sorted(params, key=lambda k: int(k[4:]) if k[4:].isdigit() else -1)
-    if not names or any(not (k.startswith("conv") and k[4:].isdigit())
-                        for k in names):
-        raise ValueError(f"params of NLayerDiscriminator expected, got "
+    def number(k: str, head: str) -> int:
+        return int(k[len(head):]) if k[len(head):].isdigit() else -1
+
+    convs = sorted((k for k in params if k.startswith("conv")),
+                   key=lambda k: number(k, "conv"))
+    norms = sorted((k for k in params if k.startswith("norm")),
+                   key=lambda k: number(k, "norm"))
+    if not convs or any(number(k, "conv") < 0 for k in convs) or \
+            len(convs) + len(norms) != len(params):
+        raise ValueError(f"params of a discriminator expected, got "
                          f"{sorted(params)}")
+    stats = batch_stats or {}
     out: dict[str, torch.Tensor] = {}
-    for name in names:
+    for name in convs:
+        _put(out, name, params[name], (3, 2, 0, 1))
+    for name in norms:
+        _put_norm(out, name, params[name], stats.get(name))
+    return out
+
+
+def baseline_params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """Flax params of ``LinearNIR`` / ``MLPNIR`` / ``CNNNIR`` (1x1 and 3x3
+    conv kernels, HWIO) -> the port's state_dict."""
+    out: dict[str, torch.Tensor] = {}
+    for name in sorted(params):
         _put(out, name, params[name], (3, 2, 0, 1))
     return out
 
@@ -90,8 +162,8 @@ def load_torch_state_dict(path: str) -> dict[str, np.ndarray]:
 
 def _resnet_generator_keys(n_blocks: int, use_dropout: bool) -> dict[str, str]:
     """The port's layer names -> the reference ``ResnetGenerator``'s
-    ``nn.Sequential`` indices (``model/networks.py:341-370``, instance norm:
-    1 stem conv7, 4 and 7 the stride-2 convs, 10.. the blocks with convs at
+    ``nn.Sequential`` indices (``model/networks.py:341-370``: 1 stem conv7,
+    4 and 7 the stride-2 convs, 10.. the blocks with convs at
     ``conv_block.1`` and ``.5`` (``.6`` with dropout), then the two
     transposed convs and the head conv7), as ``convert_resnet_generator``
     maps them."""
@@ -107,6 +179,20 @@ def _resnet_generator_keys(n_blocks: int, use_dropout: bool) -> dict[str, str]:
     return keys
 
 
+def _resnet_norm_keys(n_blocks: int, use_dropout: bool) -> dict[str, str]:
+    """The generator's norms, each the index after its conv's: 2, 5 and 8
+    after the stem and the stride-2 convs, ``conv_block.2`` and ``.6``
+    (``.7`` with dropout) in a block, one after each transposed conv."""
+    up0 = 10 + n_blocks
+    norm2 = 7 if use_dropout else 6
+    keys = {"n0": "model.2", "nd0": "model.5", "nd1": "model.8",
+            "nu0": f"model.{up0 + 1}", "nu1": f"model.{up0 + 4}"}
+    for i in range(n_blocks):
+        keys[f"r{i}.norm1"] = f"model.{10 + i}.conv_block.2"
+        keys[f"r{i}.norm2"] = f"model.{10 + i}.conv_block.{norm2}"
+    return keys
+
+
 def _nlayer_discriminator_keys(n_layers: int) -> dict[str, str]:
     """The port's ``conv{k}`` -> the reference ``NLayerDiscriminator``'s
     indices (``model/networks.py:557-580``), as
@@ -118,16 +204,91 @@ def _nlayer_discriminator_keys(n_layers: int) -> dict[str, str]:
     return keys
 
 
-def _tower(sd: Mapping, prefix: str, keys: Mapping[str, str]) -> dict:
-    """Rename one network's conv weights and biases.  The reference's
-    tensors are torch's layout already (OIHW, and IOHW for the transposed
-    convs), which is the port's: keys change, tensors do not."""
+def _nlayer_norm_keys(n_layers: int) -> dict[str, str]:
+    """``norm{k}``, each the index after ``conv{k}``."""
+    return {f"norm{n}": f"model.{3 + 3 * (n - 1)}" for n in range(1, n_layers + 1)}
+
+
+# the reference ``PixelDiscriminator``'s ``net`` (``model/networks.py:
+# 604-612``): conv, LeakyReLU, conv, norm, LeakyReLU, conv
+_PIXEL_KEYS = {"conv0": "net.0", "conv1": "net.2", "conv2": "net.5"}
+_PIXEL_NORM_KEYS = {"norm1": "net.3"}
+
+
+def _unet_keys(num_downs: int) -> tuple[dict[str, str], dict[str, str],
+                                        dict[str, str]]:
+    """(convs, transposed convs, norms) of the reference ``UnetGenerator``
+    (``model/networks.py:504-530``), as ``convert_unet_generator`` walks
+    them: the outermost block is [down 0, sub 1, relu, up 3, tanh], a
+    middle one [lrelu, down 1, norm 2, sub 3, relu, up 5, norm 6
+    (, dropout)], the innermost [lrelu, down 1, relu, up 3, norm 4]."""
+    convs, convts, norms = {}, {}, {}
+    # the generator's ``model`` is the outermost block, whose own ``model``
+    # is its ``nn.Sequential``
+    name, ref = "unet.", "model.model."
+    for depth_below in range(num_downs - 1, -1, -1):
+        outermost, innermost = depth_below == num_downs - 1, depth_below == 0
+        if outermost:
+            down, sub, up, dn, un = 0, 1, 3, None, None
+        elif innermost:
+            down, sub, up, dn, un = 1, None, 3, None, 4
+        else:
+            down, sub, up, dn, un = 1, 3, 5, 2, 6
+        convs[f"{name}down"] = f"{ref}{down}"
+        convts[f"{name}up"] = f"{ref}{up}"
+        if dn is not None:
+            norms[f"{name}downnorm"] = f"{ref}{dn}"
+        if un is not None:
+            norms[f"{name}upnorm"] = f"{ref}{un}"
+        if sub is not None:
+            name, ref = f"{name}sub.", f"{ref}{sub}.model."
+    return convs, convts, norms
+
+
+def _tower(sd: Mapping, prefix: str, keys: Mapping[str, str],
+           norms: Mapping[str, str] = {}) -> dict:
+    """Rename one network's conv weights and biases, and its batch norms'
+    parameters and buffers.  The reference's tensors are torch's layout
+    already (OIHW, and IOHW for the transposed convs), which is the port's:
+    keys change, tensors do not."""
     out: dict[str, torch.Tensor] = {}
     for name, ref in keys.items():
         out[f"{name}.weight"] = _tensor(sd[f"{prefix}{ref}.weight"])
         if f"{prefix}{ref}.bias" in sd:
             out[f"{name}.bias"] = _tensor(sd[f"{prefix}{ref}.bias"])
+    for name, ref in norms.items():
+        for field in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{name}.{field}"] = _tensor(sd[f"{prefix}{ref}.{field}"])
+        key = f"{prefix}{ref}.num_batches_tracked"
+        out[f"{name}.num_batches_tracked"] = (
+            torch.from_numpy(np.array(sd[key], np.int64)) if key in sd
+            else torch.zeros((), dtype=torch.long))
     return out
+
+
+def _generator(sd: Mapping, bc) -> dict:
+    batch = bc.norm == "batch"
+    if bc.netG.startswith("unet"):
+        convs, convts, norms = _unet_keys(7 if bc.netG == "unet_128" else 8)
+        return _tower(sd, "netG.", {**convs, **convts}, norms if batch else {})
+    n_blocks = 9 if bc.netG == "resnet_9blocks" else 6
+    dropout = not bc.no_dropout
+    out = _tower(sd, "netG.", _resnet_generator_keys(n_blocks, dropout),
+                 _resnet_norm_keys(n_blocks, dropout) if batch else {})
+    # the inject variant's extras keep their names and layouts
+    for name in ("fc.weight", "fc.bias") + _SCALARS:
+        if f"netG.{name}" in sd:
+            out[name] = _tensor(sd[f"netG.{name}"])
+    return out
+
+
+def _discriminator(sd: Mapping, bc) -> dict:
+    batch = bc.norm == "batch"
+    if bc.netD == "pixel":
+        return _tower(sd, "netD.", _PIXEL_KEYS, _PIXEL_NORM_KEYS if batch else {})
+    n_layers = 3 if bc.netD == "basic" else bc.n_layers_D
+    return _tower(sd, "netD.", _nlayer_discriminator_keys(n_layers),
+                  _nlayer_norm_keys(n_layers) if batch else {})
 
 
 def load_reference_weights(path_or_sd, config) -> dict[str, dict]:
@@ -140,20 +301,9 @@ def load_reference_weights(path_or_sd, config) -> dict[str, dict]:
     bc = config.base_configs
     out = {}
     if any(k.startswith("netG.") for k in sd):
-        if bc.netG.startswith("unet"):
-            raise NotImplementedError("the U-Net generator is not ported yet")
-        out["netG"] = _tower(sd, "netG.", _resnet_generator_keys(
-            9 if bc.netG == "resnet_9blocks" else 6, not bc.no_dropout))
-        # the inject variant's extras keep their names and layouts
-        for name in ("fc.weight", "fc.bias") + _SCALARS:
-            if f"netG.{name}" in sd:
-                out["netG"][name] = _tensor(sd[f"netG.{name}"])
+        out["netG"] = _generator(sd, bc)
     if any(k.startswith("netD.") for k in sd):
-        if bc.netD == "pixel":
-            raise NotImplementedError("the pixel discriminator is not ported "
-                                      "yet")
-        out["netD"] = _tower(sd, "netD.", _nlayer_discriminator_keys(
-            3 if bc.netD == "basic" else bc.n_layers_D))
+        out["netD"] = _discriminator(sd, bc)
     return out
 
 
@@ -163,3 +313,29 @@ def load_reference_ckpt(path: str, config) -> dict[str, torch.Tensor]:
     if "netG" not in loaded:
         raise ValueError(f"{path}: no netG.* weights in the checkpoint")
     return loaded["netG"]
+
+
+def load_baseline_weights(path_or_sd, model_name: str) -> dict[str, torch.Tensor]:
+    """A reference baseline's state_dict (``model/baseline_models.py``:
+    ``linear`` / ``mlp.{0,2,4}`` / ``net.{0,2,4}``) as the port's, as
+    ``convert_baseline`` maps it: each ``nn.Linear`` (out, in) becomes a 1x1
+    conv (out, in, 1, 1)."""
+    sd = (load_torch_state_dict(path_or_sd) if isinstance(path_or_sd, str)
+          else path_or_sd)
+
+    def layer(name: str, ref: str, linear: bool) -> dict:
+        w = np.asarray(sd[f"{ref}.weight"])
+        out = {f"{name}.weight": _tensor(w[:, :, None, None] if linear else w)}
+        if f"{ref}.bias" in sd:
+            out[f"{name}.bias"] = _tensor(sd[f"{ref}.bias"])
+        return out
+
+    if model_name == "Linear_NIR":
+        return layer("linear", "linear", True)
+    if model_name == "MLP_NIR":
+        return {k: v for i in range(3)
+                for k, v in layer(f"fc{i}", f"mlp.{2 * i}", True).items()}
+    if model_name == "CNN_NIR":
+        return {k: v for i in range(3)
+                for k, v in layer(f"conv{i}", f"net.{2 * i}", False).items()}
+    raise ValueError("Invalid Model Name")

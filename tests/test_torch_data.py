@@ -372,15 +372,88 @@ def test_load_reference_weights_equals_the_converter_route(tmp_path, netG, dropo
             assert torch.equal(got[tower][k], v), (tower, k)
 
 
-@pytest.mark.parametrize("edit,error,message", [
-    (lambda c, sd: setattr(c.base_configs, "netG", "unet_256"),
-     NotImplementedError, "U-Net"),
-    (lambda c, sd: setattr(c.base_configs, "netD", "pixel"),
-     NotImplementedError, "pixel"),
+def _norm_source(name: str) -> str:
+    """The port's conv that feeds the norm ``name``."""
+    head, _, last = name.rpartition(".")
+    prefix = head + "." if head else ""
+    table = {"n0": "c0", "nd0": "d0", "nd1": "d1", "nu0": "u0", "nu1": "u1",
+             "downnorm": "down", "upnorm": "up"}
+    if last in table:
+        return prefix + table[last]
+    return prefix + last.replace("norm", "conv")
+
+
+@pytest.mark.parametrize("netG,netD,dropout", [
+    ("unet_128", "basic", False),
+    ("resnet_6blocks", "pixel", True),
 ])
-def test_load_reference_weights_raises_on_what_is_not_ported(edit, error, message):
+def test_load_reference_weights_raises_on_what_is_not_ported(netG, netD, dropout):
+    """Once the U-Net's and the pixel D's refusals, both are ported now: a
+    reference state_dict of batch-norm nets (the convs as the JAX package's
+    ``export_*`` write them, each batch norm at the index after its conv's,
+    with its buffers) reads into the port as ``params_from_jax`` maps the
+    JAX trees, bit for bit; the convs also as ``convert_px2px_checkpoint``
+    reads them, and the norms as ``_bn_split`` does; both load strictly."""
+    import jax
+    import jax.numpy as jnp
+
+    from nirgan_tpu.models.factory import define_D as jax_define_D
+    from nirgan_tpu.models.factory import define_G as jax_define_G
+    from nirgan_tpu.train import torch_convert as tc
+    from nirgan_tpu_torch.models import define_D, define_G
+    from tests.test_torch_variants import _fill
+
     cfg = port_config.load_config(CONFIG)
-    sd = _reference_state_dict(9, False)
-    edit(cfg, sd)
-    with pytest.raises(error, match=message):
-        load_reference_weights(sd, cfg)
+    bc = cfg.base_configs
+    bc.netG, bc.netD, bc.norm, bc.ngf, bc.ndf = netG, netD, "batch", 8, 8
+    bc.no_dropout = not dropout
+    side = 128 if netG == "unet_128" else 32
+
+    def tree(net, x_shape, seed):
+        return _fill(jax.eval_shape(lambda: net.init(jax.random.PRNGKey(0),
+                                                     jnp.zeros(x_shape))), seed)
+
+    vg = tree(jax_define_G(3, 1, 8, netG, norm="batch", use_dropout=dropout),
+              (1, side, side, 3), 1)
+    vd = tree(jax_define_D(4, 8, netD, norm="batch"), (1, 32, 32, 4), 2)
+    sd = (tc.export_unet_generator(vg["params"], "netG.", 7) if netG == "unet_128"
+          else tc.export_resnet_generator(vg["params"], "netG.", 6, dropout))
+    sd.update(tc.export_pixel_discriminator(vd["params"], "netD.") if netD == "pixel"
+              else tc.export_nlayer_discriminator(vd["params"], "netD."))
+    want = {"netG": params_from_jax(vg["params"], vg["batch_stats"]),
+            "netD": d_params_from_jax(vd["params"], vd["batch_stats"])}
+    refs = {}
+    for tower, prefix in (("netG", "netG."), ("netD", "netD.")):
+        for name in want[tower]:
+            if name.endswith(".running_mean"):
+                norm = name[:-len(".running_mean")]
+                conv = want[tower][f"{_norm_source(norm)}.weight"].numpy()
+                key = next(k for k, v in sd.items() if k.startswith(prefix)
+                           and k.endswith(".weight") and np.array_equal(v, conv))
+                head, _, idx = key[:-len(".weight")].rpartition(".")
+                ref = f"{head}.{int(idx) + 1}"
+                for field in ("weight", "bias", "running_mean", "running_var"):
+                    sd[f"{ref}.{field}"] = want[tower][f"{norm}.{field}"].numpy()
+                sd[f"{ref}.num_batches_tracked"] = np.array(0, np.int64)
+                refs[(tower, norm)] = ref
+    got = load_reference_weights(sd, cfg)
+    old = convert_px2px_checkpoint(sd, jax_config.from_dict(cfg.to_dict()))
+    convs = {"netG": params_from_jax(old["params_g"]),
+             "netD": d_params_from_jax(old["params_d"])}
+    assert sorted(got) == ["netD", "netG"]
+    for tower in want:
+        assert sorted(got[tower]) == sorted(want[tower]), tower
+        for k, v in want[tower].items():
+            assert torch.equal(got[tower][k], v), (tower, k)
+        for k, v in convs[tower].items():
+            assert torch.equal(got[tower][k], v), (tower, k)
+    for (tower, norm), ref in refs.items():
+        params, stats = tc._bn_split(sd, ref)
+        for field, value in (("weight", params["scale"]), ("bias", params["bias"]),
+                             ("running_mean", stats["mean"]),
+                             ("running_var", stats["var"])):
+            np.testing.assert_array_equal(got[tower][f"{norm}.{field}"].numpy(), value)
+    assert len(refs) > 3
+    define_G(3, 1, 8, netG, "batch", use_dropout=dropout).load_state_dict(
+        got["netG"], strict=True)
+    define_D(4, 8, netD, norm="batch").load_state_dict(got["netD"], strict=True)

@@ -84,7 +84,9 @@ def test_define_G_is_seeded_and_rejects_unported():
     for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
         torch.testing.assert_close(va, vb, rtol=0, atol=0, msg=k)
     assert float(a.c0.bias.detach().abs().sum()) == 0.0
+    # the U-Nets and batch norm are ported (tests/test_torch_variants.py);
+    # a name the reference does not know is refused
+    assert define_G(3, 1, 8, "unet_256", "instance").num_downs == 8
+    assert define_G(3, 1, 8, "resnet_9blocks", "batch").n0.running_var.shape == (8,)
     with pytest.raises(NotImplementedError):
-        define_G(3, 1, 8, "unet_256", "instance")
-    with pytest.raises(NotImplementedError):
-        define_G(3, 1, 8, "resnet_9blocks", "batch")
+        define_G(3, 1, 8, "resnet_12blocks", "instance")

@@ -132,8 +132,11 @@ def test_normal_initializer_is_seeded_and_device_independent():
     b = init(torch.empty(64, 32, 3, 3), torch.Generator().manual_seed(5))
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert abs(float(a.std()) - 0.02) < 1e-3 and abs(float(a.mean())) < 1e-3
+    # xavier, kaiming and orthogonal are ported (tests/test_torch_variants.py);
+    # an unknown name is refused
+    assert get_initializer("xavier") is not None
     with pytest.raises(NotImplementedError):
-        get_initializer("xavier")
+        get_initializer("uniform")
 
 
 def test_resize_matrix_kept_from_inference_mode_serves_autograd():

@@ -97,8 +97,11 @@ def test_discriminator_names_follow_the_jax_tree(jax_pair):
     assert "conv4.bias" in sd and "conv0.bias" in sd
     np.testing.assert_array_equal(sd["conv2.weight"].numpy(),
                                   state.params_d["conv2"]["kernel"].transpose(3, 2, 0, 1))
+    # the pixel D is ported (tests/test_torch_variants.py); an unknown name
+    # is refused
+    assert define_D(4, 8, "pixel").conv2.weight.shape == (1, 16, 1, 1)
     with pytest.raises(NotImplementedError):
-        define_D(4, 8, "pixel")
+        define_D(4, 8, "patch")
 
 
 # ------------------------------------------------------------ losses
@@ -348,13 +351,41 @@ def test_trainer_sigterm_checkpoints_at_the_next_step(tmp_path):
                       weights_only=True)["step"] == 1
 
 
-@pytest.mark.parametrize("argv,message", [
-    (["--satclip", "y", "--baseline", "y"], "baseline"),
-    (["--baseline", "y"], "baseline"),
-    (["--satclip", "n", "--baseline", "y"], "baseline")])
-def test_cli_rejects_unported_routes(argv, message):
-    with pytest.raises(NotImplementedError, match=message):
-        cli.main(argv + ["--device", "cpu"])
+@pytest.mark.parametrize("argv,model_name", [
+    (["--satclip", "y", "--baseline", "y"], "Linear_NIR"),
+    (["--baseline", "y"], "MLP_NIR"),
+    (["--satclip", "n", "--baseline", "y"], "CNN_NIR")])
+def test_cli_rejects_unported_routes(tmp_path, argv, model_name):
+    """Once the refusal of ``--baseline y``, which is ported now: the flag
+    (whatever ``--satclip`` says) trains ``BaselineTask`` on a small copy of
+    ``configs/config_baselines.yaml`` with each ``model_name``, saves its
+    model and no D, and resumes."""
+    import yaml
+
+    from nirgan_tpu_torch.tasks import BaselineTask
+
+    cfg = load_config(os.path.join(REPO_ROOT, "configs/config_baselines.yaml")).to_dict()
+    cfg["base_configs"]["model_name"] = model_name
+    cfg["tpu"]["compute_dtype"] = "float32"
+    cfg["Data"].update(train_batch_size=2, val_batch_size=2, num_workers=0)
+    cfg["Data"]["fake_settings"].update(image_size=32, length=4)
+    cfg["custom_configs"]["Logging"]["num_val_images"] = 1
+    path = tmp_path / "baseline.yaml"
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    run = str(tmp_path / "run")
+    common = argv + ["--config", str(path), "--device", "cpu", "--log-every", "1"]
+    state = cli.main(common + ["--logdir", run, "--max-steps", "2"])
+    assert state.step == 2 and state.opt_d is None
+    rows = _rows(run)
+    assert [r["step"] for r in rows if "val/L1" in r] == [2]
+    train = [r for r in rows if "train/loss" in r]
+    assert len(train) == 2 and all(np.isfinite(r["train/L1"]) for r in train)
+    blob = torch.load(os.path.join(run, "last.pt"), weights_only=True)
+    assert "D" not in blob and "opt_d" not in blob
+    names = set(BaselineTask(load_config(str(path)), device="cpu").netG.state_dict())
+    assert set(blob["G"]) == names
+    state = cli.main(common + ["--resume", run, "--max-steps", "3"])
+    assert state.step == 3
 
 
 def test_weights_only_start_from_a_reference_ckpt(tmp_path, jax_pair):
