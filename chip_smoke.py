@@ -98,6 +98,27 @@ never prints the final ``"ok": true`` line:
    nirgan_tpu_torch.train --baseline y --max-steps 4`` (batch 32 of
    256^2), then a step and a forward of each of Linear_NIR, MLP_NIR and
    CNN_NIR.
+   SatCLIP pretraining (``tasks/satclip_pretrain.py``; no kernel of the
+   port's on this path: the JAX package runs it in XLA), f32 with
+   PyTorch's defaults (cuDNN convs in TF32, matmuls in f32): the CLI's
+   default model (CLIP ModifiedResNet-50, width 64, 4 bands at 256^2,
+   embed 256, siren over L = 10 spherical harmonics) at batch 32 on
+   ``FakeS2GeoDataset(mode="geo")``: 20 steps over 4 batches (the loss
+   finite, lower over the last 4 steps than over the first 4, every batch-norm
+   statistic moved, no kernel of A-E launched), the step's ms (CUDA events,
+   the median of 3 rounds), images/s, peak memory, the same 20 steps from
+   the same seed bit for bit, and, after every other phase, the step's
+   device time by group under ``torch.profiler`` (busy and idle share);
+   ``moco_resnet50`` and
+   ``moco_vit16`` (13 bands at 256^2, batch 32): the frozen tower bit for
+   bit, head and location network moved, the tower's statistics moved
+   (ResNet), step ms; a reduced model (layers (1, 1, 1, 1), width 16,
+   64^2, batch 8) in f32 with TF32 off, one step card against CPU (loss,
+   gradients, embeddings); ``python -m nirgan_tpu_torch.pretrain_satclip
+   --fake-geo --steps 20`` and its run directory as ``satclip_path`` of a
+   ``config_px2px_SatCLIP.yaml`` ``Px2PxTask`` that trains a step and
+   serves a batch, the wrapper's embeddings against the pretrain task's
+   ``location_encoder``.
 6. launches: one call of the instance norm at each timed shape under
    ``torch.profiler``: one kernel where the plan is resident, two where it
    streams.  Then the 10980^2 scene's window loop under the profiler: its
@@ -109,8 +130,9 @@ never prints the final ``"ok": true`` line:
 
 ``python3 chip_smoke.py --profile`` instead prints, after phases 0 and 1,
 the device time of the serving forward (also with the int8 trunk) and of
-the train step by group of kernels under ``torch.profiler``, on the plain and on the inject route, and
-the head's backward on its own (no checks, no ``ok`` line).
+the train step by group of kernels under ``torch.profiler``, on the plain and on the inject route,
+the head's backward on its own and the full-width SatCLIP pretrain step
+(no checks, no ``ok`` line).
 ``python3 chip_smoke.py --sweep`` instead times the instance norm under
 every launch plan its kernels take at the main path's shapes, beside the
 plan that ``launch_plan`` chooses.
@@ -2807,6 +2829,360 @@ def phase_baselines(tmp: str) -> None:
             raise AssertionError(f"baseline {name}: {m}, {out.shape}")
 
 
+PRETRAIN_BATCH, PRETRAIN_SIDE, PRETRAIN_STEPS = 32, 256, 20
+
+
+@contextlib.contextmanager
+def cudnn_tf32(on: bool):
+    """cuDNN's TF32 set to ``on`` (PyTorch's default is on) and the
+    matmuls' off (the default) for the block, then as they were."""
+    old = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = on, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def pretrain_batches(channels: int, n: int, side: int = 0, batch: int = 0) -> list:
+    """``n`` host batches (of ``PRETRAIN_BATCH`` at ``PRETRAIN_SIDE``
+    unless given) of the geo-mode procedural S2Geo data (NCHW images,
+    lon/lat), seed 0, through the port's loader."""
+    from nirgan_tpu_torch.data.pipeline import Loader
+    from nirgan_tpu_torch.data.s2geo import FakeS2GeoDataset
+
+    batch = batch or PRETRAIN_BATCH
+    ds = FakeS2GeoDataset(length=batch * n, crop=side or PRETRAIN_SIDE,
+                          channels=channels, mode="geo", seed=SEED)
+    return list(Loader(ds, batch, num_workers=8))
+
+
+def full_width_task(**kw):
+    """The pretrain task with the CLI's default model, on the card."""
+    from nirgan_tpu_torch.tasks.satclip_pretrain import SatClipPretrainTask
+
+    return SatClipPretrainTask(device="cuda", seed=SEED, **kw)
+
+
+def check_cli_defaults(task) -> None:
+    """The task's defaults are the pretrain CLI's: CLIP ModifiedResNet-50
+    (layers 3, 4, 6, 3; width 64) over 4 bands at 256^2, embed 256, siren
+    over L = 10 spherical harmonics."""
+    from nirgan_tpu_torch.models.satclip.model import ModifiedResNet, SirenNet
+    from nirgan_tpu_torch.pretrain_satclip import parse_args
+
+    args, v = parse_args([]), task.model.visual
+    layers = tuple(len(getattr(v, f"layer{i}")) for i in range(1, 5))
+    got = (type(v), layers, v.conv3.weight.shape[0], task.in_channels,
+           task.image_resolution, task.hparams, type(task.model.location.nnet))
+    want = (ModifiedResNet, tuple(args.resnet_layers), args.vision_width, 4,
+            args.image_size, {"le_type": args.le_type, "pe_type": args.pe_type,
+                              "legendre_polys": args.legendre_polys,
+                              "harmonics_calculation": "analytic",
+                              "embed_dim": args.embed_dim}, SirenNet)
+    if got != want:
+        raise AssertionError(f"pretrain task defaults {got} are not the CLI's {want}")
+
+
+def pretrain_run(task, batches: list, steps: int) -> tuple:
+    """``steps`` train steps cycling over ``batches`` from a fresh train
+    state: (state, the device batches, the losses)."""
+    state = task.init_state()
+    exs = [task.extract_batch(b) for b in batches]
+    losses = [task.train_step(state, exs[i % len(exs)])["train_loss"]
+              for i in range(steps)]
+    return state, exs, torch.stack(losses).tolist()
+
+
+def pretrain_stepper():
+    """The CLI's default pretrain step (full width, batch 32) on one
+    geo-mode batch, for the profile."""
+    task = full_width_task()
+    state = task.init_state()
+    ex = task.extract_batch(pretrain_batches(4, 1)[0])
+    return lambda: task.train_step(state, ex)
+
+
+def running_stats(module) -> dict:
+    return {k: v.clone() for k, v in module.state_dict().items() if "running" in k}
+
+
+def shared_dropout(seed: int):
+    """Dropout masks from a CPU generator seeded with ``seed``, copied to
+    the layer's device: two runs on two devices draw the same masks."""
+    from nirgan_tpu_torch.models import layers
+
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(shape, keep_prob, generator, device):
+        return (torch.rand(shape, generator=g) < keep_prob).to(device)
+
+    return mock.patch.object(layers, "keep_mask", draw)
+
+
+def phase_satclip_pretrain(tmp: str) -> tuple:
+    """SatCLIP pretraining on the card (the module docstring's list);
+    returns the timed full-width step for ``phase_pretrain_profile``."""
+    from nirgan_tpu_torch.config import load_config
+    from nirgan_tpu_torch.models.satclip import SatClipWrapper
+    from nirgan_tpu_torch.tasks import Px2PxTask
+    from nirgan_tpu_torch.tasks.satclip_pretrain import SatClipPretrainTask
+
+    laps = [("start", time.perf_counter())]
+
+    def lap(name: str) -> None:
+        laps.append((name, time.perf_counter()))
+
+    batches = pretrain_batches(4, 4)
+    lap("data")
+    with cudnn_tf32(True):
+        # --- the CLI's default model at full width
+        task = full_width_task()
+        check_cli_defaults(task)
+        n_params = sum(p.numel() for p in task.model.parameters())
+        stats0 = running_stats(task.model)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        state, exs, losses = pretrain_run(task, batches, PRETRAIN_STEPS)
+        torch.cuda.synchronize()
+        launched = counts()
+        after = {k: p.detach().clone() for k, p in task.model.named_parameters()}
+        stats1 = running_stats(task.model)
+        moved = [k for k in stats0 if not torch.equal(stats0[k], stats1[k])]
+        first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+        log("pretrain", f"CLIP ModifiedResNet-50 (width "
+            f"{task.model.visual.conv3.weight.shape[0]}, {n_params} params), 4 x "
+            f"{PRETRAIN_SIDE}^2, embed 256, siren L=10, batch {PRETRAIN_BATCH}, "
+            f"{PRETRAIN_STEPS} steps over 4 batches: loss "
+            f"{', '.join(f'{v:.4f}' for v in losses)}; batch 0 at step 1 "
+            f"{losses[0]:.4f}, at step 17 {losses[16]:.4f}; first 4 {first:.4f}, last "
+            f"4 {last:.4f}; {len(moved)} of {len(stats0)} running statistics moved; "
+            f"kernel calls {launched}")
+        # 55 batch norms (3 in the stem, 3 a block, 4 downsample branches)
+        if (not all(math.isfinite(v) for v in losses) or not last < first
+                or len(moved) != len(stats0) or len(stats0) != 2 * 55
+                or any(launched.values())):
+            raise AssertionError(f"pretrain: {losses}, {len(moved)}/{len(stats0)}, "
+                                 f"{launched}")
+        rounds = [time_ms(lambda: task.train_step(state, exs[0]), iters=5, warmup=1)
+                  for _ in range(3)]
+        ms = float(np.median(rounds))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log("pretrain", f"step {', '.join(f'{r:.3f}' for r in rounds)} ms (CUDA events, "
+            f"3 rounds of 5): median {ms:.3f} ms, {PRETRAIN_BATCH / ms * 1e3:.1f} "
+            f"images/s; peak device memory {peak:.2f} GiB")
+        full = (task, state, exs[0], ms)
+        lap("full width")
+
+        # --- the same 20 steps from the same seed
+        again = full_width_task()
+        pretrain_run(again, batches, PRETRAIN_STEPS)
+        differ = {k: float((p.detach() - after[k]).abs().max())
+                  for k, p in again.model.named_parameters()
+                  if not torch.equal(p.detach(), after[k])}
+        log("pretrain", f"second run from the same seed: {len(after) - len(differ)} of "
+            f"{len(after)} parameters bit for bit after {PRETRAIN_STEPS} steps"
+            + (f"; differ: {sorted(differ.items(), key=lambda kv: -kv[1])[:5]}"
+               if differ else ""))
+        del again
+        if differ:
+            check_pretrain_step_repeats(batches[0])
+        lap("repeat")
+
+        # --- the frozen moco towers, 13 bands
+        batches13 = pretrain_batches(13, 2)
+        for name in ("moco_resnet50", "moco_vit16"):
+            check_moco(name, batches13)
+        del batches13
+        lap("moco")
+
+    # --- f32 card against CPU, TF32 off
+    with cudnn_tf32(False):
+        check_pretrain_f32()
+    lap("f32")
+
+    # --- the CLI on the card, then its run as the inject GAN's tower
+    out = os.path.join(tmp, "satclip_pretrain")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "nirgan_tpu_torch.pretrain_satclip",
+                           "--fake-geo", "--steps", "20", "--out", out],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    lap("CLI")
+    if proc.returncode != 0:
+        raise AssertionError(f"pretrain CLI failed: {proc.stderr[-3000:]}")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    steps = [json.loads(line) for line in proc.stdout.splitlines()
+             if line.startswith("{")]
+    log("pretrain", f"python -m nirgan_tpu_torch.pretrain_satclip --fake-geo --steps 20: "
+        f"{dt:.1f} s (process start and set-up included; the loop's own clock "
+        f"{[(r['step'], r['elapsed_s']) for r in steps]} s); train_loss at steps "
+        f"{[(r['step'], round(r['train_loss'], 4)) for r in rows]}")
+    if [r["step"] for r in rows] != [1, 10, 20] or not all(
+            math.isfinite(r["train_loss"]) for r in rows):
+        raise AssertionError(f"pretrain CLI rows: {rows}")
+    wrapper = SatClipWrapper(out)
+    cfg = load_config(SATCLIP_CONFIG)
+    cfg.satclip.satclip_path = out
+    gan = Px2PxTask(cfg, seed=SEED)
+    batch = first_batch(cfg)
+    m = gan.train_step(gan.init_state(), gan.extract_batch(batch))
+    pred = gan.predict_step(batch["rgb"][:BATCH], batch["coords"][:BATCH])
+    loc = SatClipPretrainTask(vision_layers=(1, 1, 1, 1), vision_width=8,
+                              image_resolution=32, device="cuda")
+    ckpt = torch.load(os.path.join(out, "satclip.ckpt"), map_location="cpu",
+                      weights_only=False)
+    loc.model.location.load_state_dict(
+        {k[len("model.location."):]: v for k, v in ckpt["state_dict"].items()
+         if k.startswith("model.location.")})
+    coords = np.random.default_rng(3).uniform([-180, -90], [180, 90], (64, 2))
+    want = loc.location_encoder()(coords)
+    got = wrapper.predict(coords)
+    err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    total = float(m["model_loss/generator_total_loss"])
+    log("pretrain", f"the run as satclip_path of {os.path.basename(SATCLIP_CONFIG)}: "
+        f"wrapper loaded {wrapper.loaded_from == out}, the GAN's tower from it "
+        f"{gan.satclip_model.loaded_from == out}; one inject train step (batch "
+        f"{batch['rgb'].shape[0]}): G total {total:.4f}; served {pred.shape}, finite "
+        f"{bool(np.isfinite(pred).all())}; the wrapper's float64 embeddings against "
+        f"the pretrain task's location_encoder (f32 on the card): max|err| {err:.2e} "
+        f"of the largest (bound 5e-05)")
+    if not (wrapper.loaded_from == out and gan.satclip_model.loaded_from == out
+            and math.isfinite(total) and np.isfinite(pred).all()
+            and pred.shape == (BATCH, 1, TRAIN_TILE, TRAIN_TILE) and err <= 5e-5):
+        raise AssertionError(f"pretrain -> inject: {total}, {pred.shape}, {err}")
+    del gan, loc
+    lap("inject")
+
+    log("pretrain", f"phase {laps[-1][1] - laps[0][1]:.1f} s ("
+        + ", ".join(f"{name} {t - laps[i][1]:.1f}" for i, (name, t) in enumerate(laps[1:]))
+        + "); the step's profile comes last in the run")
+    return full
+
+
+def phase_pretrain_profile(full: tuple) -> None:
+    """Where the full-width pretrain step's time goes, under
+    ``torch.profiler`` with cuDNN in TF32 as it was timed: the busy time
+    against the CUDA-event time read before any profiler attached (the
+    card's idle share).  Run after every other phase: an attached profiler
+    slows every later launch on the host, and in one run the profiles that
+    followed this window (about 17,500 kernels) recorded no kernel at all.
+    A window that records none is counted again, at most twice."""
+    task, state, ex, ms = full
+    with cudnn_tf32(True):
+        for _ in range(3):
+            busy = profile_window(
+                f"SatCLIP pretrain step, full width, batch {PRETRAIN_BATCH}",
+                lambda: task.train_step(state, ex), 5)
+            if busy > 0:
+                break
+            log("pretrain", "the profiler recorded no kernel of the step; counting again")
+    log("pretrain", f"full-width step: device busy {busy:.3f} ms under the profiler "
+        f"against {ms:.3f} ms by CUDA events before it: idle share "
+        f"{max(0.0, 1 - busy / ms):.1%}")
+    if not busy > 0:
+        raise AssertionError("pretrain profile: the profiler recorded no kernel")
+
+
+def check_pretrain_step_repeats(host: dict) -> None:
+    """Where 20 steps do not repeat bit for bit: one step's gradients of
+    two runs from the same seed, each within 1e-4 of its own largest entry,
+    and the tensors that differ named."""
+    grads = []
+    for _ in range(2):
+        task = full_width_task(accumulate_grad_batches=2)
+        state = task.init_state()
+        task.train_step(state, task.extract_batch(host))  # gradients kept
+        grads.append({k: p.grad.clone() for k, p in task.model.named_parameters()})
+        del task
+    a, b = grads
+    rel = {k: float((a[k] - b[k]).abs().max()) / max(float(b[k].abs().max()), 1e-30)
+           for k in a if not torch.equal(a[k], b[k])}
+    log("pretrain", f"one step's gradients twice from the same seed: {len(a) - len(rel)} "
+        f"of {len(a)} bit for bit; differ (relative to their largest entry): "
+        f"{sorted(rel.items(), key=lambda kv: -kv[1])[:8]} (bound 1e-4)")
+    if any(v > 1e-4 for v in rel.values()):
+        raise AssertionError(f"pretrain step does not repeat: {rel}")
+
+
+def check_moco(name: str, batches: list) -> None:
+    """A frozen timm tower at 13 bands: a few steps, the tower bit for bit
+    but its statistics, the head and the location network moved, step ms."""
+    from nirgan_tpu_torch.tasks.satclip_pretrain import SatClipPretrainTask
+
+    task = SatClipPretrainTask(vision_layers=name, device="cuda", seed=SEED)
+    head = task.pretrained_head
+    before = {k: v.clone() for k, v in task.model.state_dict().items()}
+    state, exs, losses = pretrain_run(task, batches, 4)
+    now = task.model.state_dict()
+    params = dict(task.model.named_parameters())
+    frozen = [k for k, p in params.items() if not p.requires_grad]
+    changed = [k for k in frozen if not torch.equal(before[k], now[k])]
+    trained = [k for k in params if k.startswith((f"visual.{head}.", "location."))]
+    still = [k for k in trained if torch.equal(before[k], now[k])]
+    stats = [k for k in now if "running" in k]
+    stats_moved = [k for k in stats if not torch.equal(before[k], now[k])]
+    ms = float(np.median([time_ms(lambda: task.train_step(state, exs[0]), iters=3,
+                                  warmup=1) for _ in range(3)]))
+    log("pretrain", f"{name} (13 x {PRETRAIN_SIDE}^2, batch {PRETRAIN_BATCH}): loss "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; {len(frozen)} frozen tensors, "
+        f"{len(changed)} changed; {len(trained) - len(still)} of {len(trained)} head "
+        f"and location tensors moved; {len(stats_moved)} of {len(stats)} running "
+        f"statistics moved; step {ms:.3f} ms ({PRETRAIN_BATCH / ms * 1e3:.1f} images/s)")
+    if (changed or still or not frozen or len(stats_moved) != len(stats)
+            or ("resnet" in name) != bool(stats)
+            or not all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"{name}: frozen changed {changed}, still {still}, "
+                             f"stats {len(stats_moved)}/{len(stats)}")
+
+
+def check_pretrain_f32() -> None:
+    """A reduced model (layers (1, 1, 1, 1), width 16, 64^2, batch 8) in f32,
+    TF32 off: one step on the card and on the CPU from the same seed and
+    the same dropout masks; the loss (1e-5), every gradient (1e-4 of its
+    own largest entry; the attention pool's key bias, zero in exact
+    arithmetic, below 1e-5 of the largest gradient) and, after a second
+    step (the update, K = 2), ``location_encoder``'s embeddings (1e-5 of
+    the largest)."""
+    from nirgan_tpu_torch.tasks.satclip_pretrain import SatClipPretrainTask
+
+    host = pretrain_batches(4, 1, side=64, batch=8)[0]
+    coords = np.random.default_rng(5).uniform([-180, -90], [180, 90], (16, 2))
+    runs = []
+    for device in ("cuda", "cpu"):
+        task = SatClipPretrainTask(vision_layers=(1, 1, 1, 1), vision_width=16,
+                                   image_resolution=64, accumulate_grad_batches=2,
+                                   device=device, seed=SEED)
+        state = task.init_state()
+        with shared_dropout(SEED):
+            ex = task.extract_batch(host)
+            loss = float(task.train_step(state, ex)["train_loss"])
+            grads = {k: p.grad.detach().cpu().clone()
+                     for k, p in task.model.named_parameters()}
+            task.train_step(state, ex)
+        runs.append((loss, grads, task.location_encoder()(coords)))
+    (loss, grads, emb), (loss_c, grads_c, emb_c) = runs
+    net_max = max(float(g.abs().max()) for g in grads_c.values())
+    worst, key_bias = 0.0, 0.0
+    for k, g in grads.items():
+        if k.endswith("k_proj.bias"):
+            key_bias = max(float(g.abs().max()), float(grads_c[k].abs().max())) / net_max
+            continue
+        worst = max(worst, float((g - grads_c[k]).abs().max())
+                    / float(grads_c[k].abs().max()))
+    loss_err = abs(loss - loss_c) / abs(loss_c)
+    emb_err = float(np.abs(emb - emb_c).max()) / float(np.abs(emb_c).max())
+    log("pretrain f32", f"reduced model, batch 8 at 64^2, card vs CPU (TF32 off): loss "
+        f"{loss:.6f} vs {loss_c:.6f} (rel {loss_err:.2e}, bound 1e-05); worst gradient "
+        f"{worst:.2e} of its largest entry (bound 1e-04), key bias {key_bias:.2e} of the "
+        f"largest gradient (bound 1e-05); embeddings after the update {emb_err:.2e} "
+        f"(bound 1e-05)")
+    if not (loss_err <= 1e-5 and worst <= 1e-4 and key_bias <= 1e-5 and emb_err <= 1e-5):
+        raise AssertionError(f"pretrain f32 card vs CPU: {loss_err}, {worst}, "
+                             f"{key_bias}, {emb_err}")
+
+
 # kernel-name fragments -> the rows of the profile's breakdown, first match
 PROFILE_GROUPS = (
     ("igemm_wgmma_kernel<256", "wgmma implicit GEMM, N = 256 (kernel A; B5 dx at u0)"),
@@ -2830,13 +3206,17 @@ PROFILE_GROUPS = (
     ("nchwToNhwc", "cuDNN layout"), ("nhwcToNchw", "cuDNN layout"),
     ("copy", "copies (layout, casts)"),
     ("reduce_kernel", "PyTorch reductions"),
+    ("avg_pool", "pooling"), ("max_pool", "pooling"),
+    ("gemm", "GEMMs (dense layers, attention)"), ("gemv", "GEMMs (dense layers, attention)"),
+    ("softmax", "softmax, cross-entropy"), ("nll_loss", "softmax, cross-entropy"),
     ("elementwise", "PyTorch elementwise"),
 )
 
 
-def profile_window(what: str, fn, iters: int) -> None:
+def profile_window(what: str, fn, iters: int) -> float:
     """``iters`` calls of ``fn`` under ``torch.profiler`` after a warm-up;
-    prints the device time per call of each group of kernels."""
+    prints the device time per call of each group of kernels and returns
+    the device's busy ms a call."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -2869,6 +3249,7 @@ def profile_window(what: str, fn, iters: int) -> None:
     norms = [v for label, v in groups.items() if label.startswith(("B IN", "B4 IN"))]
     log("profile", f"  B + B4 together: {sum(ms for ms, _ in norms) / iters:.3f} ms in "
         f"{sum(n for _, n in norms) / iters:.1f} CUDA launches a call")
+    return busy / iters
 
 
 def phase_profile() -> None:
@@ -2977,9 +3358,16 @@ def phase_profile() -> None:
         log("profile", f"head backward (tanh', cuDNN dgrad + wgrad, bias sum) on "
             f"{tuple(xh.shape)}: {ms:.4f} ms; its forward, kernel C: {fwd:.4f} ms")
         del xh, y, ct
+    pretrain = pretrain_stepper()
+    rounds = [time_ms(pretrain, iters=5, warmup=1) for _ in range(3)]
+    log("profile", f"SatCLIP pretrain step (full width, batch {PRETRAIN_BATCH}, f32, "
+        f"cuDNN in TF32), CUDA events before the profiler: "
+        f"{', '.join(f'{ms:.3f}' for ms in rounds)} ms")
     for what, fn, iters in runs:
         profile_window(f"{what}, kernels", fn, 5)
         profile_window(f"{what}, plain route", plain(fn), 5)
+    profile_window(f"SatCLIP pretrain step, full width, batch {PRETRAIN_BATCH}",
+                   pretrain, 5)
 
 
 def phase_sweep() -> None:
@@ -3141,8 +3529,11 @@ def main() -> None:
     pad0 = phase_variants()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         phase_baselines(tmp)
+        pretrain = phase_satclip_pretrain(tmp)
     phase_norm_launches()
     phase_host_waits()
+    phase_pretrain_profile(pretrain)
+    del pretrain
     if min(launches.values()) == 0 or min(sat_launches.values()) == 0:
         raise AssertionError(f"a kernel of the training path was not launched: "
                              f"{launches}, {sat_launches}")

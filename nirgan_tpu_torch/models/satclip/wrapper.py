@@ -7,8 +7,14 @@ Loads a torch Lightning SatCLIP checkpoint when the file exists (reading
 its ``hyper_parameters`` for the convention, as the reference loader does)
 and otherwise warns and falls back to the reference architecture with
 weights drawn from a seed: the published checkpoint is not in the
-repository.  A directory is an orbax checkpoint of the JAX package's
-``pretrain_satclip.py``; reading one needs that package, so it raises here.
+repository.  A directory is a pretrain run: the port's
+``python -m nirgan_tpu_torch.pretrain_satclip`` writes ``satclip.ckpt`` in
+the Lightning layout there, which loads as a file does.  A directory
+without one is an orbax checkpoint of the JAX package's
+``pretrain_satclip.py``; reading it needs that package, so it raises here.
+Only the reference's spherical-harmonics / SIREN family fits the frozen
+encoder: a checkpoint of another family raises, as the JAX wrapper refuses
+one (``nirgan_tpu/models/satclip/wrapper.py:41-46``).
 """
 
 from __future__ import annotations
@@ -22,7 +28,9 @@ import torch
 
 from nirgan_tpu_torch.models.satclip.location_encoder import LocationEncoder
 
-__all__ = ["SatClipWrapper", "get_satclip_loc_encoder"]
+__all__ = ["SatClipWrapper", "get_satclip_loc_encoder", "CKPT_NAME"]
+
+CKPT_NAME = "satclip.ckpt"  # the checkpoint's name in a pretrain run directory
 
 
 def get_satclip_loc_encoder(ckpt_path: Optional[str], seed: int = 0) -> LocationEncoder:
@@ -34,13 +42,22 @@ def get_satclip_loc_encoder(ckpt_path: Optional[str], seed: int = 0) -> Location
 class SatClipWrapper:
     def __init__(self, satclip_path: Optional[str] = None, seed: int = 0):
         self.loaded_from = None
-        if satclip_path and os.path.isdir(satclip_path):
-            raise NotImplementedError(
-                f"{satclip_path}: an orbax checkpoint directory needs the JAX "
-                "package to be read; pass a torch SatCLIP .ckpt file")
-        if satclip_path and os.path.exists(satclip_path):
-            ckpt = torch.load(satclip_path, map_location="cpu", weights_only=False)
+        path = satclip_path
+        if path and os.path.isdir(path):
+            path = os.path.join(path, CKPT_NAME)
+            if not os.path.isfile(path):
+                raise NotImplementedError(
+                    f"{satclip_path}: an orbax checkpoint directory needs the JAX "
+                    "package to be read; pass a torch SatCLIP .ckpt file")
+        if path and os.path.exists(path):
+            ckpt = torch.load(path, map_location="cpu", weights_only=False)
             hp = ckpt.get("hyper_parameters", {})
+            if (hp.get("le_type", "sphericalharmonics") != "sphericalharmonics"
+                    or hp.get("pe_type", "siren") != "siren"):
+                raise NotImplementedError(
+                    f"SatCLIP checkpoint uses {hp.get('le_type')}/"
+                    f"{hp.get('pe_type')}; only the reference's "
+                    "sphericalharmonics/siren family loads into the frozen encoder")
             sd = {k: np.asarray(v.detach().cpu().numpy())
                   for k, v in ckpt.get("state_dict", {}).items()
                   if hasattr(v, "detach")}

@@ -16,6 +16,7 @@ in) for a dense layer).
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -96,6 +97,25 @@ def orthogonal(gain: float = 0.02) -> Init:
             q = q.t()
         flat = (gain * q).reshape(out_first.shape)
         return _write(t, flat.transpose(0, 1) if out_first is not t else flat)
+
+    return init
+
+
+def lecun_normal() -> Init:
+    """flax's default kernel init (``lecun_normal``): a normal truncated at
+    two standard deviations, scaled to the variance 1 / fan_in (std
+    sqrt(1 / fan_in) / 0.8796, the truncated normal's own std), drawn by
+    the inverse of the normal's CDF."""
+    def init(t: torch.Tensor, generator: torch.Generator,
+             transposed: bool = False) -> torch.Tensor:
+        fan_in, _ = _fans(t.shape, transposed)
+        std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+        lo, hi = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0, \
+            (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2.0
+        u = torch.empty(t.shape, dtype=torch.float32).uniform_(
+            lo, hi, generator=generator)
+        draw = math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
+        return _write(t, std * draw.clamp(-2.0, 2.0))
 
     return init
 

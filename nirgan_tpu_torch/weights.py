@@ -13,7 +13,8 @@ become ``running_mean`` / ``running_var`` (``_bn_split`` in reverse), with
 ``num_batches_tracked`` 0, which flax does not count.
 ``d_params_from_jax`` does the same for ``NLayerDiscriminator`` and
 ``PixelDiscriminator`` trees, ``baseline_params_from_jax`` for the baseline
-regressors.
+regressors, ``satclip_params_from_jax`` for a whole SatCLIP model (every
+vision tower and location network, ``logit_scale``).
 
 ``load_reference_weights`` and ``load_reference_ckpt`` read a reference
 Lightning ``.ckpt`` (``netG.*``, ``netD.*``) directly: its tensors are
@@ -147,6 +148,151 @@ def baseline_params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
     for name in sorted(params):
         _put(out, name, params[name], (3, 2, 0, 1))
+    return out
+
+
+def _put_bn(out: dict, name: str, p: Mapping, stats: Optional[Mapping]) -> None:
+    """A flax ``BatchNorm`` (``scale``, ``bias`` [, ``mean``, ``var``])
+    under torch's batch-norm names."""
+    out[f"{name}.weight"] = _tensor(p["scale"])
+    out[f"{name}.bias"] = _tensor(p["bias"])
+    if stats is not None:
+        out[f"{name}.running_mean"] = _tensor(stats["mean"])
+        out[f"{name}.running_var"] = _tensor(stats["var"])
+        out[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+
+
+def _put_ln(out: dict, name: str, p: Mapping) -> None:
+    p = p.get("LayerNorm_0", p)  # CLIP's LayerNorm wraps flax's
+    out[f"{name}.weight"] = _tensor(p["scale"])
+    out[f"{name}.bias"] = _tensor(p["bias"])
+
+
+def _conv_bn_tree(out: dict, prefix: str, params: Mapping,
+                  stats: Optional[Mapping], renames: Mapping[str, str]) -> None:
+    """Every conv and batch norm of a ResNet block or stem: flax name ->
+    torch name by ``renames`` (the name itself where absent)."""
+    for key, sub in params.items():
+        name = f"{prefix}{renames.get(key, key)}"
+        if "kernel" in sub and np.ndim(sub["kernel"]) == 4:
+            _put(out, name, sub, (3, 2, 0, 1))
+        elif "scale" in sub:
+            _put_bn(out, name, sub, _sub(stats, key))
+
+
+_CLIP_BLOCK = {"down_conv": "downsample.0", "down_bn": "downsample.1"}
+_TIMM_BLOCK = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+
+
+def _stages(out: dict, prefix: str, params: Mapping, stats: Optional[Mapping],
+            renames: Mapping[str, str]) -> None:
+    """``layer{s}_{i}`` blocks -> ``layer{s}.{i}``."""
+    for key in params:
+        if key.startswith("layer") and "_" in key:
+            stage, i = key.split("_")
+            _conv_bn_tree(out, f"{prefix}{stage}.{i}.", params[key],
+                          _sub(stats, key), renames)
+
+
+def _attention_in_proj(out: dict, name: str, p: Mapping) -> None:
+    """flax ``MultiHeadDotProductAttention`` (``query`` / ``key`` /
+    ``value`` kernels (d, heads, hd), ``out`` (heads, hd, d)) -> torch's
+    fused ``in_proj_weight`` (3d, d) and ``out_proj``."""
+    d = np.shape(p["query"]["kernel"])[0]
+    ws = [np.reshape(p[k]["kernel"], (d, d)).T for k in ("query", "key", "value")]
+    bs = [np.reshape(p[k]["bias"], (d,)) for k in ("query", "key", "value")]
+    out[f"{name}.in_proj_weight"] = _tensor(np.concatenate(ws))
+    out[f"{name}.in_proj_bias"] = _tensor(np.concatenate(bs))
+    out[f"{name}.out_proj.weight"] = _tensor(np.reshape(p["out"]["kernel"], (d, d)).T)
+    out[f"{name}.out_proj.bias"] = _tensor(p["out"]["bias"])
+
+
+def _visual_from_jax(out: dict, params: Mapping, stats: Optional[Mapping]) -> None:
+    v = "visual."
+    if "attnpool" in params:  # CLIP ModifiedResNet
+        _conv_bn_tree(out, v, {k: params[k] for k in
+                               ("conv1", "bn1", "conv2", "bn2", "conv3", "bn3")},
+                      stats, {})
+        _stages(out, v, params, stats, _CLIP_BLOCK)
+        pool = params["attnpool"]
+        out[f"{v}attnpool.positional_embedding"] = _tensor(pool["positional_embedding"])
+        for k in ("q_proj", "k_proj", "v_proj", "c_proj"):
+            _put(out, f"{v}attnpool.{k}", pool[k], (1, 0))
+    elif "class_embedding" in params:  # CLIP VisionTransformer
+        _put(out, f"{v}conv1", params["conv1"], (3, 2, 0, 1))
+        for k in ("class_embedding", "positional_embedding", "proj"):
+            out[f"{v}{k}"] = _tensor(params[k])
+        for k in ("ln_pre", "ln_post"):
+            _put_ln(out, f"{v}{k}", params[k])
+        blocks = sorted((k for k in params if k.startswith("block")),
+                        key=lambda k: int(k[len("block"):]))
+        for i, k in enumerate(blocks):
+            b, name = params[k], f"{v}transformer.resblocks.{i}"
+            _attention_in_proj(out, f"{name}.attn", b["attn"])
+            _put_ln(out, f"{name}.ln_1", b["ln_1"])
+            _put_ln(out, f"{name}.ln_2", b["ln_2"])
+            _put(out, f"{name}.mlp.c_fc", b["c_fc"], (1, 0))
+            _put(out, f"{name}.mlp.c_proj", b["c_proj"], (1, 0))
+    elif "cls_token" in params:  # timm ViT
+        _put(out, f"{v}patch_embed.proj", params["patch_embed_proj"], (3, 2, 0, 1))
+        for k in ("cls_token", "pos_embed"):
+            out[f"{v}{k}"] = _tensor(params[k])
+        blocks = sorted((k for k in params if k.startswith("blocks_")),
+                        key=lambda k: int(k[len("blocks_"):]))
+        for i, k in enumerate(blocks):
+            b, name = params[k], f"{v}blocks.{i}"
+            for src, dst in (("attn_qkv", "attn.qkv"), ("attn_proj", "attn.proj"),
+                             ("mlp_fc1", "mlp.fc1"), ("mlp_fc2", "mlp.fc2")):
+                _put(out, f"{name}.{dst}", b[src], (1, 0))
+            _put_ln(out, f"{name}.norm1", b["norm1"])
+            _put_ln(out, f"{name}.norm2", b["norm2"])
+        _put_ln(out, f"{v}norm", params["norm"])
+        _put(out, f"{v}head", params["head"], (1, 0))
+    elif "fc" in params:  # timm ResNet
+        _conv_bn_tree(out, v, {k: params[k] for k in ("conv1", "bn1")}, stats, {})
+        _stages(out, v, params, stats, _TIMM_BLOCK)
+        _put(out, f"{v}fc", params["fc"], (1, 0))
+    else:
+        raise ValueError(f"unknown SatCLIP vision tower: {sorted(params)}")
+
+
+def _location_from_jax(out: dict, nnet: Mapping) -> None:
+    n = "location.nnet."
+    if "kernel" in nnet:  # linear
+        _put(out, n.rstrip("."), nnet, (1, 0))
+    elif "last_layer" in nnet:  # siren
+        i = 0
+        while f"layers_{i}" in nnet:
+            _put(out, f"{n}layers.{i}", nnet[f"layers_{i}"], (1, 0))
+            i += 1
+        _put(out, f"{n}last_layer", nnet["last_layer"], (1, 0))
+    elif "class_emb" in nnet:  # fcnet
+        _put(out, f"{n}feats.0", nnet["Dense_0"], (1, 0))
+        for i in range(4):
+            for w in ("w1", "w2"):
+                _put(out, f"{n}feats.{2 + i}.{w}", nnet[f"res{i}_{w}"], (1, 0))
+        _put(out, f"{n}class_emb", nnet["class_emb"], (1, 0))
+    elif "Dense_0" in nnet:  # mlp: Dense_i -> features.{2 i}
+        i = 0
+        while f"Dense_{i}" in nnet:
+            _put(out, f"{n}features.{2 * i}", nnet[f"Dense_{i}"], (1, 0))
+            i += 1
+    else:
+        raise ValueError(f"unknown SatCLIP location network: {sorted(nnet)}")
+
+
+def satclip_params_from_jax(params: Mapping,
+                            batch_stats: Optional[Mapping] = None) -> dict[str, torch.Tensor]:
+    """Flax params of ``nirgan_tpu``'s ``SatCLIP`` [and its ``batch_stats``]
+    -> the port's ``SatCLIP`` state_dict: any vision tower (CLIP ResNet or
+    ViT, timm ResNet-18/50 or ViT-S), any location network (siren, mlp,
+    fcnet, linear; ``nnet`` -> ``location.nnet``) and ``logit_scale``.
+    Conv kernels HWIO -> OIHW, dense (in, out) -> (out, in), flax
+    attention's q/k/v kernels into torch's ``in_proj_weight``."""
+    out: dict[str, torch.Tensor] = {}
+    _visual_from_jax(out, params["visual"], _sub(batch_stats, "visual"))
+    _location_from_jax(out, params["nnet"])
+    out["logit_scale"] = _tensor(params["logit_scale"])
     return out
 
 

@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's jax-free modules (config,
 datasets, GeoTIFF codec, host loader, dataset selection, plateau scheduler,
-JSONL logger, reference-checkpoint reader) against their originals, on the
-same numpy inputs: exact equality throughout."""
+JSONL logger, reference-checkpoint reader, the S2Geo pretraining data and
+the positional encodings) against their originals, on the same numpy
+inputs: exact equality throughout."""
 
 import json
 import os
@@ -14,7 +15,9 @@ from nirgan_tpu import config as jax_config
 from nirgan_tpu.data import datasets as jax_datasets
 from nirgan_tpu.data import geotiff as jax_geotiff
 from nirgan_tpu.data import pipeline as jax_pipeline
+from nirgan_tpu.data import s2geo as jax_s2geo
 from nirgan_tpu.data import select_dataset as jax_select
+from nirgan_tpu.models.satclip import positional_encoding as jax_posenc
 from nirgan_tpu.train import scheduler as jax_scheduler
 from nirgan_tpu.train.torch_convert import convert_px2px_checkpoint
 from nirgan_tpu.utils import loggers as jax_loggers
@@ -22,7 +25,9 @@ from nirgan_tpu_torch import config as port_config
 from nirgan_tpu_torch.data import datasets as port_datasets
 from nirgan_tpu_torch.data import geotiff as port_geotiff
 from nirgan_tpu_torch.data import pipeline as port_pipeline
+from nirgan_tpu_torch.data import s2geo as port_s2geo
 from nirgan_tpu_torch.data import select_dataset as port_select
+from nirgan_tpu_torch.models.satclip import positional_encoding as port_posenc
 from nirgan_tpu_torch.train import scheduler as port_scheduler
 from nirgan_tpu_torch.utils import loggers as port_loggers
 from nirgan_tpu_torch.weights import (
@@ -457,3 +462,85 @@ def test_load_reference_weights_raises_on_what_is_not_ported(netG, netD, dropout
     define_G(3, 1, 8, netG, "batch", use_dropout=dropout).load_state_dict(
         got["netG"], strict=True)
     define_D(4, 8, netD, norm="batch").load_state_dict(got["netD"], strict=True)
+
+
+# ------------------------------------------------------------ S2Geo data
+@pytest.mark.parametrize("kwargs", [
+    dict(length=5, crop=16, channels=4, mode="rand"),
+    dict(length=5, crop=16, channels=4, mode="geo", seed=3),
+    dict(length=3, crop=24, channels=13, mode="geo"),
+    dict(length=3, crop=16, channels=4, mode="geo", augment=False),
+])
+def test_fake_s2geo_dataset_equals_the_original(kwargs):
+    ours = port_s2geo.FakeS2GeoDataset(**kwargs)
+    theirs = jax_s2geo.FakeS2GeoDataset(**kwargs)
+    assert len(ours) == len(theirs)
+    for i in range(len(ours)):
+        _same_item(ours[i], theirs[i])
+
+
+def _write_s2geo_tiles(root, n=7, size=40):
+    rng = np.random.default_rng(17)
+    os.makedirs(root)
+    for i in range(n):
+        key = "point" if i % 2 else "coords"
+        np.savez(os.path.join(root, f"t{i}.npz"),
+                 image=rng.integers(0, 10000, (4, size, size)).astype(np.uint16),
+                 **{key: rng.uniform(-90, 90, 2).astype(np.float32)})
+
+
+@pytest.mark.parametrize("augment", [True, False])
+def test_s2geo_folder_packing_and_packed_reader_equal_the_original(tmp_path, augment):
+    src = str(tmp_path / "tiles")
+    _write_s2geo_tiles(src)
+    ours = port_s2geo.S2GeoDataset(src, crop=32, seed=3, augment=augment)
+    theirs = jax_s2geo.S2GeoDataset(src, crop=32, seed=3, augment=augment)
+    for i in range(len(ours)):
+        _same_item(ours[i], theirs[i])
+    n_ours = port_s2geo.pack_s2geo_shards(
+        port_s2geo.S2GeoDataset(src, augment=False, crop=1 << 30),
+        str(tmp_path / "ours"), tiles_per_shard=3)
+    n_theirs = jax_s2geo.pack_s2geo_shards(
+        jax_s2geo.S2GeoDataset(src, augment=False, crop=1 << 30),
+        str(tmp_path / "theirs"), tiles_per_shard=3)
+    assert n_ours == n_theirs == 3
+    for f in sorted(os.listdir(tmp_path / "theirs")):
+        np.testing.assert_array_equal(np.load(tmp_path / "ours" / f),
+                                      np.load(tmp_path / "theirs" / f), err_msg=f)
+    packed = port_s2geo.PackedS2GeoDataset(str(tmp_path / "ours"), crop=32, seed=3,
+                                           augment=augment)
+    ref = jax_s2geo.PackedS2GeoDataset(str(tmp_path / "theirs"), crop=32, seed=3,
+                                       augment=augment)
+    assert len(packed) == len(ref) == 7
+    for i in range(7):
+        _same_item(packed[i], ref[i])
+    a = next(iter(port_s2geo.S2GeoDataModule(base_path=str(tmp_path / "ours"),
+                                             batch_size=2, crop=32,
+                                             num_workers=0).train_dataloader()))
+    b = next(iter(jax_s2geo.S2GeoDataModule(base_path=str(tmp_path / "theirs"),
+                                            batch_size=2, crop=32,
+                                            num_workers=0).train_dataloader()))
+    _same_item(a, b)
+
+
+def test_s2geo_train_transform_equals_the_original():
+    rng_a, rng_b = np.random.default_rng(5), np.random.default_rng(5)
+    img = np.random.default_rng(0).random((4, 48, 48), dtype=np.float32)
+    item = {"image": img, "point": np.asarray([10.0, -20.0], np.float32)}
+    for _ in range(4):  # crops, flips and blurs from the same stream
+        _same_item(port_s2geo.train_transform(dict(item), rng_a, crop=32, blur_p=0.7),
+                   jax_s2geo.train_transform(dict(item), rng_b, crop=32, blur_p=0.7))
+
+
+# ---------------------------------------------------- positional encodings
+@pytest.mark.parametrize("name", ["theory", "grid", "spherec", "spherecplus",
+                                  "spherem", "spheremplus"])
+def test_positional_encoding_ladders_equal_the_original(name):
+    """The copies build the same frequency ladder and width; their values
+    are held to the originals' in ``test_torch_satclip_pretrain.py``."""
+    kw = dict(min_radius=0.5, max_radius=90, frequency_num=7)
+    ours = port_posenc.get_positional_encoding(name, **kw)
+    theirs = jax_posenc.get_positional_encoding(name, **kw)
+    assert ours.embedding_dim == theirs.embedding_dim
+    np.testing.assert_array_equal(ours.freq_list, theirs.freq_list)
+    assert port_posenc.__all__ == jax_posenc.__all__

@@ -161,9 +161,10 @@ _NO_JAX = (
 
 def test_port_never_imports_jax(tmp_path):
     """Importing every module of the port, then a serving run and a train
-    run through the CLIs on the plain and on the SatCLIP inject route,
-    leaves jax and every module of the JAX package out of sys.modules (a
-    subprocess: this test process has jax loaded by conftest)."""
+    run through the CLIs on the plain and on the SatCLIP inject route, and
+    a SatCLIP pretraining run (small), leaves jax and every module of the
+    JAX package out of sys.modules (a subprocess: this test process has jax
+    loaded by conftest)."""
     from tests.test_torch_satclip import _small_satclip_file
     from tests.test_torch_train import _tiny_config_file
 
@@ -193,6 +194,11 @@ def test_port_never_imports_jax(tmp_path):
         "assert n == 3, n\n"
         f"cli.main(['--config', {satclip_cfg!r}, '--device', 'cpu',\n"
         f"          '--max-steps', '2', '--logdir', {str(tmp_path / 'run_sat')!r}])\n"
+        "from nirgan_tpu_torch import pretrain_satclip\n"
+        "pretrain_satclip.main(['--fake', '--steps', '2', '--device', 'cpu',\n"
+        "                       '--batch-size', '2', '--image-size', '32',\n"
+        "                       '--resnet-layers', '1', '1', '1', '1',\n"
+        f"                       '--vision-width', '8', '--out', {str(tmp_path / 'pre')!r}])\n"
         + _NO_JAX +
         "print('clean', len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
