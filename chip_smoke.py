@@ -74,7 +74,8 @@ never prints the final ``"ok": true`` line:
    (``last`` and ``best``) and a resume for 2 more.  Twice:
    ``config_px2px.yaml`` (batch 16 at 256^2), then the flagship
    ``config_px2px_SatCLIP.yaml`` (inject, batch 8 at 256^2) with the CLI's
-   default arguments.  Then the concat route (6 blocks): one forward and
+   default arguments (its ``save_val_df`` sweep at the epoch's end
+   included).  Then the concat route (6 blocks): one forward and
    one step, kernels against the plain route.  One flagship step with the
    SSIM, histogram (EMD) and spectral-index losses on, against the plain
    route, ``emd_loss`` timed; ``config_px2px.yaml`` at ngf 16 / ndf 16,
@@ -119,6 +120,24 @@ never prints the final ``"ok": true`` line:
    ``config_px2px_SatCLIP.yaml`` ``Px2PxTask`` that trains a step and
    serves a batch, the wrapper's embeddings against the pretrain task's
    ``location_encoder``.
+   The validation tools (``phase_validation``, bf16 over f32 params, seed
+   0): ``python -m nirgan_tpu_torch.validate`` in a process of its own on
+   ``config_px2px.yaml`` with a fake val split of 64 256^2 samples with
+   coordinates: the CSV's 64 rows and the GeoJSON's 64 features, the
+   example panels of samples 0 and 50, every metric finite, the Köppen and
+   continent joins on the shipped layers, no jax in that process.  The
+   same sweep in process (the head's bias at 1 and its weight x0.1, so the
+   NIR lies in (0, 1) and the index columns are away from their poles):
+   A 18, B 23, C 1 a batch of 8; against the plain route (predictions >=
+   40 dB, metrics within 1e-2, PSNR 0.1 dB), again bit for bit; samples/s
+   by the host's clock beside the forward's and the metric program's
+   device ms; with the int8 trunk (D 18, E 19 a batch, PSNR within 1 dB of
+   the bf16 sweep's) and the CLI's ``--quant int8``; ``--compare`` with the
+   flagship (three radar plots); f32, two batches at 64^2, card against
+   CPU (<= 1e-3); the flagship train CLI with its ``save_val_df`` for two
+   epochs (the e1 and e2 GeoJSONs, its launches); its ``last.pt``
+   through ``python -m nirgan_tpu_torch.export_torch_ckpt`` and
+   ``load_reference_weights``, served bit for bit as the trained G.
 6. launches: one call of the instance norm at each timed shape under
    ``torch.profiler``: one kernel where the plan is resident, two where it
    streams.  Then the 10980^2 scene's window loop under the profiler: its
@@ -144,6 +163,8 @@ kernel's ``serving`` entry holds the serving path's shape, times, bound and
 launches (``per_forward``: in one generator forward); every kernel's
 ``scene`` entry its wrapper calls in the 10980^2 scene's run (D's and
 E's: the 3000 x 4000 int8 scene's), every kernel's
+``validation`` entry (A, B, C; D and E from the int8 sweep) its launches
+in the validation sweep of 64 samples and per batch of 8, every kernel's
 ``satclip`` entry holds its launches on the SatCLIP inject route (the
 training CLI's default run, one step, the serving CLI, one forward) and its
 ``satclip_step`` entry (``satclip_u1`` / ``satclip_u0`` for the transposed
@@ -375,11 +396,16 @@ def psnr(a: torch.Tensor, b: torch.Tensor, peak_to_peak: float) -> float:
 
 
 # ------------------------------------------------------------------ phases
-def phase_device() -> dict:
-    smi = subprocess.run(
+def smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> dict:
+    print(smi_line(), flush=True)
     dev = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count()}
     log("device", f"{dev['kind']} x{dev['count']}, torch {torch.__version__}, "
@@ -1797,11 +1823,12 @@ def phase_train(tmp: str, satclip: bool = False) -> tuple[dict, dict]:
     # --- the training CLI: 8 steps, then a resume for 2 more.  The plain
     # config has 4 steps an epoch (validations at 4 and 8, one batch each);
     # the SatCLIP config, run by the CLI's default arguments, 8 steps an
-    # epoch (one validation at 8, one batch)
+    # epoch (one validation at 8, one batch, then its save_val_df sweep:
+    # one batch of 8)
     run = os.path.join(tmp, "run_satclip" if satclip else "run")
     argv = ["--log-every", "1"] if satclip else ["--config", CONFIG, "--device",
                                                  "cuda", "--log-every", "1"]
-    val_steps, n_eval = ([8], 1) if satclip else ([4, 8], 2)
+    val_steps, n_eval = ([8], 1 + 1) if satclip else ([4, 8], 2)
     reset_counts()
     t0 = time.perf_counter()
     final = cli.main(argv + ["--logdir", run, "--max-steps", "8"])
@@ -1816,6 +1843,8 @@ def phase_train(tmp: str, satclip: bool = False) -> tuple[dict, dict]:
         raise AssertionError(f"CLI run: step {final.step}, launches {launches}")
     missing = [f for f in ("last.pt", "best.pt", "sched_state_last.json",
                            "sched_state_best.json", "config.yaml")
+               + (("validation_metrics.csv",
+                   "validation_metrics_ablation_satclip_True_e1.geojson") * satclip)
                if not os.path.isfile(os.path.join(run, f))]
     with open(os.path.join(run, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
@@ -3184,6 +3213,307 @@ def check_pretrain_f32() -> None:
 
 
 # kernel-name fragments -> the rows of the profile's breakdown, first match
+# ------------------------------------------------------- validation tools
+VAL_SAMPLES, VAL_BATCH = 64, 8  # the sweep's samples and the spider's batch
+# wrapper calls of one sweep batch: one serving forward
+VAL_LAUNCHES = {k: EVAL_LAUNCHES[k] for k in SERVING_KERNELS}
+VAL_METRICS = ("ssim", "psnr", "l1", "l2", "l1_ndvi", "l1_ndwi", "l1_evi")
+# kernels vs plain route, bf16: the [0, 1]-scaled columns within 1e-2 (a
+# bf16 ulp of the ~0.76 outputs is 4e-3, and the columns are means over
+# 240^2 pixels of differences of both signs), PSNR within 0.1 dB
+VAL_ATOL, VAL_PSNR_DB = 1e-2, 0.1
+
+
+def validation_config(tmp: str, name: str = "validation.yaml", **tpu) -> str:
+    """``config_px2px.yaml`` as shipped but for a fake val split of
+    ``VAL_SAMPLES`` 256^2 samples with coordinates (the split is an eighth
+    of ``length``), written to a file for the CLI."""
+    from nirgan_tpu_torch.config import load_config, save_config
+
+    cfg = load_config(CONFIG)
+    cfg.Data.fake_settings.length = 8 * VAL_SAMPLES
+    cfg.Data.fake_settings.return_coords = True
+    for key, value in tpu.items():
+        cfg.tpu[key] = value
+    path = os.path.join(tmp, name)
+    save_config(cfg, path)
+    return path
+
+
+def positive_head(task) -> None:
+    """The head's bias at 1 and its weight scaled by 0.1, in place: the
+    NIR comes out in about (0.7, 0.8), as a trained generator's lies in
+    (0, 1), so that the spectral-index columns are away from the poles of
+    their ratios (a random head's negative output sits on them, where no
+    rounding bound holds)."""
+    with torch.no_grad():
+        task.netG.c1.bias.fill_(1.0)
+        task.netG.c1.weight.mul_(0.1)
+
+
+def sweep(task, ds, folder: str, n: int = VAL_SAMPLES) -> tuple:
+    """The spider sweep of ``task`` over ``n`` samples of ``ds`` into
+    ``folder``: (its rows, the predictions, host s, device ms of the
+    forwards and of the metric program by CUDA events)."""
+    from nirgan_tpu_torch.validation import spider
+
+    preds, spans = [], {"forward": [], "metrics": []}
+    serve, measure = task.predict_step, spider.per_sample_metrics
+
+    def timed(kind, fn):
+        def run(*args):
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            marks[0].record()
+            out = fn(*args)
+            marks[1].record()
+            spans[kind].append(marks)
+            return out
+        return run
+
+    def predict(*args):
+        preds.append(timed("forward", serve)(*args))
+        return preds[-1]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(task, "predict_step", predict), \
+         mock.patch.object(spider, "per_sample_metrics", timed("metrics", measure)):
+        rows = spider.spider_validation_callback(task, ds, satclip=task.satclip,
+                                                 folder=folder, max_samples=n)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    device = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    return rows, np.concatenate(preds), host_s, device
+
+
+def metric_gap(got, ref) -> dict:
+    """The worst |difference| of each metric column."""
+    return {k: float(np.max(np.abs(got[k].values - ref[k].values))) for k in VAL_METRICS}
+
+
+def check_validation_files(folder: str, n: int, tag: str, epoch: int = 0) -> "object":
+    """The sweep's CSV and GeoJSON in ``folder``: ``n`` rows and features,
+    every metric finite; returns the GeoJSON as a table."""
+    import pandas as pd
+
+    from nirgan_tpu_torch.validation.spiders import read_metric_geojson
+
+    satclip = tag == "True"
+    csv = pd.read_csv(os.path.join(folder, "validation_metrics.csv"))
+    geo = read_metric_geojson(os.path.join(
+        folder, f"validation_metrics_ablation_satclip_{satclip}_e{epoch}.geojson"))
+    finite = bool(np.isfinite(geo[list(VAL_METRICS)].values).all())
+    if len(csv) != n or len(geo) != n or not finite:
+        raise AssertionError(f"{folder}: {len(csv)} CSV rows, {len(geo)} features "
+                             f"(want {n}), finite {finite}")
+    return geo
+
+
+def phase_validation(tmp: str) -> dict:
+    """The validation tools on the card: ``python -m nirgan_tpu_torch.validate``
+    on a derived ``config_px2px.yaml`` (64 val samples), the same sweep in
+    process on the kernels against the plain route and again bit for bit,
+    with ``--quant int8``, ``--compare``, f32 card against CPU, the
+    flagship trainer's ``save_val_df`` sweep over two epochs, and the
+    export of its run as a reference ``.ckpt``.  Returns the kernels'
+    launches in the bf16 and the int8 sweep."""
+    from nirgan_tpu_torch import export_torch_ckpt, validate
+    from nirgan_tpu_torch.config import load_config
+    from nirgan_tpu_torch.data import dataset_selector
+    from nirgan_tpu_torch.tasks import Px2PxTask
+    from nirgan_tpu_torch.train import cli
+    from nirgan_tpu_torch.validation import spider
+    from nirgan_tpu_torch.weights import load_reference_weights
+
+    cfg_path = validation_config(tmp)
+    smi = smi_line()
+
+    # --- the CLI in a process of its own, on the card by its default
+    out = os.path.join(tmp, "validate_cli")
+    code = ("import runpy, sys\n"
+            f"sys.argv = ['validate', '--config', {cfg_path!r}, '--max-samples', "
+            f"'{VAL_SAMPLES}', '--out', {out!r}]\n"
+            "runpy.run_module('nirgan_tpu_torch.validate', run_name='__main__')\n"
+            "print('LOADED', sorted(m for m in sys.modules\n"
+            "                       if m.split('.')[0] in ('jax', 'nirgan_tpu')))\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"validate CLI failed:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    loaded = [line for line in proc.stdout.splitlines() if line.startswith("LOADED")]
+    geo = check_validation_files(out, VAL_SAMPLES, "False")
+    images = sorted(os.listdir(os.path.join(out, "images")))
+    koppen, continents = sorted(set(geo["Koppen_Class"])), sorted(set(geo["Continent"]))
+    log("validation", f"python -m nirgan_tpu_torch.validate --config <64 val samples> "
+        f"--max-samples {VAL_SAMPLES}: {time.perf_counter() - t0:.2f} s with process "
+        f"start; {len(geo)} rows, panels {images}, Köppen classes {koppen}, "
+        f"continents {continents}; jax or the JAX package loaded: {loaded}")
+    if (images != ["example_image_0000_NoSatCLIP.png", "example_image_0050_NoSatCLIP.png"]
+            or loaded != ["LOADED []"] or not set(koppen) <= set("ABCDE")
+            or continents == ["Unknown"]):
+        raise AssertionError(f"validate CLI: {images}, {loaded}, {koppen}, {continents}")
+
+    # --- the same sweep in process: kernels, counted; plain route; again
+    cfg = load_config(cfg_path)
+    ds = dataset_selector(cfg).val_ds
+    task = Px2PxTask(cfg, device="cuda", seed=SEED)
+    positive_head(task)
+    sweep(task, ds, os.path.join(tmp, "val_warm"), VAL_BATCH)  # warm: allocations
+    reset_counts()
+    rows, preds, host_s, device_ms = sweep(task, ds, os.path.join(tmp, "val_kernels"))
+    launches = counts()
+    no_library("validation sweep")
+    batches = VAL_SAMPLES // VAL_BATCH
+    want = {k: batches * v for k, v in VAL_LAUNCHES.items()}
+    log("validation", f"sweep of {VAL_SAMPLES} at batch {VAL_BATCH}, bf16: launches "
+        f"{launches} (want {want}: A {VAL_LAUNCHES['trunk_conv']}, B "
+        f"{VAL_LAUNCHES['instance_norm']}, C {VAL_LAUNCHES['head_conv']} a batch)")
+    if {k: launches[k] for k in want} != want or any(
+            launches[k] for k in launches if k not in want):
+        raise AssertionError(f"validation sweep launches {launches} != {want}")
+    # one batch's forward and metric program timed alone, the card given a
+    # head start so that the host's launches do not pass for device time
+    from nirgan_tpu_torch.ops.pad import reflect_pad_to
+    from nirgan_tpu_torch.validation.per_sample_metrics import per_sample_metrics
+
+    x = torch.rand((VAL_BATCH, TRAIN_TILE, TRAIN_TILE, 3), device=task.device,
+                   generator=torch.Generator(device=task.device).manual_seed(SEED))
+    x = reflect_pad_to(x, task.bucket_for(TRAIN_TILE, TRAIN_TILE),
+                       task.bucket_for(TRAIN_TILE, TRAIN_TILE)).to(task.compute_dtype)
+    crops = [x[:, 8:248, 8:248, :3].float(), x[:, 8:248, 8:248, :1].float(),
+             x[:, 9:249, 9:249, :1].float()]
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: task.g_apply(x), iters=10, run_ahead=True)
+        metric_ms = time_ms(lambda: per_sample_metrics(*crops), iters=10,
+                            run_ahead=True)
+    busy = batches * (fwd_ms + metric_ms) / (host_s * 1e3)
+    log("validation", f"{smi}: {VAL_SAMPLES / host_s:.2f} samples/s ({host_s:.3f} s, "
+        f"host clock, panels and joins included); spans on the stream (CUDA events, "
+        f"the host's launch gaps included) forwards {device_ms['forward']:.3f} ms, "
+        f"metric program {device_ms['metrics']:.3f} ms for {batches} batches; alone "
+        f"with the card's head start a batch's forward {fwd_ms:.3f} ms and metric "
+        f"program {metric_ms:.3f} ms: the card busy about {100 * busy:.1f}% of the sweep")
+    with plain_route():
+        plain_rows, plain_preds, _, _ = sweep(task, ds, os.path.join(tmp, "val_plain"))
+    db = psnr(torch.from_numpy(preds), torch.from_numpy(plain_preds), 2.0)
+    gap = metric_gap(rows, plain_rows)
+    log("validation", f"kernels vs plain route: predictions {db:.2f} dB (bound 40, "
+        f"tanh range 2); worst metric gaps {gap} (bound {VAL_ATOL}, PSNR "
+        f"{VAL_PSNR_DB} dB); NIR {float(preds.min()):.4f}..{float(preds.max()):.4f}")
+    if not (db >= 40.0 and gap["psnr"] <= VAL_PSNR_DB
+            and all(v <= VAL_ATOL for k, v in gap.items() if k != "psnr")):
+        raise AssertionError(f"validation sweep vs plain route: {db} dB, {gap}")
+    again, again_preds, _, _ = sweep(task, ds, os.path.join(tmp, "val_again"))
+    same = np.array_equal(again_preds, preds) and all(
+        np.array_equal(again[k].values, rows[k].values) for k in VAL_METRICS)
+    log("validation", f"the sweep again: bit for bit {same}")
+    if not same:
+        raise AssertionError("the validation sweep did not repeat bit for bit")
+
+    # --- int8: the CLI's --quant int8 in process, counted
+    int8_task = Px2PxTask(load_config(validation_config(tmp, "v8.yaml",
+                                                      serving_quant="int8")),
+                          device="cuda", seed=SEED)
+    positive_head(int8_task)
+    reset_counts()
+    int8_rows, _, int8_s, _ = sweep(int8_task, ds, os.path.join(tmp, "val_int8"))
+    int8_launches = {**counts(), **int8_counts()}
+    want8 = {"trunk_conv": EVAL_LAUNCHES["trunk_conv"],  # the calibration forward
+             "int8_conv": batches * INT8_FORWARD["int8_conv"],
+             "int8_norm": batches * INT8_FORWARD["int8_norm"]}
+    db8 = float(np.max(np.abs(int8_rows["psnr"].values - rows["psnr"].values)))
+    log("validation", f"sweep with the int8 trunk: launches {int8_launches} (want "
+        f"{want8}: D {INT8_FORWARD['int8_conv']}, E {INT8_FORWARD['int8_norm']} a "
+        f"batch); worst per-sample PSNR gap to the bf16 sweep {db8:.4f} dB (bound 1); "
+        f"{VAL_SAMPLES / int8_s:.2f} samples/s")
+    if {k: int8_launches[k] for k in want8} != want8 or not db8 <= 1.0:
+        raise AssertionError(f"int8 sweep: {int8_launches}, {db8} dB")
+    cli_rows = validate.main(["--config", cfg_path, "--quant", "int8", "--max-samples",
+                              str(VAL_BATCH), "--out", os.path.join(tmp, "val_cli8")])
+    if len(cli_rows) != VAL_BATCH or not np.isfinite(cli_rows["psnr"].values).all():
+        raise AssertionError(f"validate --quant int8: {len(cli_rows)} rows")
+    del int8_task
+
+    # --- --compare: the flagship against the plain config, three radars
+    folder, plots = validate.main(["--compare", SATCLIP_CONFIG, cfg_path, "--out",
+                                   os.path.join(tmp, "compare"), "--max-samples",
+                                   str(VAL_SAMPLES)])
+    names = sorted(os.path.basename(p) for p in plots)
+    log("validation", f"--compare {os.path.basename(SATCLIP_CONFIG)} <plain>: {names}")
+    if len(plots) != 3 or not all(os.path.getsize(p) > 0 for p in plots):
+        raise AssertionError(f"--compare wrote {plots}")
+    check_validation_files(folder, 8, "True")  # the flagship's val split: 8
+
+    # --- f32, card against CPU: two batches at a small config (TF32 off)
+    small = load_config(CONFIG)
+    small.tpu.compute_dtype = "float32"
+    small.tpu.shape_buckets = [64]
+    small.base_configs.netG = "resnet_6blocks"
+    fake = small.Data.fake_settings
+    fake.image_size, fake.length, fake.return_coords = 64, 16 * VAL_BATCH, True
+    small_ds = dataset_selector(small).val_ds
+    with cudnn_tf32(False):
+        tables = []
+        for device in ("cuda", "cpu"):
+            t = Px2PxTask(small, device=device, seed=SEED)
+            positive_head(t)
+            tables.append(spider.spider_validation_callback(
+                t, small_ds, satclip=False, folder=os.path.join(tmp, f"f32_{device}")))
+    gap32 = metric_gap(*tables)
+    log("validation", f"f32 sweep of 2 batches at 64^2, card vs CPU: worst gaps {gap32} "
+        "(bound 1e-3)")
+    if len(tables[0]) != 2 * VAL_BATCH or not all(v <= 1e-3 for v in gap32.values()):
+        raise AssertionError(f"f32 sweep card vs CPU: {gap32}")
+
+    # --- the flagship trainer with save_val_df (as shipped): two epochs of
+    # 8 steps, a validation batch and a sweep batch at each epoch's end
+    run = os.path.join(tmp, "run_val_df")
+    reset_counts()
+    t0 = time.perf_counter()
+    final = cli.main(["--logdir", run, "--max-steps", "16", "--log-every", "8"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    trained = counts()
+    want_t = {k: 16 * STEP_LAUNCHES[k] + 2 * (1 + 1) * EVAL_LAUNCHES[k]
+              for k in STEP_LAUNCHES}
+    for epoch in (1, 2):
+        check_validation_files(run, 8, "True", epoch)
+    log("validation", f"train CLI (flagship, save_val_df) 16 steps, 2 epochs in "
+        f"{dt:.2f} s: sweeps e1 and e2 written; launches {trained} (want {want_t})")
+    if final.step != 16 or trained != want_t:
+        raise AssertionError(f"save_val_df run: step {final.step}, {trained}")
+
+    # --- its last.pt exported and served back, bit for bit
+    ckpt = os.path.join(tmp, "exported.ckpt")
+    export_torch_ckpt.main(["--config", SATCLIP_CONFIG, "--ckpt",
+                            os.path.join(run, "last.pt"), "--out", ckpt])
+    flagship = load_config(SATCLIP_CONFIG)
+    blob = torch.load(os.path.join(run, "last.pt"), map_location="cpu", weights_only=True)
+    served = Px2PxTask(flagship, device="cuda", seed=SEED + 1).bind(
+        load_reference_weights(ckpt, flagship)["netG"])
+    original = Px2PxTask(flagship, device="cuda", seed=SEED + 1).bind(blob["G"])
+    batch = first_batch(flagship)
+    a = served.predict_step(batch["rgb"], batch["coords"])
+    b = original.predict_step(batch["rgb"], batch["coords"])
+    log("validation", f"exported {os.path.basename(ckpt)} ({os.path.getsize(ckpt)} "
+        f"bytes) served back: {a.shape} bit for bit {np.array_equal(a, b)}")
+    if not np.array_equal(a, b):
+        raise AssertionError("the exported checkpoint does not serve the trained G")
+    del task, served, original
+    torch.cuda.empty_cache()
+    return {"bf16": launches, "int8": int8_launches}
+
+
+def validation_entry(launches: dict, name: str) -> dict:
+    """A kernel's ``validation`` entry: its launches in the phase's sweep of
+    ``VAL_SAMPLES`` and per batch of ``VAL_BATCH``."""
+    batches = VAL_SAMPLES // VAL_BATCH
+    return {"launches": launches[name], "per_batch": launches[name] / batches,
+            "samples": VAL_SAMPLES, "batch": VAL_BATCH}
+
+
 PROFILE_GROUPS = (
     ("igemm_wgmma_kernel<256", "wgmma implicit GEMM, N = 256 (kernel A; B5 dx at u0)"),
     ("igemm_wgmma_kernel<128", "wgmma implicit GEMM, N = 128 (B5 dx at u1)"),
@@ -3530,6 +3860,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         phase_baselines(tmp)
         pretrain = phase_satclip_pretrain(tmp)
+        validation = phase_validation(tmp)
     phase_norm_launches()
     phase_host_waits()
     phase_pretrain_profile(pretrain)
@@ -3547,6 +3878,7 @@ def main() -> None:
         kernel["scene"] = {"launches": SCENE["bf16"][name], "windows": SCENE["windows"],
                            "batch": SCENE_BATCH}
         if name in SERVING_KERNELS:
+            kernel["validation"] = validation_entry(validation["bf16"], name)
             kernel["serving"]["launches"] = serving[name]
             kernel["serving"]["per_forward"] = per_forward[name]
             kernel["satclip"]["serving_launches"] = sat_serving[name]
@@ -3574,7 +3906,8 @@ def main() -> None:
                   # the 3000 x 4000 scene with the int8 trunk (2 batches)
                   "scene": {"launches": SCENE["int8"][name],
                             "windows": scene_windows(SCENE_H, SCENE_W),
-                            "batch": SCENE_BATCH}}
+                            "batch": SCENE_BATCH},
+                  "validation": validation_entry(validation["int8"], name)}
         entries.append(kernel)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

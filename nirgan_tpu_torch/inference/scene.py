@@ -209,12 +209,12 @@ def blend_scene(task, padded: torch.Tensor, height: int, width: int, *,
 
     trunk_q = None
     if task.wants_int8_serving() and wins:
-        if task._trunk_q is None:
+        trunk_q = task.kept_trunk_q()
+        if trunk_q is None:
             # calibrate on the GLOBAL first window batch, identical in every
             # band, so banded runs derive ONE shared quantised trunk
             first = make_batch(wins_global[:batch_size])
-            task._trunk_q = task.build_trunk_q(first["rgb"], first.get("embeds"))
-        trunk_q = task._trunk_q
+            trunk_q = task.trunk_q_for(first["rgb"], first.get("embeds"))
 
     for i in range(0, len(wins), batch_size):
         batch_wins = wins[i:i + batch_size]

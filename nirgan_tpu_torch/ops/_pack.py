@@ -97,14 +97,16 @@ def laid_out(weight: torch.Tensor, device: torch.device, dtype: torch.dtype,
     raises (an optimizer step, ``load_state_dict``, ``copy_``).  A write
     through the legacy ``weight.data`` view raises no counter and is not
     seen.  A tensor made under ``torch.inference_mode`` has no counter and
-    is laid out on every call."""
+    is laid out on every call.  The kept layout is made outside inference
+    mode, so a training step may use a layout that serving made first."""
     if weight.is_inference():
         return layout(weight.to(device=device, dtype=dtype))
     key = (weight._version, weight.data_ptr(), device, dtype, layout)
     kept = _LAID_OUT.get(id(weight))
     if kept is not None and kept[0]() is weight and kept[1] == key:
         return kept[2]
-    out = layout(weight.detach().to(device=device, dtype=dtype))
+    with torch.inference_mode(False):
+        out = layout(weight.detach().to(device=device, dtype=dtype))
     ident = id(weight)
     ref = weakref.ref(weight, lambda _, ident=ident: _LAID_OUT.pop(ident, None))
     _LAID_OUT[ident] = (ref, key, out)

@@ -118,7 +118,7 @@ class Px2PxTask:
         # "int8" serves the residual trunk in int8 (ops/int8_trunk.py,
         # kernels D and E), calibrated on the first batch served
         self.serving_quant = str(tpu.get("serving_quant", "none"))
-        self._trunk_q = None
+        self._trunk_q, self._trunk_q_of = None, None
         sc = config.get("satclip", ConfigNode({"use_satclip": False}))
         self.satclip = bool(sc.get("use_satclip", False))
         self.satclip_style = sc.get("satclip_style", None) if self.satclip else None
@@ -442,14 +442,31 @@ class Px2PxTask:
                 return quantize_trunk(self.netG.state_dict(), self.netG.n_blocks,
                                       calib)
 
+    def _weight_versions(self) -> tuple:
+        """The generator's parameters' version counters, which every
+        in-place write raises (an optimizer step, ``load_state_dict``)."""
+        return tuple(p._version for p in self.netG.parameters())
+
     def trunk_q_for(self, x: torch.Tensor,
                     embeds: Optional[torch.Tensor] = None) -> Optional[dict]:
         """The int8 pack to serve with, or None on the float path: built
-        from ``x`` (and ``embeds``) on the first call with the bound weights,
-        then kept until ``bind`` changes them."""
-        if self.wants_int8_serving() and self._trunk_q is None:
+        from ``x`` (and ``embeds``) on the first call with the current
+        weights, then kept as long as they are: a write to any of them
+        (``bind``, a training step) drops it, and the next call calibrates
+        anew (the JAX trainer re-binds before each validation sweep)."""
+        if not self.wants_int8_serving():
+            return None
+        if self.kept_trunk_q() is None:
             self._trunk_q = self.build_trunk_q(x, embeds)
+            self._trunk_q_of = self._weight_versions()
         return self._trunk_q
+
+    def kept_trunk_q(self) -> Optional[dict]:
+        """The int8 pack if it was built from the current weights, else
+        None."""
+        if self._trunk_q is not None and self._trunk_q_of == self._weight_versions():
+            return self._trunk_q
+        return None
 
     # ---------------------------------------------------------------- serve
     def bucket_for(self, h: int, w: int) -> int:
@@ -472,7 +489,7 @@ class Px2PxTask:
         does for its static shapes, which changes the instance-norm
         statistics; the result is cropped back.  With ``serving_quant:
         int8`` the first batch calibrates the int8 trunk, which then serves
-        every batch until ``bind``."""
+        every batch until the weights change (``trunk_q_for``)."""
         rgb = np.asarray(rgb, np.float32)
         _, _, h, w = rgb.shape
         size = self.bucket_for(h, w)

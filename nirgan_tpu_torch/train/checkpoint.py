@@ -8,7 +8,8 @@ lr_g, lr_d, the dropout generator's state} written under a private name and
 renamed, so a crash never leaves half a checkpoint.  The state_dicts carry
 the batch norms' running statistics; a task without a discriminator (the
 baselines) saves no D.  ``merge_state_dict`` is the strict=False warm
-start of ``merge_params``.  The JAX package's orbax directories are not read.
+start of ``merge_params``; ``run_checkpoint`` finds the file of a run
+directory, ``best`` first.  The JAX package's orbax directories are not read.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Mapping, Optional
 
 import torch
 
-__all__ = ["CheckpointManager", "merge_state_dict"]
+__all__ = ["CheckpointManager", "merge_state_dict", "run_checkpoint"]
 
 
 def merge_state_dict(module: torch.nn.Module,
@@ -30,6 +31,25 @@ def merge_state_dict(module: torch.nn.Module,
     keep = {k: v for k, v in loaded.items()
             if k in own and tuple(v.shape) == tuple(own[k].shape)}
     module.load_state_dict(keep, strict=False)
+
+
+def run_checkpoint(path: str) -> str:
+    """A checkpoint file of the trainer: ``path`` itself if it is a file,
+    else the ``best.pt`` (or, without one, the ``last.pt``) of the run
+    directory ``path``.  The JAX package's orbax directories (``best/``,
+    ``last/``) need jax and raise with the reason."""
+    if os.path.isfile(path):
+        return path
+    p = path.rstrip("/")
+    for which in ("best", "last"):
+        if CheckpointManager.exists(p, which):
+            return os.path.join(p, f"{which}.pt")
+    if os.path.basename(p) in ("best", "last") or any(
+            os.path.isdir(os.path.join(p, w)) for w in ("best", "last")):
+        raise ValueError(f"{path}: an orbax checkpoint directory needs the JAX "
+                         "package; pass a run directory of the port's trainer "
+                         "(best.pt / last.pt) or one of those files")
+    raise FileNotFoundError(f"{path}: no best.pt or last.pt there")
 
 
 class CheckpointManager:

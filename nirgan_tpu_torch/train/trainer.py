@@ -23,12 +23,18 @@
   * a SIGTERM checkpoints ``last`` at the next step boundary and returns
   * JSONL logging (``utils/loggers.py``); the JAX package's TensorBoard
     and Weights & Biases backends are not ported
+  * ``custom_configs.experimentation.save_val_df``: from epoch 1 on, after
+    the checkpoints, the geographic sweep over the whole validation set
+    (``validation/spider.py``) writes ``validation_metrics.csv`` and
+    ``validation_metrics_ablation_satclip_{satclip}_e{epoch}.geojson`` into
+    the logdir.  It serves through ``predict_step`` (eval mode, no
+    gradient, no running statistic or dropout draw; an int8 pack of older
+    weights is rebuilt, ``Px2PxTask.trunk_q_for``), so training goes on bit
+    for bit as without it; a failing sweep is printed and never stops
+    training, as in the reference
 
 The task is a ``Px2PxTask`` or a ``BaselineTask``: the loop assumes no
 discriminator (the baselines have none; their state has no ``opt_d``).
-
-Not ported yet: the spider callback (``save_val_df``), which waits for the
-``validation/`` package.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import json
 import os
 import signal
 import time
+import traceback
 from typing import Optional
 
 import numpy as np
@@ -349,3 +356,20 @@ class Trainer:
             self._save_sched_state("last")
             if improved:
                 self._save_sched_state("best")
+
+        # the per-epoch geographic sweep (nirgan_tpu/train/trainer.py:410-423;
+        # reference model/pix2pix.py:329-344): best-effort, never kills
+        # training
+        experimentation = self.config.custom_configs.get("experimentation") or {}
+        if experimentation.get("save_val_df") and epoch >= 1:
+            try:
+                from nirgan_tpu_torch.validation.spider import (
+                    spider_validation_callback,
+                )
+
+                spider_validation_callback(
+                    self.task, self.dm.val_ds, satclip=self.task.satclip,
+                    folder=self.logdir, epoch_no=epoch)
+            except Exception as e:
+                print("Error in spider callback validation and saving:", e)
+                traceback.print_exc()

@@ -1,8 +1,11 @@
 """Host-side image panels for the validation log: the port's own copy of
-``plot_tensors_hist`` and ``plot_index`` from
+``plot_tensors``, ``plot_tensors_hist`` and ``plot_index`` from
 ``nirgan_tpu/utils/logging_helpers.py`` (reference
 ``utils/logging_helpers.py:9-193``).
 
+  * ``plot_tensors``      — RGB | NIR | predicted-NIR rows (RdYlGn), the
+    spider sweep's example panels; drawn with PIL
+    (``utils/pil_plots.py``) where matplotlib is not installed.
   * ``plot_tensors_hist`` — 4-panel row + intensity histogram, with the
     reference's quirks kept: 1.5× NIR display stretch (:71), center-crop to
     240 (inputs < 350 px) else 500 (:80-83), 100-bin histograms, viridis.
@@ -12,7 +15,8 @@
 Inputs are NCHW float arrays in [0, 1] (the logging call sites' contract,
 ``model/pix2pix.py:286-298``); each returns a PIL image.  matplotlib and PIL
 are imported inside the functions, so the module imports without them and
-a missing one raises ``ImportError`` at the call.
+a missing one raises ``ImportError`` at the call (``plot_tensors`` then
+draws with PIL).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import numpy as np
 
 from nirgan_tpu_torch.data.normalise import minmax_percentile
 
-__all__ = ["plot_tensors_hist", "plot_index"]
+__all__ = ["plot_tensors", "plot_tensors_hist", "plot_index"]
 
 
 def _figure_to_pil(fig, dpi=100):
@@ -45,6 +49,43 @@ def _prep(rgb, nir, pred, max_rows=5):
     pred = np.clip(np.asarray(pred, np.float32), 0, 1)
     n = min(pred.shape[0], max_rows)
     return rgb[:n], nir[:n], pred[:n], n
+
+
+def plot_tensors(rgb, nir, pred_nir, title="Train"):
+    try:
+        import matplotlib
+    except ImportError:
+        return _plot_tensors_pil(rgb, nir, pred_nir)
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    rgb, nir, pred, n = _prep(rgb, nir, pred_nir)
+    rgb = minmax_percentile(rgb, perc=2)
+    fig, axes = plt.subplots(n, 3, figsize=(15, 5 * n), squeeze=False)
+    for i in range(n):
+        axes[i, 0].imshow(np.transpose(rgb[i], (1, 2, 0)))
+        axes[i, 1].imshow(nir[i, 0], cmap="RdYlGn")
+        axes[i, 2].imshow(pred[i, 0], cmap="RdYlGn")
+        for ax in axes[i]:
+            ax.set_xticks([]), ax.set_yticks([])
+    for ax, t in zip(axes[0], ["RGB Image", "NIR Image", "Predicted NIR Image"]):
+        ax.set_title(t)
+    fig.tight_layout()
+    return _figure_to_pil(fig)
+
+
+def _plot_tensors_pil(rgb, nir, pred_nir):
+    """``plot_tensors``'s panels without matplotlib: the same rows, drawn
+    by ``pil_plots.image_grid``."""
+    from nirgan_tpu_torch.utils.pil_plots import image_grid, rdylgn
+
+    rgb, nir, pred, n = _prep(rgb, nir, pred_nir)
+    rgb = minmax_percentile(rgb, perc=2)
+    rows = [[np.round(np.clip(np.transpose(rgb[i], (1, 2, 0)), 0, 1) * 255)
+             .astype(np.uint8), rdylgn(nir[i, 0]), rdylgn(pred[i, 0])]
+            for i in range(n)]
+    return image_grid(rows, ["RGB Image", "NIR Image", "Predicted NIR Image"])
 
 
 def _center_crop_nchw(x, size):

@@ -21,6 +21,9 @@ Lightning ``.ckpt`` (``netG.*``, ``netD.*``) directly: its tensors are
 torch's layout already, so only the ``nn.Sequential`` indices are mapped
 onto the port's layer names, batch norms with their buffers.
 ``load_baseline_weights`` does it for a baseline's ``.ckpt``.
+``export_reference_weights`` goes the other way, from the same key tables:
+the port's state_dicts as a reference ``state_dict`` (``python -m
+nirgan_tpu_torch.export_torch_ckpt`` writes it).
 """
 
 from __future__ import annotations
@@ -412,29 +415,46 @@ def _tower(sd: Mapping, prefix: str, keys: Mapping[str, str],
     return out
 
 
-def _generator(sd: Mapping, bc) -> dict:
-    batch = bc.norm == "batch"
+def _generator_keys(bc) -> tuple[dict[str, str], dict[str, str]]:
+    """(convs and transposed convs, norms) of the configured generator:
+    the port's layer names -> the reference's."""
     if bc.netG.startswith("unet"):
         convs, convts, norms = _unet_keys(7 if bc.netG == "unet_128" else 8)
-        return _tower(sd, "netG.", {**convs, **convts}, norms if batch else {})
+        return {**convs, **convts}, norms
     n_blocks = 9 if bc.netG == "resnet_9blocks" else 6
     dropout = not bc.no_dropout
-    out = _tower(sd, "netG.", _resnet_generator_keys(n_blocks, dropout),
-                 _resnet_norm_keys(n_blocks, dropout) if batch else {})
-    # the inject variant's extras keep their names and layouts
-    for name in ("fc.weight", "fc.bias") + _SCALARS:
+    return (_resnet_generator_keys(n_blocks, dropout),
+            _resnet_norm_keys(n_blocks, dropout))
+
+
+def _discriminator_keys(bc) -> tuple[dict[str, str], dict[str, str]]:
+    """(convs, norms) of the configured discriminator."""
+    if bc.netD == "pixel":
+        return _PIXEL_KEYS, _PIXEL_NORM_KEYS
+    n_layers = 3 if bc.netD == "basic" else bc.n_layers_D
+    return _nlayer_discriminator_keys(n_layers), _nlayer_norm_keys(n_layers)
+
+
+# the inject variant's extras keep their names and layouts
+_G_EXTRAS = ("fc.weight", "fc.bias") + _SCALARS
+
+
+def _generator(sd: Mapping, bc) -> dict:
+    keys, norms = _generator_keys(bc)
+    out = _tower(sd, "netG.", keys, norms if bc.norm == "batch" else {})
+    for name in _G_EXTRAS:
         if f"netG.{name}" in sd:
             out[name] = _tensor(sd[f"netG.{name}"])
+    # the scalars are 0-d parameters here; a file may hold them as (1,)
+    for name in _SCALARS:
+        if name in out:
+            out[name] = out[name].reshape(())
     return out
 
 
 def _discriminator(sd: Mapping, bc) -> dict:
-    batch = bc.norm == "batch"
-    if bc.netD == "pixel":
-        return _tower(sd, "netD.", _PIXEL_KEYS, _PIXEL_NORM_KEYS if batch else {})
-    n_layers = 3 if bc.netD == "basic" else bc.n_layers_D
-    return _tower(sd, "netD.", _nlayer_discriminator_keys(n_layers),
-                  _nlayer_norm_keys(n_layers) if batch else {})
+    keys, norms = _discriminator_keys(bc)
+    return _tower(sd, "netD.", keys, norms if bc.norm == "batch" else {})
 
 
 def load_reference_weights(path_or_sd, config) -> dict[str, dict]:
@@ -450,6 +470,49 @@ def load_reference_weights(path_or_sd, config) -> dict[str, dict]:
         out["netG"] = _generator(sd, bc)
     if any(k.startswith("netD.") for k in sd):
         out["netD"] = _discriminator(sd, bc)
+    return out
+
+
+def _host32(t: torch.Tensor) -> torch.Tensor:
+    """A tensor of the port's state_dict as the JAX package's exporter
+    writes it: a contiguous f32 copy on the host, a 0-d scalar as a
+    1-element vector (``np.ascontiguousarray``; torch loads it back into a
+    0-d parameter)."""
+    return torch.atleast_1d(t.detach().to("cpu", torch.float32)).contiguous().clone()
+
+
+def _untower(sd: Mapping[str, torch.Tensor], prefix: str,
+             keys: Mapping[str, str]) -> dict[str, torch.Tensor]:
+    """``_tower`` in reverse for the convs: the port's ``{name}.weight`` /
+    ``.bias`` under the reference's ``{prefix}{index}`` names."""
+    out: dict[str, torch.Tensor] = {}
+    for name, ref in keys.items():
+        out[f"{prefix}{ref}.weight"] = _host32(sd[f"{name}.weight"])
+        if f"{name}.bias" in sd:
+            out[f"{prefix}{ref}.bias"] = _host32(sd[f"{name}.bias"])
+    return out
+
+
+def export_reference_weights(netG_sd: Optional[Mapping[str, torch.Tensor]],
+                             netD_sd: Optional[Mapping[str, torch.Tensor]],
+                             config) -> dict[str, torch.Tensor]:
+    """The port's generator and discriminator state_dicts (either may be
+    None) as one reference ``Px2Px_PL`` state_dict (``netG.*``, ``netD.*``
+    in the ``nn.Sequential`` layout), f32 on the host: the inverse of
+    ``load_reference_weights``, from the same key tables, and the key set of
+    ``export_px2px_checkpoint`` in ``nirgan_tpu/train/torch_convert.py``.
+    As there, the convs, the transposed convs and the inject variant's
+    ``fc`` and scalars are written, no norm: a batch-norm net's
+    parameters and running statistics are not exported."""
+    bc = config.base_configs
+    out: dict[str, torch.Tensor] = {}
+    if netG_sd is not None:
+        out.update(_untower(netG_sd, "netG.", _generator_keys(bc)[0]))
+        for name in _G_EXTRAS:
+            if name in netG_sd:
+                out[f"netG.{name}"] = _host32(netG_sd[name])
+    if netD_sd is not None:
+        out.update(_untower(netD_sd, "netD.", _discriminator_keys(bc)[0]))
     return out
 
 
