@@ -23,9 +23,13 @@ never prints the final ``"ok": true`` line:
    cache (``ms``) and on one input (``warm_ms``).  The trunk conv and the
    transposed conv's backward are also held at a shape that their wgmma
    kernels do not take, where the WMMA kernels run.  The int8 trunk's
-   kernels D (conv with moments) and E (norm from moments, three modes) at
+   kernels D (conv with moments) and E (norm from moments, four modes) at
    the serving trunk's shape (4, 133^2, 256) and at odd shapes, D timed
-   beside kernel A at its shape.
+   beside kernel A at its shape; D in its other gathers (the replicate and
+   zero borders, and stride 2 with the zero border at odd and even sides)
+   exact against its plain version, timed at (4, 133^2, 256) beside the
+   reflect gather and kernel A's ``pad=0``, and at stage 2's d1 (4, 266^2,
+   128) -> 256 beside cuDNN's strided conv and kernel B.
 3. generator: the full-width ``resnet_9blocks`` (ngf 64), random weights
    from a seed, batch 4 at 532^2 in bf16: kernel path against the plain
    path, launches per forward, forward time; then ``predict_step`` in f32
@@ -35,7 +39,10 @@ never prints the final ``"ok": true`` line:
    both generators, the trunk calibrated on the batch: D and E's launches,
    against their plain versions >= 40 dB, against the bf16 forward within
    1 dB of the method's own error on the plain versions, a second forward
-   bit for bit, its time beside the float forward's.
+   bit for bit, its time beside the float forward's; the same with stage 2
+   (d1 in int8: D 19, E 20 a forward, timed beside the trunk-only forward
+   and the bf16 one with their dB) and with the replicate and zero trunks,
+   D and E counted by gather and mode.
    Scene serving (``inference/scene.py``, bf16, 512^2 windows at overlap
    32, batch 32, on the card by ``Px2PxTask``'s default device): a seeded
    3000 x 4000 uint16 scene with UTM metadata (63 windows, the last row
@@ -68,8 +75,10 @@ never prints the final ``"ok": true`` line:
    ``extract_batch`` (the batch's pinned, asynchronous copies; the SatCLIP
    tower in line and ahead of time, as the trainer's loader thread runs
    it) and over 8 steps fed through ``DeviceFeed`` at depth 0 and 1; an
-   f32 step on the card
-   against the same seeded step on the CPU at a small config; then
+   f32 step on the card against the same seeded step on the CPU at a small
+   config (the loss terms, D's gradients and its parameters after the
+   update element by element, the G GAN term once the elements that Adam
+   moved the other way are set to the CPU's, and a step at LR 0); then
    ``python -m nirgan_tpu_torch.train`` for 8 steps on the fake data
    (``last`` and ``best``) and a resume for 2 more.  Twice:
    ``config_px2px.yaml`` (batch 16 at 256^2), then the flagship
@@ -81,7 +90,11 @@ never prints the final ``"ok": true`` line:
    route, ``emd_loss`` timed; ``config_px2px.yaml`` at ngf 16 / ndf 16,
    served and stepped once, where the trunk conv and the head take their
    library routes (whose counts must be 0 at the flagship widths
-   everywhere else).
+   everywhere else).  The inject and concat planes of a 64 x 96 map, f32,
+   card against CPU.  One step of ``config_px2px.yaml`` with
+   ``tpu.param_dtype: bfloat16``: launches, gradients, f32 parameters after
+   the update, bit for bit from the seed, its first step's ms beside the
+   f32-parameter config's.
    The model variants, at full width, bf16 over f32 params, seed 0:
    ``unet_256`` (ngf 64, basic D, instance norm, unpadded): the serving
    forward of 4 x 512^2 against the plain route (>= 40 dB), twice bit for
@@ -94,8 +107,11 @@ never prints the final ``"ok": true`` line:
    ``resnet_9blocks`` with dropout, the replicate and zero trunks (kernel A
    in its ``pad=0`` mode; a forward and a step each, bit for bit) and the
    pixel D: one step each against the plain route; ``gradient_penalty``
-   through a batch-norm D, card against CPU, and through kernel B, where
-   its backward must raise.  The baselines: ``python -m
+   through a batch-norm D, card against CPU, and through the instance-norm
+   ``basic`` and ``pixel`` Ds (B and B4 under ``create_graph``), card
+   against an f64 evaluation on the CPU, beside the kernels after the plain
+   forward and a control the check must reject; the penalty step's ms,
+   kernels against the plain route.  The baselines: ``python -m
    nirgan_tpu_torch.train --baseline y --max-steps 4`` (batch 32 of
    256^2), then a step and a forward of each of Linear_NIR, MLP_NIR and
    CNN_NIR.
@@ -155,6 +171,10 @@ the head's backward on its own and the full-width SatCLIP pretrain step
 ``python3 chip_smoke.py --sweep`` instead times the instance norm under
 every launch plan its kernels take at the main path's shapes, beside the
 plan that ``launch_plan`` chooses.
+``python3 chip_smoke.py --phase NAME [NAME ...]`` runs, after phases 0 and
+1, only the named phases (``ALONE``: int8, train, variants, nonsquare,
+param_dtype), with no JSON lines: a phase's checks read without what the
+phases before it leave set.
 
 Before the last line it prints one JSON object with every kernel's route,
 source, launches in the training CLI's run (``per_step``: in one fused
@@ -183,7 +203,11 @@ the forward also with the skip fused (``with_skip``), the backward also
 without the fused ReLU (``no_relu`` at 69^2, ``no_relu_276`` at 276^2,
 beside the library call).  D's and E's entries hold the int8 serving CLI's
 launches (two batches of 4), ``per_forward`` and their times at the serving
-trunk's shape (E by mode).  The last line is
+trunk's shape (E by mode); ``int8_conv_replicate``, ``int8_conv_zero``,
+``int8_conv_stride2`` and ``int8_norm_mode3`` hold D's other gathers and
+E's mode 3 with their launches in the int8 forward that runs them.  The
+line also carries ``stage2`` (the int8 forward with and without it) and
+``bf16_params`` (the first step's ms).  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -226,6 +250,9 @@ EVAL_LAUNCHES = {"trunk_conv": 18, "instance_norm": 23, "instance_norm_bwd": 0,
                  "head_conv": 1, "convt_bwd": 0}
 
 RESULTS: dict = {}  # kernel name -> its JSON entry
+STAGE2: dict = {}  # the full-width int8 forward with and without stage 2
+PENALTY_LAUNCHES: dict = {}  # B and B4 under gradient_penalty, by D
+INT8_ROUTES: dict = {}  # D's launches by gather and E's by mode, an int8 forward
 # the int8 serving trunk's kernels and their wrapper calls a forward of the
 # 9-block generator: D twice a block, E once to quantise the trunk's input
 # and twice a block
@@ -324,6 +351,15 @@ def reset_counts() -> None:
     for table in (kernels(), int8_kernels(), library_routes()):
         for fn in table.values():
             fn.launches = 0
+    for fn in int8_kernels().values():
+        getattr(fn, "by_gather", getattr(fn, "by_mode", {})).clear()
+
+
+def int8_by_route() -> dict:
+    """D's launches by gather and E's by mode since the last reset."""
+    d, e = int8_kernels().values()
+    return {"int8_conv": {f"{b} s{st}": n for (b, st), n in d.by_gather.items()},
+            "int8_norm": {f"mode {m}": n for m, n in sorted(e.by_mode.items())}}
 
 
 def counts() -> dict:
@@ -976,6 +1012,7 @@ def phase_kernels() -> None:
     phase_unet_norms(g)
     phase_convt_bwd(g)
     phase_int8_kernels(g)
+    phase_int8_gathers(g)
     torch.cuda.synchronize()
 
 
@@ -1204,15 +1241,17 @@ def within_ulp(got: torch.Tensor, ref: torch.Tensor, what: str,
 
 
 def check_int8_conv(g: torch.Generator, shape: tuple, co: int,
-                    timed: bool = False) -> tuple:
+                    timed: bool = False, border: str = "reflect",
+                    stride: int = 1) -> tuple:
     """Kernel D against its plain version on int8 x8 of ``shape`` (B, H, W,
     Cin) and a (co, Cin, 3, 3) int8 weight: the staged bf16 accumulator bit
     for bit (both round the exact int32 sum to f32, then to bf16), the sums
     of squares within rtol 1e-5 and the sums within 1e-5 of their scale
     sqrt(n Sigma a^2) (f32 sums of 17,689 terms in other orders; Sigma a
-    mixes signs), and a second launch bit for bit.  Returns (x8, w8, hb,
-    moments, worst relative moment error) and, if ``timed``, the kernel,
-    plain and kernel A ms and the bound."""
+    mixes signs), and a second launch bit for bit; in the gather of
+    ``border`` at ``stride`` (the output (H - 1) // 2 + 1 a side at stride
+    2).  Returns (x8, w8, hb, moments, worst relative moment error) and, if
+    ``timed``, the kernel, plain and kernel A ms and the bound."""
     from nirgan_tpu_torch.ops.int8_trunk import (
         _launch,
         conv_moments_cuda,
@@ -1226,33 +1265,37 @@ def check_int8_conv(g: torch.Generator, shape: tuple, co: int,
     x8 = torch.randint(-127, 128, shape, device=dev, generator=g, dtype=torch.int8)
     w8 = torch.randint(-127, 128, (co, ci, 3, 3), device=dev, generator=g,
                        dtype=torch.int8)
-    hb, m = conv_moments_cuda(x8, w8)
-    rhb, rm = conv_moments_plain(x8, w8)
-    n = shape[1] * shape[2]
-    if not torch.equal(hb, rhb):
-        bad = int((hb != rhb).sum())
-        raise AssertionError(f"int8_conv {shape}->{co}: {bad} staged values differ")
+    hb, m = conv_moments_cuda(x8, w8, border, stride)
+    rhb, rm = conv_moments_plain(x8, w8, border, stride)
+    n = hb.shape[1] * hb.shape[2]
+    sides = ((shape[1] - 1) // stride + 1, (shape[2] - 1) // stride + 1)
+    if tuple(hb.shape) != (shape[0], *sides, co) or not torch.equal(hb, rhb):
+        bad = int((hb != rhb).sum()) if hb.shape == rhb.shape else "all"
+        raise AssertionError(f"int8_conv {shape}->{co} {border} s{stride}: {bad} "
+                             f"staged values differ ({tuple(hb.shape)})")
     e2 = float(((m[:, 1] - rm[:, 1]).abs() / rm[:, 1].abs().clamp(min=1e-30)).max())
     e1 = float(((m[:, 0] - rm[:, 0]).abs() / (n * rm[:, 1]).sqrt().clamp(min=1e-30)).max())
-    hb2, m2 = conv_moments_cuda(x8, w8)
+    hb2, m2 = conv_moments_cuda(x8, w8, border, stride)
     again = torch.equal(hb2, hb) and torch.equal(m2, m)
-    packed = takes_wgmma(ci, co, shape[1] * shape[2])
-    log("int8", f"int8_conv {shape}->{co} ({'wgmma' if packed else 'mma.sync'}): staged "
+    packed = takes_wgmma(ci, co, n)
+    log("int8", f"int8_conv {shape}->{co} {border} s{stride} "
+        f"({'wgmma' if packed else 'mma.sync'}): staged "
         f"accumulator equal to plain bit for bit; Sigma a^2 relative {e2:.3e}, Sigma a "
         f"{e1:.3e} of sqrt(n Sigma a^2) (bounds 1e-5); a second launch bit for bit: "
         f"{again}")
     if not (e1 <= 1e-5 and e2 <= 1e-5 and again):
         raise AssertionError(f"int8_conv {shape}->{co}: moments {e1}, {e2}, {again}")
+    # where the wgmma kernel ran, the mma.sync kernel's gather agrees
+    mma_hb, mma_m = _launch(x8, w8, False, border, stride) if packed else (hb, m)
+    if not (torch.equal(mma_hb, hb) and float((mma_m - m).abs().max()
+                                             / m.abs().max().clamp(min=1e-30)) <= 1e-5):
+        raise AssertionError(f"int8_conv {shape} {border} s{stride}: the mma.sync "
+                             "kernel disagrees")
     out = (x8, w8, hb, m, max(e1, e2))
     if not timed:
         return out
     xb = torch.randn(shape, device=dev, generator=g).bfloat16()
     wf = torch.randn((co, ci, 3, 3), device=dev, generator=g) / (3 * math.sqrt(ci))
-    # the mma.sync kernel on the same shape: the first version, beside
-    mma_hb, mma_m = _launch(x8, w8, False)
-    if not (torch.equal(mma_hb, hb) and float((mma_m - m).abs().max()
-                                             / m.abs().max()) <= 1e-5):
-        raise AssertionError(f"int8_conv {shape}: the mma.sync kernel disagrees")
     ms, plain_ms, a_ms, mma_ms = compare_ms(
         lambda: conv_moments_cuda(x8, w8), lambda: conv_moments_plain(x8, w8),
         lambda: trunk_conv_cuda(xb, wf), lambda: _launch(x8, w8, False), iters=10,
@@ -1269,12 +1312,14 @@ def check_int8_conv(g: torch.Generator, shape: tuple, co: int,
 
 def check_int8_norm(g: torch.Generator, hb: torch.Tensor, m: torch.Tensor,
                     timed: bool = False) -> dict:
-    """Kernel E against its plain version in its three modes on kernel D's
+    """Kernel E against its plain version in its four modes on kernel D's
     staged accumulator ``hb`` and moments ``m``, with a bf16 and an f32
     stream: int8 outputs at most one step apart on at most 1e-4 of them,
     the stream within one step of its type and one of the norm
-    (``within_ulp``), a second launch bit for bit.  With ``timed`` the times of each mode, its plain version
-    and the bound, by mode."""
+    (``within_ulp``; mode 3's bf16 stream within one bf16 step, its f32
+    stream within one f32 step and two of the norm, as mode 2's), a second
+    launch bit for bit.  With ``timed`` the times of each mode, its plain
+    version and the bound, by mode."""
     from nirgan_tpu_torch.ops.int8_trunk import norm_quant_cuda, norm_quant_plain
 
     dev = torch.device("cuda")
@@ -1299,11 +1344,18 @@ def check_int8_norm(g: torch.Generator, hb: torch.Tensor, m: torch.Tensor,
         r2, rq2 = norm_quant_plain(2, hb, s, m, eps, xs)
         steps_apart(q2, rq2, f"{tag} mode 2")
         within_ulp(o2, r2, f"{tag} mode 2 stream", addend=xs)
+        o3, q3 = norm_quant_cuda(3, hb, s, m, eps, dtype=dtype)
+        r3, rq3 = norm_quant_plain(3, hb, s, m, eps, dtype=dtype)
+        within_ulp(o3, r3, f"{tag} mode 3 stream",
+                   addend=None if dtype == torch.bfloat16 else torch.zeros_like(r3))
+        steps_apart(q3, rq3, f"{tag} mode 3")
         last, none = norm_quant_cuda(2, hb, None, m, eps, xs)
         if none is not None or not torch.equal(last, o2):
             raise AssertionError(f"{tag} mode 2 without a next block")
         again = norm_quant_cuda(2, hb, s, m, eps, xs)
+        again3 = norm_quant_cuda(3, hb, s, m, eps, dtype=dtype)
         if not (torch.equal(again[0], o2) and torch.equal(again[1], q2)
+                and torch.equal(again3[0], o3) and torch.equal(again3[1], q3)
                 and torch.equal(norm_quant_cuda(1, hb, s, m, eps), q1)):
             raise AssertionError(f"{tag}: a second launch differs")
     if not timed:
@@ -1316,7 +1368,10 @@ def check_int8_norm(g: torch.Generator, hb: torch.Tensor, m: torch.Tensor,
                  nbytes(hb, m) + hb.numel()),
              2: (lambda: norm_quant_cuda(2, hb, s, m, eps, xb),
                  lambda: norm_quant_plain(2, hb, s, m, eps, xb),
-                 nbytes(hb, m, xb, xb) + hb.numel())}
+                 nbytes(hb, m, xb, xb) + hb.numel()),
+             3: (lambda: norm_quant_cuda(3, hb, s, m, eps, dtype=torch.bfloat16),
+                 lambda: norm_quant_plain(3, hb, s, m, eps, dtype=torch.bfloat16),
+                 nbytes(hb, m, xb) + hb.numel())}
     for mode, (kernel, plain, moved) in modes.items():
         ms, plain_ms = compare_ms(kernel, plain, iters=20, run_ahead=True)
         least = least_time(0, moved)
@@ -1356,15 +1411,123 @@ def phase_int8_kernels(g: torch.Generator) -> None:
                    "mma_sync_ms the mma.sync kernel that other widths take")))
     RESULTS["int8_norm"] = entry(
         "int8_norm", "int8_norm.cu", "nirgan_tpu/ops/int8_trunk.py:94", 0.0,
-        e_times[2], mode0=e_times[0], mode1=e_times[1])
+        e_times[2], mode0=e_times[0], mode1=e_times[1], mode3=e_times[3])
     RESULTS["int8_norm"]["max_abs_err"] = 1.0  # at most one int8 step
     torch.cuda.synchronize()
 
 
-def phase_int8_serving(satclip: bool = False) -> dict:
+# kernel D's other gathers against their plain versions: (border, stride,
+# shape, Cout).  wgmma: tiles that straddle two images (N 256 and 128), the
+# odd and even sides at stride 2, a last tile cut short; mma.sync: a Cout
+# that is no multiple of 128, images smaller than a tile, a width of 3
+GATHER_SHAPES = (
+    ("replicate", 1, (3, 12, 11, 256), 256), ("zero", 1, (3, 12, 11, 256), 256),
+    ("replicate", 1, (3, 20, 30, 128), 128), ("zero", 1, (3, 20, 30, 128), 128),
+    ("replicate", 1, (2, 9, 11, 32), 40), ("zero", 1, (1, 130, 3, 64), 256),
+    ("zero", 2, (3, 27, 25, 128), 256), ("zero", 2, (3, 28, 26, 128), 256),
+    ("zero", 2, (2, 33, 35, 128), 128), ("zero", 2, (2, 34, 36, 128), 128),
+    ("zero", 2, (2, 9, 13, 64), 40), ("zero", 2, (1, 10, 6, 32), 16),
+)
+
+
+def phase_int8_gathers(g: torch.Generator) -> None:
+    """Kernel D in the gathers the JAX int8 code also uses, each against its
+    plain version (the staged accumulator bit for bit, exact in s32; the
+    moments as ``check_int8_conv`` holds them): the replicate and zero
+    borders at stride 1 (the padded int8 trunks) and the zero border at
+    stride 2 (stage 2's d1 conv) at ``GATHER_SHAPES`` and at the serving
+    shapes, timed there: the padded trunks' (4, 133^2, 256) -> 256 beside
+    the reflect gather, the plain version and kernel A's ``pad=0`` on the
+    padded bf16 input (the float route of those trunks); d1's (4, 266^2,
+    128) -> 256 at stride 2 beside the plain version and the float route of
+    that layer (cuDNN's strided conv, then kernel B's norm with the ReLU),
+    and the whole ``int8_d1_forward`` (E, D, E) beside it."""
+    from nirgan_tpu_torch.ops.conv import conv2d
+    from nirgan_tpu_torch.ops.instance_norm import instance_norm_cuda
+    from nirgan_tpu_torch.ops.int8_trunk import (
+        conv_moments_cuda,
+        conv_moments_plain,
+        int8_d1_forward,
+        quant_folded,
+    )
+    from nirgan_tpu_torch.ops.pad import replicate_pad2d, zero_pad2d
+    from nirgan_tpu_torch.ops.trunk_conv import trunk_conv_cuda
+
+    dev = torch.device("cuda")
+    err = 0.0
+    for border, stride, shape, co in GATHER_SHAPES:
+        err = max(err, check_int8_conv(g, shape, co, border=border, stride=stride)[-1])
+    entries = {}
+    trunk = (BATCH, SIDE // 4, SIDE // 4, 256)
+    for border, pad in (("replicate", replicate_pad2d), ("zero", zero_pad2d)):
+        x8, w8, hb, m, e = check_int8_conv(g, trunk, 256, border=border)
+        err = max(err, e)
+        xb = torch.randn(trunk, device=dev, generator=g).bfloat16()
+        wf = torch.randn((256, 256, 3, 3), device=dev, generator=g) / 48
+        xp = pad(xb, 1)
+        ms, reflect_ms, plain_ms, a_ms = compare_ms(
+            lambda: conv_moments_cuda(x8, w8, border),
+            lambda: conv_moments_cuda(x8, w8),
+            lambda: conv_moments_plain(x8, w8, border),
+            lambda: trunk_conv_cuda(xp, wf, pad=0), iters=10, run_ahead=True)
+        ops = 2 * math.prod(trunk[:3]) * 9 * 256 * 256
+        least = least_time(ops, nbytes(x8, w8, hb, m), PEAK_INT8_OPS)
+        log("int8", f"int8_conv {trunk}->256 {border}: kernel {ms:.4f} ms "
+            f"({least[0] / ms * 100:.0f}% of the bound {least[0]:.4f} ms, {least[1]}), "
+            f"the reflect gather {reflect_ms:.4f} ms, plain {plain_ms:.4f} ms, kernel A "
+            f"pad=0 (bf16, the float route) {a_ms:.4f} ms")
+        entries[border] = (trunk, ms, plain_ms, a_ms, least,
+                           dict(reflect_ms=reflect_ms, share=least[0] / ms))
+        del x8, w8, hb, m, xb, xp
+    d1 = (BATCH, SIDE // 2, SIDE // 2, 128)
+    x8, w8, hb, m, e = check_int8_conv(g, d1, 256, border="zero", stride=2)
+    err = max(err, e)
+    xb = torch.relu(torch.randn(d1, device=dev, generator=g)).bfloat16()
+    wf = (torch.randn((256, 128, 3, 3), device=dev, generator=g) / 34).bfloat16()
+    bias = torch.zeros(256, device=dev, dtype=torch.bfloat16)
+    s_in = torch.full((128,), 3.0 / 127, device=dev)
+    wq, eps = quant_folded(wf.float(), s_in)
+    qd1 = {"w": wq, "eps": eps, "s_in": s_in}
+    s_next = torch.full((256,), 2.5 / 127, device=dev)
+
+    def float_route():
+        return instance_norm_cuda(conv2d(xb, wf, bias, 2, 1), relu=True)
+
+    ms, plain_ms, bf16_ms, fwd_ms = compare_ms(
+        lambda: conv_moments_cuda(x8, w8, "zero", 2),
+        lambda: conv_moments_plain(x8, w8, "zero", 2), float_route,
+        lambda: int8_d1_forward(xb, qd1, s_next), iters=10, run_ahead=True)
+    n_out = hb.shape[1] * hb.shape[2]
+    ops = 2 * BATCH * n_out * 9 * 128 * 256
+    least = least_time(ops, nbytes(x8, w8, hb, m), PEAK_INT8_OPS)
+    log("int8", f"int8_conv {d1}->256 zero stride 2 (stage 2's d1): kernel {ms:.4f} ms "
+        f"({least[0] / ms * 100:.0f}% of the bound {least[0]:.4f} ms, {least[1]}), plain "
+        f"{plain_ms:.4f} ms; int8_d1_forward (E, D, E) {fwd_ms:.4f} ms against the "
+        f"float route (cuDNN's strided conv + kernel B) {bf16_ms:.4f} ms")
+    entries["stride2"] = (d1, ms, plain_ms, bf16_ms, least,
+                          dict(int8_d1_forward_ms=fwd_ms, share=least[0] / ms))
+    note = ("library_ms: the float route of the same layer (kernel A pad=0 on the "
+            "padded bf16 input; for stride 2 cuDNN's bf16 strided conv followed by "
+            "kernel B's norm and ReLU): no PyTorch call convolves int8 on a card")
+    RESULTS["int8_conv_gathers"] = {
+        "max_abs_err": err, "note": note,
+        **{k: {**times(*v), "shape": str(v[0])} for k, v in entries.items()}}
+    torch.cuda.synchronize()
+
+
+def int8_forward_launches(stage2: bool) -> dict:
+    """D's and E's calls in one int8 forward of the 9-block generator: with
+    stage 2 one D more (d1), and E's quantisation of the trunk's input moves
+    to d1's input while d1's end (mode 3) writes the trunk's."""
+    return ({"int8_conv": 19, "int8_norm": 20} if stage2 else INT8_FORWARD)
+
+
+def phase_int8_serving(satclip: bool = False, stage2: bool = False,
+                       padding: str = "reflect") -> dict:
     """The int8 serving forward of the full-width generator (the plain one,
-    or the inject one of ``config_px2px_SatCLIP.yaml``), batch 4 at 532^2,
-    the trunk calibrated on that batch: D and E launches a forward; against
+    or the inject one of ``config_px2px_SatCLIP.yaml``; with ``stage2`` d1
+    in int8 too; with the trunk's ``padding`` replicate or zero), batch 4 at
+    532^2, the trunk calibrated on that batch: D and E launches a forward; against
     the plain route (the same pack through D and E's plain versions) >= 40
     dB, the JAX package's bound for the int8 trunk summed in another order
     (``tests/test_int8_trunk.py::test_int8_under_spatial_sharding``: a
@@ -1379,7 +1542,9 @@ def phase_int8_serving(satclip: bool = False) -> dict:
     from nirgan_tpu_torch.ops.int8_trunk import calibrate_trunk, quantize_trunk
 
     dev = torch.device("cuda")
-    tag = "int8 serving, inject" if satclip else "int8 serving"
+    tag = ("int8 serving" + (", inject" if satclip else "")
+           + (", stage 2" if stage2 else "")
+           + (f", {padding} trunk" if padding != "reflect" else ""))
     seeded = torch.Generator().manual_seed(SEED)
     if satclip:
         G = define_G_inject(load_config(SATCLIP_CONFIG), compute_dtype=torch.bfloat16,
@@ -1389,22 +1554,33 @@ def phase_int8_serving(satclip: bool = False) -> dict:
         G = define_G(3, 1, 64, "resnet_9blocks", "instance",
                      compute_dtype=torch.bfloat16, generator=seeded).to(dev).eval()
         embeds = ()
+    G.padding_type = padding
+    for i in range(G.n_blocks):
+        getattr(G, f"r{i}").padding_type = padding
     x = (torch.rand((BATCH, SIDE, SIDE, 3),
                     generator=torch.Generator().manual_seed(1)) * 0.3).to(dev)
     with torch.inference_mode():
-        calib = calibrate_trunk(G, x, *embeds)
+        calib = calibrate_trunk(G, x, *embeds, stage2=stage2)
     with torch.no_grad():
         pack = quantize_trunk(G.state_dict(), G.n_blocks, calib)
+    want = int8_forward_launches(stage2)
     with torch.inference_mode():
         reset_counts()
         y8 = G(x, *embeds, trunk_q=pack)
         torch.cuda.synchronize()
-        per_forward, floats = int8_counts(), counts()
+        per_forward, floats, routes = int8_counts(), counts(), int8_by_route()
         no_library(tag)
-        log(tag, f"launches per forward {per_forward} (want {INT8_FORWARD}), float "
-            f"kernels {floats}")
-        if per_forward != INT8_FORWARD or floats["trunk_conv"] != 0:
-            raise AssertionError(f"{tag}: launches {per_forward}, {floats}")
+        trunk = 2 * G.n_blocks
+        want_routes = {"int8_conv": {f"{padding} s1": trunk, **({"zero s2": 1} if stage2
+                                                               else {})},
+                       "int8_norm": {"mode 0": 1, "mode 1": G.n_blocks,
+                                     "mode 2": G.n_blocks, **({"mode 3": 1} if stage2
+                                                              else {})}}
+        log(tag, f"launches per forward {per_forward} (want {want}), by gather and "
+            f"mode {routes}, float kernels {floats}")
+        if per_forward != want or routes != want_routes or floats["trunk_conv"] != 0:
+            raise AssertionError(f"{tag}: launches {per_forward}, {routes}, {floats}")
+        INT8_ROUTES[tag] = routes
         if tuple(y8.shape) != (BATCH, SIDE, SIDE, 1) or not torch.isfinite(y8).all():
             raise AssertionError(f"{tag}: bad output {tuple(y8.shape)}")
         same = torch.equal(G(x, *embeds, trunk_q=pack), y8)
@@ -1424,10 +1600,23 @@ def phase_int8_serving(satclip: bool = False) -> dict:
             f"{float_plain:.2f} dB")
         if not (db_plain >= 40.0 and db_float >= max(33.0, all_plain - 1.0) and same):
             raise AssertionError(f"{tag}: {db_plain}, {db_float} ({all_plain}), {same}")
-        ms8, msf = compare_ms(lambda: G(x, *embeds, trunk_q=pack),
-                              lambda: G(x, *embeds), iters=10)
-        log(tag, f"forward of {BATCH} x {SIDE}^2: int8 trunk {ms8:.3f} ms, bf16 "
-            f"{msf:.3f} ms")
+        if not stage2:
+            ms8, msf = compare_ms(lambda: G(x, *embeds, trunk_q=pack),
+                                  lambda: G(x, *embeds), iters=10)
+            log(tag, f"forward of {BATCH} x {SIDE}^2: int8 trunk {ms8:.3f} ms, bf16 "
+                f"{msf:.3f} ms")
+            return per_forward
+        # stage 2 against the trunk-only pack and the float forward, in turns
+        trunk_only = {k: v for k, v in pack.items() if k != "d1"}
+        db_trunk = psnr(G(x, *embeds, trunk_q=trunk_only), y_float, 2.0)
+        ms2, ms8, msf = compare_ms(lambda: G(x, *embeds, trunk_q=pack),
+                                   lambda: G(x, *embeds, trunk_q=trunk_only),
+                                   lambda: G(x, *embeds), iters=10)
+        log(tag, f"forward of {BATCH} x {SIDE}^2: stage 2 {ms2:.3f} ms "
+            f"({db_float:.2f} dB from bf16), trunk only {ms8:.3f} ms ({db_trunk:.2f} "
+            f"dB), bf16 {msf:.3f} ms")
+        STAGE2.update(ms=ms2, trunk_only_ms=ms8, bf16_ms=msf, db=db_float,
+                      trunk_only_db=db_trunk)
     return per_forward
 
 
@@ -1623,9 +1812,10 @@ def loss_terms(metrics: dict) -> dict:
 
 
 def check_terms(what: str, got: dict, ref: dict, rtol: float, atol: float) -> None:
-    worst = max(abs(got[k] - ref[k]) / (atol + rtol * abs(ref[k])) for k in ref)
-    log("train", f"{what}: worst |err| / bound {worst:.3f} (bound: rtol {rtol:.0e}"
-        f" + atol {atol:.0e}); " + ", ".join(
+    ratio = {k: abs(got[k] - ref[k]) / (atol + rtol * abs(ref[k])) for k in ref}
+    worst = max(ratio.values())
+    log("train", f"{what}: worst |err| / bound {worst:.3f} ({max(ratio, key=ratio.get)}; "
+        f"bound: rtol {rtol:.0e} + atol {atol:.0e}); " + ", ".join(
             f"{k.split('/')[1]} {got[k]:.6g} vs {ref[k]:.6g}" for k in ref))
     if not all(math.isfinite(v) for v in got.values()) or not worst <= 1.0:
         raise AssertionError(f"{what}: {got} vs {ref}")
@@ -1653,6 +1843,153 @@ def check_gradients(task) -> None:
             "non-zero gradient on the kernel path")
         if bad:
             raise AssertionError(f"{tag} parameters without a gradient: {bad}")
+
+
+# the conv biases of the basic D whose output feeds an instance norm, which
+# removes them: their gradient is zero in exact arithmetic (the tests'
+# ``_ahead_of_a_norm``)
+D_AHEAD = ("conv1.bias", "conv2.bias", "conv3.bias")
+
+
+def check_f32_step(name: str, cfg, device: str = "cuda") -> None:
+    """One seeded f32 step of ``cfg`` on the card (TF32 off, set here) and
+    on the CPU, the step as configured:
+
+    - the seven loss terms other than the G GAN term within rtol 1e-4 +
+      atol 1e-6 (f32 sums in other orders);
+    - D's gradients, card vs CPU: each tensor within 1e-1 of its largest
+      element.  On this batch the real images leave channels of D's deeper
+      instance norms with a variance below what f32's E[x^2] - E[x]^2
+      resolves, so the normalised values there are rounding noise whose
+      sign picks the LeakyReLU's slope: the gradient is discontinuous, and
+      two f32 evaluations on one CPU (oneDNN's convolutions and the
+      others) lie up to 2.2e-2 of a tensor's largest apart at ``conv3``
+      (the flagship), 1.8e-3 (``config_px2px.yaml``), each within 2e-6 of
+      f64 on the fake half of the batch.  The biases ahead of an instance
+      norm, whose gradient is zero in exact arithmetic, under 1e-5 of the
+      network's largest gradient on both sides (the tests' rule,
+      ``_ahead_of_a_norm``);
+    - D's parameters after its update.  Adam's first update is
+      u = sign(g) (1 - eps / (|g| + eps)), so an element whose gradient is
+      at least a tenth of its tensor's largest (beyond the bound above) has
+      the same sign on both sides, and lies within one f32 step of the
+      CPU's (the spacing of f32 at the larger of the two plus 2^-20 lr for
+      Adam's roundings) plus lr eps / min |g| (u's dependence on |g|).  Every other
+      element within 2 lr; how many there are, and how many went the other
+      way, is reported;
+    - the G GAN term, which runs through the updated D: the card's step
+      again with the elements of D that its update moved the other way
+      (more than lr from the CPU's) set to the CPU's values, all eight
+      terms within rtol 1e-4 + atol 1e-6.  So the term's distance in the
+      plain card step (printed, with its spread over three runs of the step
+      and two with cuDNN's deterministic algorithms: the card's f32 step is
+      not bit-reproducible) comes from those elements alone;
+    - a step at LR 0, where G's loss runs through the D both sides share:
+      all eight terms within rtol 1e-4 + atol 1e-6.
+
+    ``device`` is the side held against the CPU."""
+    from nirgan_tpu_torch.tasks import Px2PxTask
+
+    batch = first_batch(cfg)
+    lr = float(cfg.base_configs.lr)
+
+    def step(device, lr=None, after_d=None):
+        task = Px2PxTask(cfg, device=device, seed=SEED)
+        state = task.init_state()
+        if lr is not None:
+            state.set_lr(lr, lr)
+        if after_d is not None:
+            update_d = state.opt_d.step
+
+            def step_d():
+                update_d()
+                after_d(task.netD)
+
+            state.opt_d.step = step_d
+        return task, loss_terms(task.train_step(state, task.extract_batch(batch)))
+
+    cpu, ref = step("cpu")
+    ref0 = step("cpu", lr=0.0)[1]
+    grad = {k: p.grad for k, p in cpu.netD.named_parameters()}
+    want = {k: p.detach() for k, p in cpu.netD.named_parameters()}
+    near0 = {k: (g.abs() < 1e-1 * g.abs().max()) | (k in D_AHEAD) for k, g in grad.items()}
+
+    swapped = []
+
+    def to_cpu_where_flipped(net):
+        # the elements that Adam's update moved the other way from the CPU's
+        with torch.no_grad():
+            for k, p in net.named_parameters():
+                m = (p - want[k].to(p.device)).abs() > lr
+                p[m] = want[k].to(p.device)[m]
+                swapped.append(int(m.sum()))
+
+    gan_key = "model_loss/generator_GAN_loss"
+    with cudnn_tf32(False):  # set here, not inherited from an earlier phase
+        reset_counts()
+        task, got = step(device)
+        launched = counts()
+        spread = [got[gan_key]] + [step(device)[1][gan_key] for _ in range(2)]
+        torch.backends.cudnn.deterministic = True
+        try:
+            deterministic = [step(device)[1][gan_key] for _ in range(2)]
+        finally:
+            torch.backends.cudnn.deterministic = False
+        mixed = step(device, after_d=to_cpu_where_flipped)[1]
+        got0 = step(device, lr=0.0)[1]
+    others = {k: v for k, v in ref.items() if k != gan_key}
+    check_terms(f"{name}: f32 step 1, card vs CPU (launches {launched}), all but the "
+                "G GAN term", {k: got[k] for k in others}, others, 1e-4, 1e-6)
+
+    # D's gradients and its parameters after its update, card vs CPU
+    net_max = max(float(g.abs().max()) for g in grad.values())
+    g_err, noise = (0.0, ""), 0.0
+    worst, n_near, n_flip, n_sign, near_max, n_all = (0.0, ""), 0, 0, 0, 0.0, 0
+    for k, p in task.netD.named_parameters():
+        g_dev, g_cpu = p.grad.detach().cpu().double(), grad[k].double()
+        if k in D_AHEAD:
+            noise = max(noise, float(torch.maximum(g_dev.abs(), g_cpu.abs()).max()) / net_max)
+        else:
+            g_err = max(g_err, (float((g_dev - g_cpu).abs().max() / g_cpu.abs().max()), k))
+        d = (p.detach().cpu().double() - want[k].double()).abs()
+        w = torch.maximum(want[k].abs(), p.detach().cpu().abs())
+        # the spacing of f32 at the larger of the two: 2^(exponent - 24),
+        # mantissa in [0.5, 1)
+        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 24).double()
+        bound = ulp + lr * (2.0 ** -20 + 1e-8 / torch.minimum(g_dev.abs(), g_cpu.abs()))
+        real = ~near0[k]
+        n_sign += int((torch.sign(g_dev) != torch.sign(g_cpu))[real].sum())
+        if real.any() and float((d / bound)[real].max()) > worst[0]:
+            worst = (float((d / bound)[real].max()), k)
+        n_all += p.numel()
+        n_near += int(near0[k].sum())
+        n_flip += int((d[near0[k]] > lr).sum())
+        if near0[k].any():
+            near_max = max(near_max, float(d[near0[k]].max()) / lr)
+    log("train", f"{name}: f32 step 1, D's gradients card vs CPU: worst {g_err[0]:.2e} of "
+        f"the tensor's largest ({g_err[1]}; bound 1e-1), the biases ahead of a norm "
+        f"{noise:.2e} of the largest (bound 1e-5); D's {n_all} parameters after the "
+        f"update: {n_all - n_near} with a gradient of at least 1e-1 of their tensor's "
+        f"largest, {n_sign} of them of the other sign (bound 0), worst |err| / (one f32 "
+        f"step + 2^-20 lr + lr eps / min |g|) {worst[0]:.3f} ({worst[1]}); the other "
+        f"{n_near}: {n_flip} moved the other way, the largest |err| {near_max:.3f} lr "
+        f"(bound 2 lr)")
+    if not (g_err[0] <= 1e-1 and noise <= 1e-5 and n_sign == 0 and worst[0] <= 1.0
+            and near_max <= 2.0 * 1.01):
+        raise AssertionError(f"D after the f32 step: gradients {g_err}, {noise}; "
+                             f"parameters {n_sign}, {worst}, {near_max} lr")
+    gan_ratio = abs(got[gan_key] - ref[gan_key]) / (1e-6 + 1e-4 * abs(ref[gan_key]))
+    log("train", f"{name}: f32 step 1, the G GAN term through the updated D: card "
+        f"{got[gan_key]:.7g} vs CPU {ref[gan_key]:.7g} ({gan_ratio:.3f} of rtol 1e-4); "
+        f"on the card over three runs of the same step "
+        f"{[round(v, 7) for v in spread]}, two with cuDNN's deterministic "
+        f"algorithms {[round(v, 7) for v in deterministic]}")
+    check_terms(f"{name}: f32 step 1 with the {sum(swapped)} elements of D that its "
+                "update moved the other way set to the CPU's, card vs CPU", mixed, ref,
+                1e-4, 1e-6)
+    check_terms(f"{name}: f32 step 1 at LR 0, card vs CPU", got0, ref0, 1e-4, 1e-6)
+    if device == "cuda" and min(launched.values()) == 0:
+        raise AssertionError(f"the f32 step skipped a kernel: {launched}")
 
 
 def phase_train(tmp: str, satclip: bool = False) -> tuple[dict, dict]:
@@ -1805,20 +2142,7 @@ def phase_train(tmp: str, satclip: bool = False) -> tuple[dict, dict]:
         small.base_configs.netG = "resnet_6blocks"
     small.Data.train_batch_size = 2
     small.Data.fake_settings.image_size = 64
-    batch = first_batch(small)
-    on_card, on_cpu = (Px2PxTask(small, device=d, seed=SEED) for d in ("cuda", "cpu"))
-    reset_counts()
-    got = loss_terms(on_card.train_step(on_card.init_state(),
-                                        on_card.extract_batch(batch)))
-    launched = counts()
-    ref = loss_terms(on_cpu.train_step(on_cpu.init_state(),
-                                       on_cpu.extract_batch(batch)))
-    # f32 on both sides, sums in other orders: rtol 1e-4
-    check_terms(f"{name}: f32 step 1, card vs CPU (launches {launched})", got, ref,
-                1e-4, 1e-6)
-    if min(launched.values()) == 0:
-        raise AssertionError(f"the f32 step skipped a kernel: {launched}")
-    del on_card, on_cpu
+    check_f32_step(name, small)
 
     # --- the training CLI: 8 steps, then a resume for 2 more.  The plain
     # config has 4 steps an epoch (validations at 4 and 8, one batch each);
@@ -1860,10 +2184,15 @@ def phase_train(tmp: str, satclip: bool = False) -> tuple[dict, dict]:
         f"2-8) {[round(r['perf/images_per_sec'], 1) for r in train[1:]]}"
         + (f"; scale_param {[round(r['scale_param'], 5) for r in train]}"
            if satclip else ""))
+    # the validation panels, drawn with PIL where matplotlib is not installed
+    images = sorted(f for f in os.listdir(os.path.join(run, "images"))
+                    if f.startswith("Images_Val_NIR_")) if os.path.isdir(
+        os.path.join(run, "images")) else []
+    log("train", f"CLI: validation panels {images}")
     if (missing or not finite or [r["step"] for r in val] != val_steps
-            or len(train) != 8):
+            or len(train) != 8 or len(images) != len(val_steps)):
         raise AssertionError(f"CLI run: missing {missing}, finite {finite}, "
-                             f"val steps {[r['step'] for r in val]}")
+                             f"val steps {[r['step'] for r in val]}, panels {images}")
     resumed = cli.main(argv + ["--resume", run, "--max-steps", "10"])
     with open(os.path.join(run, "metrics.jsonl")) as f:
         val = [json.loads(line)["step"] for line in f if "val/L1" in line]
@@ -1911,6 +2240,116 @@ def phase_concat() -> None:
     if min(launched.values()) == 0:
         raise AssertionError(f"the concat step skipped a kernel: {launched}")
     check_gradients(task)
+
+
+def phase_nonsquare() -> None:
+    """The inject and concat planes of a non-square map (64 x 96) on the
+    card, f32 with TF32 off, against the CPU (``ROADMAP.md`` C4).  Both
+    routes keep the reference's swapped (W, H) resize, so a whole
+    non-square forward fails in both packages; the planes are what the card
+    computes at such a map: the inject generator's ``location_plane`` (its
+    ``fc``, then the bilinear resize) and the concat route's plane (the
+    tiled embedding through ``resize_bicubic``, as ``_concat_embedding_plane``
+    calls it), each (2, 96, 64, 1), within 1e-5 of the CPU's largest
+    value."""
+    from nirgan_tpu_torch.config import load_config
+    from nirgan_tpu_torch.models import define_G_inject
+    from nirgan_tpu_torch.ops.resize import resize_bicubic
+
+    cfg = load_config(SATCLIP_CONFIG)
+    e = torch.randn((2, 256), generator=torch.Generator().manual_seed(SEED))
+    planes = {}
+    with cudnn_tf32(False), torch.no_grad():
+        for d in ("cuda", "cpu"):
+            G = define_G_inject(cfg, generator=torch.Generator().manual_seed(SEED)).to(d)
+            tiled = e.to(d).reshape(2, 1, 256, 1).expand(2, 256, 256, 1)
+            planes[d] = {"inject": G.location_plane(e.to(d), 64, 96).cpu(),
+                         "concat": resize_bicubic(tiled, 96, 64).cpu()}
+    for name, ref in planes["cpu"].items():
+        got = planes["cuda"][name]
+        err = float((got - ref).abs().max() / ref.abs().max())
+        log("nonsquare", f"{name} plane of a 64 x 96 map, card vs CPU (f32, TF32 "
+            f"off): shape {tuple(got.shape)} (the swapped (W, H)), relative {err:.2e} "
+            "(bound 1e-5)")
+        if tuple(got.shape) != (2, 96, 64, 1) or not err <= 1e-5:
+            raise AssertionError(f"{name} plane: {tuple(got.shape)}, {err}")
+
+
+def phase_param_dtype() -> dict:
+    """One fused step of ``config_px2px.yaml`` at full width (batch 16 at
+    276^2, bf16 activations) with ``tpu.param_dtype: bfloat16``: G's and
+    D's parameters made in bf16, the kernels' launches those of the
+    f32-parameter step, finite terms and gradients, the parameters f32
+    after the update (the JAX step's ``p + lr u`` with an f32 LR), the same
+    step from the same seed bit for bit; the first step's ms (CUDA events,
+    three fresh tasks in turns with the f32-parameter config's first step,
+    the medians).  The optimizer's update of G's and D's f32 parameters
+    alone, warm: ``OptaxAdam`` against ``torch.optim.Adam`` (its foreach
+    form, the library call for the same update).  Returns the step's
+    launches and times."""
+    from nirgan_tpu_torch.config import load_config
+    from nirgan_tpu_torch.tasks import Px2PxTask
+    from nirgan_tpu_torch.train.state import OptaxAdam
+
+    cfgs = {"bfloat16": load_config(CONFIG), "float32": load_config(CONFIG)}
+    cfgs["bfloat16"].tpu.param_dtype = "bfloat16"
+    batch = first_batch(cfgs["float32"])
+
+    def first_step(name):
+        task = Px2PxTask(cfgs[name], device="cuda", seed=SEED)
+        ex = task.extract_batch(batch)
+        state = task.init_state()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        terms = loss_terms(task.train_step(state, ex))
+        end.record()
+        end.synchronize()
+        return task, terms, start.elapsed_time(end)
+
+    made = {p.dtype for p in Px2PxTask(cfgs["bfloat16"], device="cuda",
+                                       seed=SEED).netG.parameters()}
+    reset_counts()
+    task, terms, _ = first_step("bfloat16")
+    per_step = counts()
+    no_library("bf16 parameters")
+    check_gradients(task)
+    after = {p.dtype for net in (task.netG, task.netD) for p in net.parameters()}
+    again, repeat, _ = first_step("bfloat16")
+    same = repeat == terms and all(
+        torch.equal(p, q) for a, b in ((task.netG, again.netG), (task.netD, again.netD))
+        for p, q in zip(a.parameters(), b.parameters()))
+    finite = all(math.isfinite(v) for v in terms.values())
+    log("param_dtype", f"bf16 parameters: made {made}, after the update {after}; "
+        f"launches per step {per_step} (want {STEP_LAUNCHES}); terms finite {finite}; "
+        f"the step again from the seed bit for bit: {same}")
+    if (made != {torch.bfloat16} or after != {torch.float32} or per_step != STEP_LAUNCHES
+            or not finite or not same):
+        raise AssertionError(f"bf16 parameters: {made}, {after}, {per_step}, {finite}, "
+                             f"{same}")
+    del task, again
+    rounds = [[first_step(name)[2] for name in ("bfloat16", "float32")] for _ in range(3)]
+    bf16_ms, f32_ms = np.median(np.asarray(rounds), axis=0)
+    log("param_dtype", f"first step, batch {TRAIN_BATCH} at {TRAIN_SIDE}^2 (CUDA events, "
+        f"medians of 3 fresh tasks in turns): bf16 parameters {bf16_ms:.3f} ms, f32 "
+        f"parameters {f32_ms:.3f} ms; rounds {np.round(rounds, 2).tolist()}")
+
+    task = Px2PxTask(cfgs["float32"], device="cuda", seed=SEED)
+    params = [p for net in (task.netG, task.netD) for p in net.parameters()]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=g, device="cuda") * 1e-3
+    hyper = dict(lr=float(cfgs["float32"].base_configs.lr), betas=(0.5, 0.999), eps=1e-8)
+    adam_ms, torch_adam_ms = compare_ms(OptaxAdam(params, **hyper).step,
+                                        torch.optim.Adam(params, foreach=True, **hyper).step)
+    log("param_dtype", f"Adam's update of G's and D's {len(params)} f32 parameters "
+        f"({sum(p.numel() for p in params)} values), warm (CUDA events and the host "
+        f"clock, the larger): OptaxAdam {adam_ms:.3f} ms, torch.optim.Adam (foreach) "
+        f"{torch_adam_ms:.3f} ms")
+    del task, params
+    torch.cuda.empty_cache()
+    return {"per_step": per_step, "first_step_ms": float(bf16_ms),
+            "f32_first_step_ms": float(f32_ms)}
 
 
 # ------------------------------------------------------------ scene serving
@@ -2701,9 +3140,10 @@ def phase_variants() -> dict:
     one serving forward of 4 x 532^2 and one step each, kernel A's calls
     counted, against the plain route, the step bit for bit (the replicate
     pad's fixed-order adjoint).  ``netD: pixel``: one step.
-    ``gradient_penalty`` through a batch-norm D in f32 on the card against
-    the CPU, all three ``gp_type``s; through kernel B its backward raises.
-    Returns kernel A's calls on the padded trunks."""
+    ``gradient_penalty`` in f32 (TF32 off) on the card against the CPU:
+    through a batch-norm and through an instance-norm ``basic`` D, all three
+    ``gp_type``s, and through an instance-norm ``pixel`` D (B and B4
+    counted).  Returns kernel A's calls on the padded trunks."""
     from nirgan_tpu_torch.config import load_config
     from nirgan_tpu_torch.losses import gan
     from nirgan_tpu_torch.models import define_D
@@ -2772,45 +3212,159 @@ def phase_variants() -> dict:
     real, fake = (torch.rand((2, TRAIN_TILE, TRAIN_TILE, 4), generator=g)
                   for _ in range(2))
     alpha = torch.rand((2, 1, 1, 1), generator=g)
-    nets = {d: define_D(4, 64, "basic", norm="batch",
-                        generator=torch.Generator().manual_seed(SEED)).to(d)
-            for d in ("cuda", "cpu")}
-    with mock.patch.object(gan, "interpolation_weights",
-                            lambda n, ndim, generator, device: alpha.to(device)):
-        for gp_type in ("mixed", "real", "fake"):
-            vals = {}
-            for d, net in nets.items():
-                net.zero_grad(set_to_none=True)
-                p = gan.gradient_penalty(net, real.to(d), fake.to(d), gp_type)
-                p.backward()
-                vals[d] = (float(p.detach()), {k: q.grad.detach().cpu() for k, q in
-                                      net.named_parameters() if q.grad is not None})
-            err = abs(vals["cuda"][0] - vals["cpu"][0]) / abs(vals["cpu"][0])
-            gerr = max(float((vals["cuda"][1][k] - v).abs().max())
-                       / max(float(v.abs().max()), 1e-30)
-                       for k, v in vals["cpu"][1].items())
-            log("variants", f"gradient_penalty {gp_type} through a batch-norm D, card "
-                f"vs CPU: {vals['cuda'][0]:.6g} vs {vals['cpu'][0]:.6g}, relative "
-                f"{err:.2e} (bound 1e-4); D's gradients relative {gerr:.2e} "
-                "(bound 1e-3)")
-            if not (err <= 1e-4 and gerr <= 1e-3):
-                raise AssertionError(f"gradient_penalty {gp_type}: {err}, {gerr}")
-    D_in = define_D(4, 64, "basic", norm="instance").to(dev)
-    reset_counts()
-    penalty = gan.gradient_penalty(D_in, real.to(dev), fake.to(dev),
-                                   generator=torch.Generator(device=dev))
-    launched = counts()
-    try:
-        penalty.backward()
-    except RuntimeError as e:
-        log("variants", f"gradient_penalty through kernel B ({launched}): its "
-            f"backward raises: {str(e).splitlines()[0][:120]}")
-    else:
-        raise AssertionError("gradient_penalty through kernel B: a double backward "
-                             "did not raise")
-    if not launched["instance_norm"] or not launched["instance_norm_bwd"]:
-        raise AssertionError(f"gradient_penalty did not go through B and B4: {launched}")
+    with cudnn_tf32(False), mock.patch.object(
+            gan, "interpolation_weights",
+            lambda n, ndim, generator, device: alpha.to(device)):
+        for norm, netd, gp_types in (("batch", "basic", ("mixed", "real", "fake")),
+                                     ("instance", "basic", ("mixed", "real", "fake")),
+                                     ("instance", "pixel", ("mixed",))):
+            nets = {d: define_D(4, 64, netd, norm=norm,
+                                generator=torch.Generator().manual_seed(SEED)).to(d)
+                    for d in ("cuda", "cpu")}
+            if norm == "instance":
+                # f32's own error through the norm's second order, in f64
+                nets["f64"] = define_D(4, 64, netd, norm=norm, compute_dtype=torch.float64,
+                                       generator=torch.Generator().manual_seed(SEED)).double()
+            # the conv biases ahead of an instance norm, which removes them
+            ahead = (() if norm != "instance" else ("conv1.bias",) if netd == "pixel"
+                     else ("conv1.bias", "conv2.bias", "conv3.bias"))
+            for gp_type in gp_types:
+                penalty_card_vs_cpu(nets, real, fake, gp_type,
+                                    f"the {norm}-norm {netd} D", ahead)
+        # the penalty's time: the penalty and D's gradients through it, the
+        # instance-norm basic D, kernels vs plain route
+        net = define_D(4, 64, "basic", norm="instance",
+                       generator=torch.Generator().manual_seed(SEED)).to(dev)
+        r, f = real.to(dev), fake.to(dev)
+
+        def penalty_step():
+            net.zero_grad(set_to_none=True)
+            gan.gradient_penalty(net, r, f, "mixed").backward()
+
+        def plain_penalty_step():
+            with plain_route():
+                penalty_step()
+
+        ms, plain_ms = compare_ms(penalty_step, plain_penalty_step, iters=10)
+    log("variants", f"gradient_penalty mixed and D's gradients through it, the "
+        f"instance-norm basic D at 2 x {TRAIN_TILE}^2, f32 (TF32 off): kernels "
+        f"{ms:.3f} ms, plain route {plain_ms:.3f} ms")
     return pad0
+
+
+def without_a_y(full):
+    """``full`` (``instance_norm_bwd_bwd``) with the A y term of its dx
+    dropped, a second order that is wrong: the control of the penalty
+    check."""
+    from nirgan_tpu_torch.ops import instance_norm as inm
+
+    def control(x, g, stats, relu, v):
+        dx, dg = full(x, g, stats, relu, v)
+        gm = inm._wide(g) * (inm._normalized(x, stats) > 0) if relu else inm._wide(g)
+        v32, y, r = inm._wide(v), inm._y(x, stats), stats[:, 1, None, None, :]
+
+        def mean(a):
+            return a.mean(dim=(1, 2), keepdim=True)
+
+        a = mean(v32 * gm) - mean(gm) * mean(v32) - mean(gm * y) * mean(v32 * y)
+        return (dx + r.square() * a * y).to(x.dtype), dg
+
+    return control
+
+
+def penalty_card_vs_cpu(nets: dict, real: torch.Tensor, fake: torch.Tensor,
+                        gp_type: str, what: str, ahead: tuple = ()) -> None:
+    """``gradient_penalty`` and D's gradients through it (the second order,
+    ``create_graph=True``) on the card against the CPU, f32: the penalty
+    within 1e-4, each gradient within 1e-3 of its largest value; where
+    ``nets`` holds an f64 D (``"f64"``, on the CPU), each card gradient
+    within 1e-1 of its largest value from that one's.  Through the instance
+    norm's second order, E[x^2] - E[x]^2 in f32 (the JAX formula) is
+    ill-posed on some inputs: at 256^2 with ndf 64 the plain route lies up
+    to 2.2e-2 from f64 (``gp_type`` fake, on the card and the CPU alike), so
+    the f32 routes are held to f64, not to each other.  Two more runs on the
+    card, reported: the kernels with B's forward (its output and moments)
+    replaced by the plain forward's, which shows how much of the kernels'
+    distance comes from B's moments; and a control, the kernels with the A y
+    term of the second order's dx dropped, which the check must reject
+    (1.2-1.4 from f64 on the CPU).  The conv biases ``ahead`` of an instance
+    norm, whose gradient is zero in exact arithmetic, within 1e-5 of the
+    network's largest gradient on both sides (the tests' rule,
+    ``_ahead_of_a_norm``); a D with the instance norm launches B and B4
+    under ``create_graph`` on the card, and its backward the second-order
+    terms."""
+    from nirgan_tpu_torch.losses import gan
+    from nirgan_tpu_torch.ops import instance_norm as inm
+
+    vals, launched = {}, {}
+    runs = list(nets.items()) + ([("cuda plain", nets["cuda"]),
+                                  ("cuda plain B", nets["cuda"]),
+                                  ("cuda control", nets["cuda"])] if "f64" in nets else [])
+    for d, net in runs:
+        net.zero_grad(set_to_none=True)
+        reset_counts()
+        dev, dt = ("cpu", torch.float64) if d == "f64" else (d.split()[0], torch.float32)
+        route = {"cuda plain": plain_route(),
+                 "cuda plain B": mock.patch.object(inm, "instance_norm_cuda",
+                                                   inm.instance_norm_plain),
+                 "cuda control": mock.patch.object(
+                     inm, "instance_norm_bwd_bwd",
+                     without_a_y(inm.instance_norm_bwd_bwd))}.get(d)
+        with route or contextlib.nullcontext():
+            p = gan.gradient_penalty(net, real.to(dev, dt), fake.to(dev, dt), gp_type)
+            p.backward()
+        if d == "cuda":
+            launched = counts()
+        vals[d] = (float(p.detach()), {k: q.grad.detach().cpu() for k, q in
+                                       net.named_parameters() if q.grad is not None})
+    err = abs(vals["cuda"][0] - vals["cpu"][0]) / abs(vals["cpu"][0])
+
+    def apart(a, b):
+        return float((a.double() - b.double()).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    # each gradient's distance from the CPU's, or where there is one from
+    # the f64 evaluation's, over its bound
+    if "f64" in vals:
+        ratio = {k: apart(vals["cuda"][1][k], vals["f64"][1][k]) / 1e-1
+                 for k in vals["cpu"][1] if k not in ahead}
+    else:
+        ratio = {k: apart(vals["cuda"][1][k], v) / 1e-3
+                 for k, v in vals["cpu"][1].items() if k not in ahead}
+    worst = max(ratio, key=ratio.get)
+    own = {}
+    if "f64" in vals:
+        # f32's own distance from f64 on the CPU, the card's plain route, the
+        # kernels, the kernels after the plain forward, and the control
+        own = {d: max(apart(vals[d][1][k], vals["f64"][1][k]) for k in ratio)
+               for d in ("cpu", "cuda plain", "cuda", "cuda plain B", "cuda control")}
+        log("variants", f"gradient_penalty {gp_type} through {what}: the largest "
+            f"distance of a gradient from f64's (relative to its largest) on the CPU "
+            f"{own['cpu']:.2e}, on the card's plain route {own['cuda plain']:.2e}, on "
+            f"the kernels {own['cuda']:.2e}, on the kernels after the plain forward "
+            f"{own['cuda plain B']:.2e}; the control (A y dropped) "
+            f"{own['cuda control']:.2e} (bound 1e-1: must fail)")
+        if not own["cuda control"] > 1e-1:
+            raise AssertionError(f"gradient_penalty {gp_type} through {what}: the check "
+                                 f"passes a second order without A y: {own}")
+    net_max = max(float(v.abs().max()) for v in vals["cpu"][1].values())
+    noise = max([float(torch.maximum(vals["cuda"][1][k].abs(), v.abs()).max()) / net_max
+                 for k, v in vals["cpu"][1].items() if k in ahead] or [0.0])
+    instance = any(getattr(m, "norm_type", None) == "instance"
+                   for m in nets["cpu"].modules())
+    log("variants", f"gradient_penalty {gp_type} through {what}, card vs CPU (TF32 off): "
+        f"{vals['cuda'][0]:.6g} vs {vals['cpu'][0]:.6g}, relative {err:.2e} (bound "
+        f"1e-4); D's gradients: worst |err| / bound {ratio[worst]:.3f} ({worst}; bound 1e-3 "
+        f"of the largest from the CPU's, or 1e-1 from f64's), "
+        f"the biases ahead of "
+        f"a norm {noise:.2e} of the largest (bound 1e-5); B, B4 launches "
+        f"{launched['instance_norm']}, {launched['instance_norm_bwd']}")
+    if not (err <= 1e-4 and ratio[worst] <= 1.0 and noise <= 1e-5):
+        raise AssertionError(f"gradient_penalty {gp_type} through {what}: {err}, "
+                             f"{worst} {ratio[worst]}, {noise}")
+    if instance and not (launched["instance_norm"] and launched["instance_norm_bwd"]):
+        raise AssertionError(f"gradient_penalty did not go through B and B4: {launched}")
+    if instance:
+        PENALTY_LAUNCHES[what] = launched
 
 
 def phase_baselines(tmp: str) -> None:
@@ -3822,6 +4376,29 @@ def phase_norm_launches() -> None:
                                      f"a call in the {e['regime']} regime")
 
 
+def alone_int8() -> None:
+    """Kernels D and E in every gather and mode, then the int8 forwards."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    with cudnn_tf32(False):
+        phase_int8_kernels(g)
+        phase_int8_gathers(g)
+    for kw in ({}, {"stage2": True}, {"padding": "replicate"}, {"padding": "zero"}):
+        phase_int8_serving(**kw)
+
+
+def alone_train() -> None:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase_train(tmp)
+        phase_train(tmp, satclip=True)
+
+
+# ``python3 chip_smoke.py --phase NAME ...``: after the device and build
+# phases, only the named phases, in order (no JSON lines): a phase's checks
+# read alone, without what the phases before it leave set
+ALONE = {"int8": alone_int8, "train": alone_train, "variants": phase_variants,
+         "nonsquare": phase_nonsquare, "param_dtype": phase_param_dtype}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -3838,11 +4415,17 @@ def main() -> None:
     if sys.argv[1:] == ["--sweep"]:
         phase_sweep()
         return
+    if sys.argv[1:2] == ["--phase"]:
+        for name in sys.argv[2:]:
+            ALONE[name]()
+        return
     phase_kernels()
     per_forward = phase_generator()
     sat_forward = phase_generator(satclip=True)
     int8_forward = phase_int8_serving()
     sat_int8_forward = phase_int8_serving(satclip=True)
+    stage2_forward = phase_int8_serving(stage2=True)
+    padded_int8 = {p: phase_int8_serving(padding=p) for p in ("replicate", "zero")}
     phase_scene()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         phase_scene_cli(tmp)
@@ -3854,6 +4437,8 @@ def main() -> None:
     phase_aux_step()
     phase_ngf16()
     phase_concat()
+    phase_nonsquare()
+    bf16_params = phase_param_dtype()
     unet = phase_unet()
     phase_pix2pix()
     pad0 = phase_variants()
@@ -3909,7 +4494,34 @@ def main() -> None:
                             "batch": SCENE_BATCH},
                   "validation": validation_entry(validation["int8"], name)}
         entries.append(kernel)
-    print(json.dumps({"kernels": entries}), flush=True)
+    # D's other gathers and E's mode 3, each a kernel entry of its own: the
+    # launches in the int8 forward that runs it (stage 2; the replicate and
+    # zero trunks), the times at the serving shapes (phase_int8_gathers)
+    gathers, d = RESULTS["int8_conv_gathers"], RESULTS["int8_conv"]
+    for key, tag, route, line in (
+            ("replicate", "int8 serving, replicate trunk", "replicate s1", 149),
+            ("zero", "int8 serving, zero trunk", "zero s1", 149),
+            ("stride2", "int8 serving, stage 2", "zero s2", 130)):
+        n = INT8_ROUTES[tag]["int8_conv"][route]
+        entries.append({**gathers[key], "name": f"int8_conv_{key}", "route": "cuda",
+                        "source": d["source"], "max_abs_err": gathers["max_abs_err"],
+                        "replaces": f"nirgan_tpu/ops/int8_trunk.py:{line}",
+                        "launches": n, "per_forward": n, "note": gathers["note"]})
+    n = INT8_ROUTES["int8 serving, stage 2"]["int8_norm"]["mode 3"]
+    entries.append({**RESULTS["int8_norm"]["mode3"], "name": "int8_norm_mode3",
+                    "route": "cuda", "source": RESULTS["int8_norm"]["source"],
+                    "replaces": "nirgan_tpu/ops/int8_trunk.py:139", "max_abs_err": 1.0,
+                    "launches": n, "per_forward": n})
+    # B and B4 under gradient_penalty; the bf16-parameter step
+    for kernel in entries:
+        if kernel["name"] in ("instance_norm", "instance_norm_bwd"):
+            kernel["gradient_penalty"] = {what: launched[kernel["name"]]
+                                          for what, launched in PENALTY_LAUNCHES.items()}
+        if kernel["name"] in STEP_LAUNCHES:
+            kernel["bf16_params"] = {"per_step": bf16_params["per_step"][kernel["name"]]}
+    print(json.dumps({"kernels": entries, "stage2": STAGE2,
+                      "bf16_params": {k: v for k, v in bf16_params.items()
+                                      if k != "per_step"}}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 
 

@@ -646,7 +646,7 @@ extern "C" int nirgan_convt_bwd(int device, int dtype, const void* ct,
   if (packed) {
     using T = __nv_bfloat16;
     if (need_dx) {
-      const igemm::Shape sh{B, 2 * Hi, 2 * Wi, Co, Hi, Wi, igemm::CONVT_BWD};
+      const igemm::Shape sh{B, 2 * Hi, 2 * Wi, Co, Hi, Wi, igemm::STRIDE2_ZERO};
       err = igemm::launch(Ci, ct, w, nullptr, dx, sh, st);
       if (err != cudaSuccess) return (int)err;
     }

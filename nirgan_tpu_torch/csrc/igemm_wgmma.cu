@@ -23,8 +23,9 @@
 //     while the consumers store the last tile, which hides the ring's fill
 //     and the epilogue (what a 9-slice tile of B5's dx loses most on).
 //   * The source pixel of every (tap, row) is computed once a tile into a
-//     shared-memory table (reflect, valid or stride-2 index math; -1 reads
-//     as zero through cp.async's zero fill): no padded tensor exists.
+//     shared-memory table (source_pixel: reflect, replicate, zero, valid or
+//     stride-2 index math; -1 reads as zero through cp.async's zero fill):
+//     no padded tensor exists.
 //   * The weights arrive packed by the wrapper into per-slice images that
 //     are already in the swizzled order, so one bulk copy fills a stage's B.
 //   * Epilogue: bias in f32, one rounding to bf16, stored from the
@@ -75,12 +76,6 @@ template <>
 struct Accum<true> {
   using type = int;
 };
-
-__device__ __forceinline__ int reflect_idx(int i, int n) {
-  // ReflectionPad2d for a pad smaller than n: -1 -> 1, n -> n - 2
-  i = i < 0 ? -i : i;
-  return i >= n ? 2 * n - 2 - i : i;
-}
 
 // a barrier of the producer warpgroup alone
 __device__ __forceinline__ void producer_sync() {
@@ -236,19 +231,9 @@ igemm_wgmma_kernel(const __nv_bfloat16* __restrict__ src,
         const int oy = rem / g.Wo, ox = rem - (rem / g.Wo) * g.Wo;
 #pragma unroll
         for (int tap = 0; tap < 9; ++tap) {
-          const int dy = tap / 3, dx = tap % 3;
           int sy, sx;
-          if (g.gather == CONVT_BWD) {
-            sy = 2 * oy - 1 + dy;
-            sx = 2 * ox - 1 + dx;
-          } else if (g.gather == CONV_REFLECT) {
-            sy = reflect_idx(oy + dy - 1, g.Hs);
-            sx = reflect_idx(ox + dx - 1, g.Ws);
-          } else {
-            sy = oy + dy;
-            sx = ox + dx;
-          }
-          const bool valid = ok && sy >= 0 && sx >= 0;
+          const bool valid = ok && source_pixel(g.gather, oy, ox, tap / 3,
+                                                tap % 3, g.Hs, g.Ws, sy, sx);
           tab[tap * T::BM + r] = valid ? (b * g.Hs + sy) * g.Ws + sx : -1;
         }
       }
@@ -404,8 +389,11 @@ cudaError_t launch(int N, const void* src, const void* wp, const float* bias,
 
 cudaError_t launch_s8(int N, const void* src, const void* wp, void* out,
                       float* part, Shape g, cudaStream_t stream) {
-  if (!takes_s8(N, g.Cs, g.Ho * g.Wo) || g.B <= 0 || g.gather != CONV_REFLECT ||
-      g.Hs != g.Ho || g.Ws != g.Wo ||
+  const bool gather_ok = g.gather == CONV_REFLECT || g.gather == CONV_REPLICATE ||
+                         g.gather == CONV_ZERO || g.gather == STRIDE2_ZERO;
+  if (!takes_s8(N, g.Cs, g.Ho * g.Wo) || g.B <= 0 || !gather_ok ||
+      g.Hs < (g.gather == CONV_REFLECT ? 2 : 1) || g.Ws < (g.gather == CONV_REFLECT ? 2 : 1) ||
+      g.Ho != out_side(g.gather, g.Hs) || g.Wo != out_side(g.gather, g.Ws) ||
       (long long)g.B * g.Hs * g.Ws >= (1LL << 31))
     return cudaErrorInvalidValue;
   // the gather moves bytes: a pixel is Cs / 2 16-bit elements

@@ -8,12 +8,57 @@
 
 namespace igemm {
 
-// how output pixel (b, oy, ox) and tap (dy, dx) name their source pixel
+// how output pixel (b, oy, ox) and tap (dy, dx) name their source pixel; a
+// tap whose source lies outside the (Hs, Ws) source reads zero
 enum Gather {
-  CONV_REFLECT = 0,  // (reflect(oy + dy - 1), reflect(ox + dx - 1))
-  CONV_VALID = 1,    // (oy + dy, ox + dx)
-  CONVT_BWD = 2,     // (2 oy - 1 + dy, 2 ox - 1 + dx), zero where negative
+  CONV_REFLECT = 0,    // (reflect(oy + dy - 1), reflect(ox + dx - 1))
+  CONV_VALID = 1,      // (oy + dy, ox + dx)
+  STRIDE2_ZERO = 2,    // (2 oy - 1 + dy, 2 ox - 1 + dx): the k3 s2 p1 conv
+                       // and the k3 s2 transposed conv's input gradient
+  CONV_REPLICATE = 3,  // (clamp(oy + dy - 1), clamp(ox + dx - 1))
+  CONV_ZERO = 4,       // (oy + dy - 1, ox + dx - 1)
 };
+
+// The source pixel (sy, sx) of output pixel (oy, ox) and tap (dy, dx) under
+// `gather`, from a source of Hs x Ws pixels; false where the tap reads zero.
+// The reflect border is ReflectionPad2d(1)'s (-1 -> 1, n -> n - 2; Hs, Ws
+// >= 2), the replicate border ReplicationPad2d(1)'s.
+__host__ __device__ inline bool source_pixel(int gather, int oy, int ox,
+                                             int dy, int dx, int Hs, int Ws,
+                                             int& sy, int& sx) {
+  switch (gather) {
+    case CONV_REFLECT:
+      sy = oy + dy - 1;
+      sx = ox + dx - 1;
+      sy = sy < 0 ? -sy : (sy >= Hs ? 2 * Hs - 2 - sy : sy);
+      sx = sx < 0 ? -sx : (sx >= Ws ? 2 * Ws - 2 - sx : sx);
+      break;
+    case CONV_VALID:
+      sy = oy + dy;
+      sx = ox + dx;
+      break;
+    case STRIDE2_ZERO:
+      sy = 2 * oy - 1 + dy;
+      sx = 2 * ox - 1 + dx;
+      break;
+    case CONV_REPLICATE:
+      sy = oy + dy - 1;
+      sx = ox + dx - 1;
+      sy = sy < 0 ? 0 : (sy >= Hs ? Hs - 1 : sy);
+      sx = sx < 0 ? 0 : (sx >= Ws ? Ws - 1 : sx);
+      break;
+    default:  // CONV_ZERO
+      sy = oy + dy - 1;
+      sx = ox + dx - 1;
+  }
+  return sy >= 0 && sx >= 0 && sy < Hs && sx < Ws;
+}
+
+// The output side of a source side n under `gather`: (n - 1) / 2 + 1 at
+// stride 2 (the k3 s2 p1 conv), n for the borders of stride 1.
+inline int out_side(int gather, int n) {
+  return gather == STRIDE2_ZERO ? (n - 1) / 2 + 1 : n;
+}
 
 struct Shape {
   int B, Hs, Ws, Cs;  // the source tensor, (B, Hs, Ws, Cs) NHWC bf16
@@ -37,7 +82,8 @@ cudaError_t launch(int N, const void* src, const void* wp, const float* bias,
 inline int tile_rows(int N) { return 128 * (256 / N); }
 
 // true where launch_s8() has a kernel: N output channels, Cs source
-// channels, hw pixels an image (a tile may span two images, never three)
+// channels, hw output pixels an image (a tile may span two images, never
+// three)
 inline bool takes_s8(int N, int Cs, int hw) {
   return (N == 128 || N == 256) && Cs > 0 && Cs % 128 == 0 &&
          hw >= tile_rows(N);
@@ -45,13 +91,14 @@ inline bool takes_s8(int N, int Cs, int hw) {
 
 // The s8 form, for the int8 trunk: out[m, n] = sum over tap, c of
 // src[pixel(m, tap), c] * W[tap, c, n] in exact s32 sums, rounded once to
-// bf16, src int8 (B, Hs, Ws, Cs) with the reflect gather (g.Cs counts int8
-// channels), wp the int8 weight packed as for bf16 with two channels as one
-// 16-bit element (one image of N rows x 128 bytes a tap and 128 channels).
-// part (tiles, 2, 2, N) f32 receives each tile's Sigma and Sigma^2 of every
-// column over its rows of its first image (slot 0) and, where it reaches
-// into the next, of that one (slot 1), in a fixed order; tiles =
-// ceil(B Ho Wo / tile_rows(N)).
+// bf16, src int8 (B, Hs, Ws, Cs) (g.Cs counts int8 channels) with the
+// reflect, replicate or zero border at stride 1 (Ho, Wo = Hs, Ws) or the
+// zero border at stride 2 (Ho, Wo = out_side), wp the int8 weight packed as
+// for bf16 with two channels as one 16-bit element (one image of N rows x
+// 128 bytes a tap and 128 channels).  part (tiles, 2, 2, N) f32 receives
+// each tile's Sigma and Sigma^2 of every column over its rows of its first
+// image (slot 0) and, where it reaches into the next, of that one (slot 1),
+// in a fixed order; tiles = ceil(B Ho Wo / tile_rows(N)).
 cudaError_t launch_s8(int N, const void* src, const void* wp, void* out,
                       float* part, Shape g, cudaStream_t stream);
 

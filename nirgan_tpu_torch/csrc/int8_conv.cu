@@ -1,17 +1,24 @@
-// Kernel D: the int8 residual trunk's 3x3 convolution, NHWC, stride 1, with
-// the reflect border of ReflectionPad2d(1) mirrored in the index math, exact
-// s8 x s8 -> s32 sums, and the instance norm's moments in the epilogue.
+// Kernel D: the int8 generator's 3x3 convolutions, NHWC, exact s8 x s8 ->
+// s32 sums, and the instance norm's moments in the epilogue.  The border is
+// index math (igemm::source_pixel), never a padded copy: at stride 1 the
+// trunk's reflect, replicate or zero border, at stride 2 the zero border of
+// the d1 downsample conv (k3 s2 p1, output side (n - 1) / 2 + 1; a tap
+// outside the image reads 0, which is exact under symmetric quantisation).
 //
 // Replaces _conv_moments(_pad2d(x8), w8) of nirgan_tpu/ops/int8_trunk.py
-// (lines 103-108): an XLA convolution with preferred_element_type=int32, not
-// a Pallas kernel.  Outputs: the accumulator rounded to bf16 (the "staged"
+// (lines 103-108, the pads of lines 45-47) and the conv of int8_d1_forward
+// (lines 130-136): XLA convolutions with preferred_element_type=int32, not
+// Pallas kernels.  Outputs: the accumulator rounded to bf16 (the "staged"
 // accumulator the norm reads) and, per (image, channel), Sigma a and
 // Sigma a^2 in f32 of the accumulator before that rounding.
 //
 // What bounds it on an H100: at the serving trunk's shape (4 x 133 x 133
 // pixels, 256 -> 256 channels, 9 taps) it is 83.5 G int8 operations against
 // about 55 MB in and out, bound by the tensor cores: 0.042 ms at their dense
-// int8 rate of 1,979 TOPS.  Two kernels, chosen by shape in the wrapper
+// int8 rate of 1,979 TOPS.  Stage 2's d1 (4 x 266 x 266 x 128 -> 4 x 133 x
+// 133 x 256 at stride 2) is half the operations (41.7 G, 0.021 ms) against
+// 72 MB (0.022 ms at 3.35 TB/s): bound by both about equally.  Two
+// kernels, chosen by shape in the wrapper
 // (ops/int8_trunk.py: takes_wgmma) and named by `packed`:
 //   * Cin % 128 == 0, Cout 128 or 256, an image of at least a tile (the
 //     generator's trunk): the s8 form of kernel A's wgmma engine
@@ -47,12 +54,6 @@ constexpr int LD = BK + 16;                  // row pitch in bytes
 constexpr int STAGES = 3;
 constexpr int THREADS = 256;
 
-__device__ __forceinline__ int reflect_idx(int i, int n) {
-  // ReflectionPad2d(1): -1 -> 1, n -> n - 2
-  i = i < 0 ? -i : i;
-  return i >= n ? 2 * n - 2 - i : i;
-}
-
 // D (16 x 8, s32) += A (16 x 32, s8, row-major) * B (32 x 8, s8, column-major).
 // With g = lane / 4 and q = lane % 4: a0 / a1 hold bytes 4q .. 4q + 3 of rows
 // g / g + 8, a2 / a3 bytes 16 + 4q ..; b0 / b1 hold k = 4q .. and 16 + 4q ..
@@ -69,13 +70,13 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
 __global__ void __launch_bounds__(THREADS)
 int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                  __nv_bfloat16* __restrict__ hb, float* __restrict__ part,
-                 int H, int W, int Ci, int Co) {
+                 int H, int W, int Ho, int Wo, int Ci, int Co, int gather) {
   __shared__ __align__(128) int8_t As[STAGES][BM][LD];
   __shared__ __align__(128) int8_t Bs[STAGES][BN][LD];
   __shared__ float red[4][BN][2];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int HW = H * W;
+  const int HW = Ho * Wo;  // output pixels of an image
   const int tile = blockIdx.x, tiles = gridDim.x;
   const int n0 = blockIdx.y * BN;
   const int b = blockIdx.z;
@@ -85,11 +86,11 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int ld_row = tid >> 1, ld_chunk = (tid & 1) * 16;
   const int a_p = p0 + ld_row;
   const bool a_ok = a_p < HW;
-  const int a_oy = a_ok ? a_p / W : 0;
-  const int a_ox = a_ok ? a_p - a_oy * W : 0;
+  const int a_oy = a_ok ? a_p / Wo : 0;
+  const int a_ox = a_ok ? a_p - a_oy * Wo : 0;
   const int b_n = n0 + ld_row;
   const bool b_ok = b_n < Co;
-  const int8_t* xb = x + (long long)b * HW * Ci;
+  const int8_t* xb = x + (long long)b * H * W * Ci;
 
   const int kc = Ci / BK;
   const int KT = 9 * kc;
@@ -99,12 +100,12 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     const int c0 = (kt - tap * kc) * BK + ld_chunk;
     const int dy = tap / 3, dx = tap - dy * 3;
     const int8_t* src = x;
-    if (a_ok) {
-      const int sy = reflect_idx(a_oy + dy - 1, H);
-      const int sx = reflect_idx(a_ox + dx - 1, W);
-      src = xb + ((long long)sy * W + sx) * Ci + c0;
-    }
-    hopper::cp_async16(hopper::smem_u32(&As[stage][ld_row][ld_chunk]), src, a_ok);
+    int sy, sx;
+    // a row past the image's end, or a tap outside it, reads zeros
+    const bool a_in = a_ok && igemm::source_pixel(gather, a_oy, a_ox, dy, dx,
+                                                   H, W, sy, sx);
+    if (a_in) src = xb + ((long long)sy * W + sx) * Ci + c0;
+    hopper::cp_async16(hopper::smem_u32(&As[stage][ld_row][ld_chunk]), src, a_in);
     const int8_t* wsrc = b_ok ? w + ((long long)tap * Co + b_n) * Ci + c0 : w;
     hopper::cp_async16(hopper::smem_u32(&Bs[stage][ld_row][ld_chunk]), wsrc, b_ok);
   };
@@ -258,44 +259,52 @@ int8_moments_kernel(const float* __restrict__ part, float* __restrict__ moments,
 
 }  // namespace
 
-// x8 (B, H, W, Ci) int8 and hb (B, H, W, Co) bf16 are contiguous NHWC,
-// moments f32 (B, 2, Co).  packed = 1 runs the wgmma kernel, refused unless
-// igemm::takes_s8(Co, Ci, H W): w is the int8 weight packed by
-// ops/int8_trunk.py (pack_weight), part f32 scratch (tiles, 2, 2, Co) with
-// tiles = ceil(B H W / igemm::tile_rows(Co)).  packed = 0 runs the mma.sync
-// kernel, refused for Ci % 32, Co % 8: w is (3, 3, Co, Ci), part (B, tiles,
-// 2, Co) with tiles = ceil(H W / 128).  H and W must be >= 2.  Returns a
-// cudaError_t.
+// x8 (B, H, W, Ci) int8 is contiguous NHWC, hb (B, Ho, Wo, Co) bf16 with
+// (Ho, Wo) = (igemm::out_side(gather, H), igemm::out_side(gather, W)),
+// moments f32 (B, 2, Co).  gather: igemm::CONV_REFLECT (H, W >= 2),
+// CONV_REPLICATE, CONV_ZERO or STRIDE2_ZERO.  packed = 1 runs the wgmma
+// kernel, refused unless igemm::takes_s8(Co, Ci, Ho Wo): w is the int8
+// weight packed by ops/int8_trunk.py (pack_weight), part f32 scratch
+// (tiles, 2, 2, Co) with tiles = ceil(B Ho Wo / igemm::tile_rows(Co)).
+// packed = 0 runs the mma.sync kernel, refused for Ci % 32, Co % 8: w is
+// (3, 3, Co, Ci), part (B, tiles, 2, Co) with tiles = ceil(Ho Wo / 128).
+// Returns a cudaError_t.
 extern "C" int nirgan_int8_conv(int device, const void* x8, const void* w,
                                 void* hb, void* part, void* moments, int B,
                                 int H, int W, int Ci, int Co, int tiles,
-                                int packed, void* stream) {
+                                int packed, int gather, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int least = gather == igemm::CONV_REFLECT ? 2 : 1;
+  if ((gather != igemm::CONV_REFLECT && gather != igemm::CONV_REPLICATE &&
+       gather != igemm::CONV_ZERO && gather != igemm::STRIDE2_ZERO) ||
+      B <= 0 || H < least || W < least)
+    return (int)cudaErrorInvalidValue;
+  const int Ho = igemm::out_side(gather, H), Wo = igemm::out_side(gather, W);
   if (packed) {
-    const long long m = (long long)B * H * W;
+    const long long m = (long long)B * Ho * Wo;
     const int bm = igemm::tile_rows(Co);
-    if (B <= 0 || H < 2 || W < 2 || !igemm::takes_s8(Co, Ci, H * W) ||
-        tiles != (m + bm - 1) / bm)
+    if (!igemm::takes_s8(Co, Ci, Ho * Wo) || tiles != (m + bm - 1) / bm)
       return (int)cudaErrorInvalidValue;
-    const igemm::Shape g{B, H, W, Ci, H, W, igemm::CONV_REFLECT};
+    const igemm::Shape g{B, H, W, Ci, Ho, Wo, gather};
     err = igemm::launch_s8(Co, x8, w, hb, static_cast<float*>(part), g, s);
     if (err != cudaSuccess) return (int)err;
   } else {
-    if (B <= 0 || H < 2 || W < 2 || Ci <= 0 || Ci % BK || Co <= 0 || Co % 8 ||
-        tiles != (H * W + BM - 1) / BM)
+    if (Ci <= 0 || Ci % BK || Co <= 0 || Co % 8 ||
+        tiles != (Ho * Wo + BM - 1) / BM)
       return (int)cudaErrorInvalidValue;
     dim3 grid((unsigned)tiles, (unsigned)((Co + BN - 1) / BN), (unsigned)B);
     int8_conv_kernel<<<grid, THREADS, 0, s>>>(
         static_cast<const int8_t*>(x8), static_cast<const int8_t*>(w),
-        static_cast<__nv_bfloat16*>(hb), static_cast<float*>(part), H, W, Ci, Co);
+        static_cast<__nv_bfloat16*>(hb), static_cast<float*>(part), H, W, Ho,
+        Wo, Ci, Co, gather);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   dim3 rgrid((unsigned)((Co + 31) / 32), (unsigned)B);
   int8_moments_kernel<<<rgrid, 32 * RED_ROWS, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(moments), Co, H * W,
+      static_cast<const float*>(part), static_cast<float*>(moments), Co, Ho * Wo,
       igemm::tile_rows(Co), packed ? 0 : tiles);
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,10 @@
 // ReLU or the residual skip, and the quantisation of the next conv's input.
 //
 // Replaces _norm_from_moments and the _q8 that follows it in
-// nirgan_tpu/ops/int8_trunk.py (lines 94-100 and 148-154): an elementwise
+// nirgan_tpu/ops/int8_trunk.py (lines 94-100 and 148-154; mode 3: the end of
+// int8_d1_forward, lines 137-139, its cast to the stream's dtype in
+// nirgan_tpu/models/generator.py:271 and the trunk's first _q8, line 147,
+// which quantises the rounded stream): an elementwise
 // pass over the staged bf16 accumulator of kernel D, with the mean and the
 // rstd of each (image, channel) from D's f32 moments and eps' = eps / k^2 of
 // the channel:
@@ -11,6 +14,9 @@
 //   mode 2  x' = x + T((h - mean) rstd)            after conv2, in the stream
 //           q = q8(x' / s_in_next)                 type T; q only where a
 //                                                  next block exists
+//   mode 3  x' = T(relu((h - mean) rstd))          after the stage-2 d1 conv:
+//           q = q8(x' / s_in)                      the trunk's input stream
+//                                                  and its first block's input
 // with q8(v) = clip(round_half_even(v), -127, 127) as int8.  The normalised
 // value stays f32 up to the division, which is a true division (x / s is one
 // in JAX): never a product with a reciprocal, and every rounding is spelled
@@ -18,7 +24,8 @@
 //
 // What bounds it on an H100: memory.  At the serving shape (4 x 133 x 133 x
 // 256) mode 1 reads 2 bytes and writes 1 an element (54 MB, 0.016 ms at 3.35
-// TB/s) and mode 2 reads 4 and writes 3 (127 MB, 0.038 ms).  A block first
+// TB/s), mode 2 reads 4 and writes 3 (127 MB, 0.038 ms) and mode 3 reads 2
+// and writes 3 with a bf16 stream (91 MB, 0.027 ms).  A block first
 // computes the image's per-channel mean, rstd and scale into shared memory,
 // one channel a thread (8 a thread, each thread its own, left modes 1 and 2
 // at 29% and 68% of the bound: the constants cost as much as the ~8 pixels a
@@ -138,9 +145,14 @@ int8_norm_kernel(const void* __restrict__ src_, const float* __restrict__ moment
 #pragma unroll
       for (int e = 0; e < 8; ++e) v[e] = __fmul_rn(__fsub_rn(v[e], mean[e]), rstd[e]);
     }
-    if (MODE == 1) {
+    if (MODE == 1 || MODE == 3) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], 0.f);
+    }
+    if (MODE == 3) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = as_type(v[e], T());
+      store8(out + off, v);
     }
     if (MODE == 2) {
       float xs[8];
@@ -180,7 +192,8 @@ cudaError_t launch(const void* src, const float* moments, const float* eps,
 // q (B, HW, C) int8 out.  Modes 1 and 2: src the staged bf16 accumulator,
 // moments (B, 2, C) f32, eps (C,) f32.  Mode 1: s = s_mid, q out.  Mode 2:
 // x the stream in dtype, out the new stream, and s and q both given (the
-// next block's scale and input) or both null.  C % 8 == 0, C <= 2048.
+// next block's scale and input) or both null.  Mode 3: s = s_in, out the
+// stream in dtype and q out.  C % 8 == 0, C <= 2048.
 // Returns a cudaError_t.
 extern "C" int nirgan_int8_norm(int device, int mode, int dtype, const void* src,
                                 const void* moments, const void* eps,
@@ -191,7 +204,7 @@ extern "C" int nirgan_int8_norm(int device, int mode, int dtype, const void* src
   if (B <= 0 || HW <= 0 || C <= 0 || C % 8 || C > 2048 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   if ((mode != 2 && (!s || !q)) || (mode != 0 && (!moments || !eps)) ||
-      (mode == 2 && (!x || !out || (!s != !q))))
+      (mode == 2 && (!x || !out || (!s != !q))) || (mode == 3 && !out))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(moments);
@@ -204,6 +217,8 @@ extern "C" int nirgan_int8_norm(int device, int mode, int dtype, const void* src
     case 3: return (int)launch<__nv_bfloat16, 1>(src, m, e, sc, x, out, q, B, HW, C, st);
     case 4: return (int)launch<float, 2>(src, m, e, sc, x, out, q, B, HW, C, st);
     case 5: return (int)launch<__nv_bfloat16, 2>(src, m, e, sc, x, out, q, B, HW, C, st);
+    case 6: return (int)launch<float, 3>(src, m, e, sc, x, out, q, B, HW, C, st);
+    case 7: return (int)launch<__nv_bfloat16, 3>(src, m, e, sc, x, out, q, B, HW, C, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

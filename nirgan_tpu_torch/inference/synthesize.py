@@ -142,14 +142,15 @@ def synthesize_dataset(task, dataset, out_path: str, batch_size: int = 8,
 def _plot_example(batch, pred_nchw, idx: int, plot_dir: str,
                   dn_scale: float = 10000.0) -> None:
     """4-panel HR-RGB | LR-RGB | synth NIR | real NIR example (reference
-    ``plot_example``, ``create_synthetic_dataset.py:54-84``)."""
-    try:
-        import matplotlib
-    except ImportError as e:
-        print("example plot skipped:", e)
-        return
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    ``plot_example``, ``create_synthetic_dataset.py:54-84``), written as
+    ``example_{idx}.png``: JAX's matplotlib figure, or where matplotlib is
+    not installed the same panels drawn with PIL."""
+    from nirgan_tpu_torch.utils.pil_plots import (
+        colormap,
+        has_matplotlib,
+        image_grid,
+        unit_rgb,
+    )
 
     def refl(x):  # DN passthrough batches carry integers
         x = np.asarray(x)
@@ -158,19 +159,27 @@ def _plot_example(batch, pred_nchw, idx: int, plot_dir: str,
         return np.asarray(x, np.float32)
 
     os.makedirs(plot_dir, exist_ok=True)
-    hr = np.clip(refl(batch["hr"][0]) * 3, 0, 1)
-    lr = np.clip(refl(batch["lr"][0]) * 3, 0, 1)
+    path = os.path.join(plot_dir, f"example_{idx}.png")
+    hr = np.transpose(np.clip(refl(batch["hr"][0]) * 3, 0, 1), (1, 2, 0))
+    lr = np.transpose(np.clip(refl(batch["lr"][0]) * 3, 0, 1), (1, 2, 0))
+    synth = pred_nchw[0, 0].astype(np.float32)
+    real = refl(batch["s2_nir"][0, 0])
+    titles = ["HR RGB", "LR RGB", "Synth NIR", "Real NIR"]
+    if not has_matplotlib():
+        image_grid([[unit_rgb(hr), unit_rgb(lr), colormap(synth, "gray"),
+                     colormap(real, "gray")]], titles).save(path)
+        return
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
     fig, axs = plt.subplots(1, 4, figsize=(16, 4))
-    axs[0].imshow(np.transpose(hr, (1, 2, 0)))
-    axs[0].set_title("HR RGB")
-    axs[1].imshow(np.transpose(lr, (1, 2, 0)))
-    axs[1].set_title("LR RGB")
-    axs[2].imshow(pred_nchw[0, 0].astype(np.float32), cmap="gray")
-    axs[2].set_title("Synth NIR")
-    axs[3].imshow(refl(batch["s2_nir"][0, 0]), cmap="gray")
-    axs[3].set_title("Real NIR")
-    for ax in axs:
+    for ax, img, title, kw in zip(axs, (hr, lr, synth, real), titles,
+                                  ({}, {}, {"cmap": "gray"}, {"cmap": "gray"})):
+        ax.imshow(img, **kw)
+        ax.set_title(title)
         ax.axis("off")
     fig.tight_layout()
-    fig.savefig(os.path.join(plot_dir, f"example_{idx}.png"))
+    fig.savefig(path)
     plt.close(fig)

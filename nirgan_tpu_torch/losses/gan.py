@@ -47,9 +47,9 @@ def gradient_penalty(net_d: Callable[[torch.Tensor], torch.Tensor],
     at x = real, fake or (``mixed``) alpha real + (1 - alpha) fake, the
     gradient of the summed logits taken with ``create_graph=True`` so that
     the penalty trains D; 1e-16 is added to the gradient before the norm,
-    as in the reference.  Through a kernel whose backward is not itself
-    differentiable (the instance norm on a card, and its plain version
-    alike) the penalty's own backward raises."""
+    as in the reference.  The penalty trains a D with the instance norm:
+    the norm's backward (kernel B4 on a card) is itself differentiable, its
+    second-order terms in PyTorch ops (``ops/instance_norm.py``)."""
     if lambda_gp <= 0.0:
         return torch.zeros((), device=real_data.device)
     if gp_type == "real":

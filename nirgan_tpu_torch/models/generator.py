@@ -19,7 +19,9 @@ At widths a kernel is not built for (an ``ngf`` under 32 in bf16, any head
 but 64 -> 1), the trunk convs and the head take their ops' library routes
 (``trunk_conv_library``, ``head_conv_library``), chosen by shape.  With an
 int8 pack (``forward(..., trunk_q=)``, serving only) the residual blocks run
-as ``ops/int8_trunk.int8_trunk_forward``, on kernels D and E.  The TPU
+as ``ops/int8_trunk.int8_trunk_forward``, on kernels D and E, with the
+trunk's own border; a pack with ``"d1"`` (stage 2) also runs d1, its norm
+and ReLU as ``int8_d1_forward``.  The TPU
 layout variants of the JAX module (blocked stem, pad folds) compute the same
 function and are not carried over.
 
@@ -48,7 +50,7 @@ from nirgan_tpu_torch.models.layers import (
 )
 from nirgan_tpu_torch.ops.head_conv import head_conv
 from nirgan_tpu_torch.ops.initializers import Init, normal
-from nirgan_tpu_torch.ops.int8_trunk import int8_trunk_forward
+from nirgan_tpu_torch.ops.int8_trunk import int8_d1_forward, int8_trunk_forward
 from nirgan_tpu_torch.ops.pad import reflect_pad2d, replicate_pad2d, zero_pad2d
 from nirgan_tpu_torch.ops.resize import resize_bilinear
 from nirgan_tpu_torch.ops.trunk_conv import trunk_conv
@@ -198,18 +200,14 @@ class ResnetGenerator(nn.Module):
         """x (B, H, W, input_nc) NHWC [, embeds (B, embed_dim)] ->
         (B, H, W, output_nc) in ``compute_dtype``; values in [-1, 1] before
         the post-correction.  ``trunk_q``, a pack of
-        ``ops/int8_trunk.quantize_trunk``, runs the residual trunk in int8:
-        serving only, so it raises under autograd, and only with the
-        affine-free instance norm the pack's arithmetic assumes."""
+        ``ops/int8_trunk.quantize_trunk``, runs the residual trunk in int8
+        (and d1 where it holds ``"d1"``): serving only, so it raises under
+        autograd, and only with the affine-free instance norm the pack's
+        arithmetic assumes."""
         if trunk_q is not None and (torch.is_grad_enabled()
                                     or self.norm_type != "instance"):
             raise ValueError("int8 trunk is a serving-only path and requires "
                              "affine-free InstanceNorm (norm_type='instance')")
-        if trunk_q is not None and self.padding_type != "reflect":
-            # kernel D gathers the reflect border inside the kernel
-            raise NotImplementedError(
-                f"the int8 trunk with padding [{self.padding_type}] is not "
-                "ported (reflect only; ROADMAP A8)")
         h = x.to(self.compute_dtype)
         h = self.n0(self.c0(reflect_pad2d(h, 3)), relu=True)
         if self.inject:
@@ -217,9 +215,16 @@ class ResnetGenerator(nn.Module):
             h = torch.relu(self._inject(self.nd0(self.d0(h)), embeds))
         else:
             h = self.nd0(self.d0(h), relu=True)
-        h = self.nd1(self.d1(h), relu=True)
+        h8 = None
+        if trunk_q is not None and "d1" in trunk_q:
+            # stage 2: d1 + nd1 + ReLU in int8, ending in the trunk's first
+            # quantised input
+            h, h8 = int8_d1_forward(h, trunk_q["d1"], trunk_q["s_in"][0],
+                                    self.compute_dtype)
+        else:
+            h = self.nd1(self.d1(h), relu=True)
         if trunk_q is not None:
-            h = int8_trunk_forward(h, trunk_q)
+            h = int8_trunk_forward(h, trunk_q, self.padding_type, h8)
         for i in range(self.n_blocks if trunk_q is None else 0):
             h = getattr(self, f"r{i}")(h)
         h = self.nu0(self.u0(h), relu=True)

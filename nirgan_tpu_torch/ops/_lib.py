@@ -53,7 +53,7 @@ _SIGNATURES = {
     "nirgan_convt_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _P),
     "nirgan_int8_conv": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _P),
+                         _I, _P),
     "nirgan_int8_norm": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _P),
 }

@@ -16,11 +16,15 @@ statistics, and the fused ReLU's mask from x with the forward's own
 roundings, so the forward's output is never saved.  The source's header has
 the design.
 
-``instance_norm`` is one ``torch.autograd.Function``: a CUDA tensor launches
-the kernels in both directions or raises, a CPU tensor takes the plain
-versions, so the CPU runs the same graph wiring as the card.  It is the
-entry the models call, the counterpart of ``nirgan_tpu/ops/norm.py``
-(affine-free, stat-free everywhere, reference ``model/networks.py:30``).
+``instance_norm`` is one ``torch.autograd.Function`` whose backward is a
+second one, ``InstanceNormBackward``: a CUDA tensor launches the kernels in
+both directions or raises, a CPU tensor takes the plain versions, so the
+CPU runs the same graph wiring as the card.  The backward is itself
+differentiable (``gradient_penalty`` trains D through it): its second-order
+terms are PyTorch ops (``instance_norm_bwd_bwd``), where the JAX package
+lets XLA differentiate its norm twice.  It is the entry the models call,
+the counterpart of ``nirgan_tpu/ops/norm.py`` (affine-free, stat-free
+everywhere, reference ``model/networks.py:30``).
 """
 
 from __future__ import annotations
@@ -28,8 +32,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.autograd.function import once_differentiable
-
 from nirgan_tpu_torch.ops import _lib
 
 NAME = "instance_norm"
@@ -119,8 +121,15 @@ def launch_plan(b: int, hw: int, c: int, itemsize: int,
     return streaming_plan(b, hw, c, itemsize)
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x in f32, or in f64 where it is f64 (the plain versions' gradient
+    checks run in f64)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _stats(x32: torch.Tensor, eps: float) -> torch.Tensor:
-    """(B, 2, C) f32: mean and 1 / sqrt(var + eps) over H, W."""
+    """(B, 2, C) f32 (f64 for f64 x): mean and 1 / sqrt(var + eps) over H,
+    W."""
     mean = x32.mean(dim=(1, 2))
     var = x32.square().mean(dim=(1, 2)) - mean.square()
     return torch.stack([mean, torch.reciprocal(torch.sqrt(var + eps))], 1)
@@ -143,7 +152,7 @@ def instance_norm_plain(x: torch.Tensor, eps: float = 1e-5,
     ``torch.nn.InstanceNorm2d`` is not this formula.  ``residual`` is added
     to the result (after the ReLU, if any) in x's dtype.  With
     ``return_stats`` also the (B, 2, C) f32 mean and scale."""
-    stats = _stats(x.float(), eps)
+    stats = _stats(_wide(x), eps)
     y = _normalized(x, stats)
     y = torch.relu(y) if relu else y
     y = residual + y if residual is not None else y
@@ -158,15 +167,56 @@ def instance_norm_bwd_plain(x: torch.Tensor, g: torch.Tensor,
     the forward fused the ReLU (``relu``), g is first masked by the sign of
     the forward's value, recomputed from x and ``stats`` as the forward
     rounds it: the same bits as ``out > 0``."""
-    g32 = g.float()
+    g32 = _wide(g)
     if relu:
         g32 = g32 * (_normalized(x, stats) > 0)
-    mean = stats[:, 0, None, None, :]
     r = stats[:, 1, None, None, :]
-    y = (x.float() - mean) * r
-    dx = r * (g32 - g32.mean(dim=(1, 2), keepdim=True)
-              - y * (g32 * y).mean(dim=(1, 2), keepdim=True))
-    return dx.to(x.dtype)
+    return (r * _project(g32, _y(x, stats))).to(x.dtype)
+
+
+def _y(x: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
+    """The normalised x in f32 (f64 for f64 x): (x - mean) * r."""
+    return (_wide(x) - stats[:, 0, None, None, :]) * stats[:, 1, None, None, :]
+
+
+def _project(a: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """a - mean(a) - y * mean(a * y) over H, W: the backward's map, which is
+    its own adjoint."""
+    return (a - a.mean(dim=(1, 2), keepdim=True)
+            - y * (a * y).mean(dim=(1, 2), keepdim=True))
+
+
+def instance_norm_bwd_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
+                          relu: bool, v: torch.Tensor) -> tuple:
+    """The second-order terms of the instance norm, in PyTorch ops: given v,
+    the cotangent of the backward's dx = r P(g') with g' = g * mask, P a =
+    a - mean(a) - y mean(a y) and y = (x - mean) r, returns (the cotangent
+    of x, of g):
+
+        dg = mask * r P(v)
+        dx = -r^2 (A y + mean(v y) P(g') + mean(g' y) P(v)),
+        A  = mean(v g') - mean(g') mean(v) - mean(g' y) mean(v y),
+
+    from dy = r P(dx) and dr = -r^2 mean(y dx), the statistics' dependence
+    on x included.  The fused ReLU's mask is constant almost everywhere, so
+    it only masks g.  In f32 (f64 for f64 x), each result in its input's
+    dtype.  The JAX package has no kernel here: XLA differentiates its norm
+    twice (``nirgan_tpu/losses/gan.py:40``)."""
+    mask = (_normalized(x, stats) > 0) if relu else None
+    gm = _wide(g) if mask is None else _wide(g) * mask
+    v32 = _wide(v)
+    y = _y(x, stats)
+    r = stats[:, 1, None, None, :]
+
+    def mean(a):
+        return a.mean(dim=(1, 2), keepdim=True)
+
+    pv, pg = _project(v32, y), _project(gm, y)
+    vy, gy = mean(v32 * y), mean(gm * y)
+    a = mean(v32 * gm) - mean(gm) * mean(v32) - gy * vy
+    dg = r * pv if mask is None else r * pv * mask
+    dx = -r.square() * (a * y + vy * pg + gy * pv)
+    return dx.to(x.dtype), dg.to(g.dtype)
 
 
 def _check(x: torch.Tensor, name: str) -> int:
@@ -288,9 +338,34 @@ def max_active_clusters(x: torch.Tensor, plan: Plan, backward: bool) -> int:
     return n
 
 
+class InstanceNormBackward(torch.autograd.Function):
+    """The first-order backward as a function of (x, g): forward kernel B4
+    (its plain version on the CPU); backward the second-order terms of
+    ``instance_norm_bwd_bwd`` in PyTorch ops, so that a gradient taken with
+    ``create_graph=True`` (``gradient_penalty``) trains through the norm.
+    ``stats`` are the forward's, a function of x that the second-order
+    terms account for."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
+                relu: bool) -> torch.Tensor:
+        bwd = (instance_norm_bwd_cuda if _lib.route(x, BWD_NAME)
+               else instance_norm_bwd_plain)
+        ctx.relu = relu
+        ctx.save_for_backward(x, g, stats)
+        return bwd(x, g.contiguous(), stats, relu)
+
+    @staticmethod
+    def backward(ctx, v: torch.Tensor):
+        x, g, stats = ctx.saved_tensors
+        dx, dg = instance_norm_bwd_bwd(x, g, stats, ctx.relu, v)
+        return dx, dg, None, None
+
+
 class InstanceNorm(torch.autograd.Function):
-    """Forward kernel B, backward kernel B4 (the plain versions on the CPU).
-    Saves x and the forward's f32 statistics, never the output."""
+    """Forward kernel B, backward kernel B4 (the plain versions on the CPU)
+    through ``InstanceNormBackward``, which is itself differentiable.  Saves
+    x and the forward's f32 statistics, never the output."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, residual: torch.Tensor | None,
@@ -302,14 +377,10 @@ class InstanceNorm(torch.autograd.Function):
         return y
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g: torch.Tensor):
         x, stats = ctx.saved_tensors
-        g = g.contiguous()
-        bwd = (instance_norm_bwd_cuda if _lib.route(x, BWD_NAME)
-               else instance_norm_bwd_plain)
         # the skip passes its cotangent on unchanged
-        return (bwd(x, g, stats, ctx.relu),
+        return (InstanceNormBackward.apply(x, g, stats, ctx.relu),
                 g if ctx.needs_input_grad[1] else None, None, None)
 
 

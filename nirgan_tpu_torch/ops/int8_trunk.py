@@ -19,13 +19,17 @@ The formulation is the JAX package's:
     inner activation; only (C,) vectors leave the device.
 
 **Kernel D** (``csrc/int8_conv.cu``) replaces ``_conv_moments(_pad2d(x8),
-w8)`` (``nirgan_tpu/ops/int8_trunk.py:103-108``), an XLA convolution with
-an int32 result, not a Pallas kernel: the 3x3 conv of int8 NHWC x8 with the
-reflect border gathered in the kernel, exact s8 x s8 -> s32 sums on the
-tensor cores, and in the epilogue the accumulator rounded to bf16 and
-Sigma a, Sigma a^2 per (image, channel) in f32 of the unrounded one.  At
-the serving shape (4, 133^2, 256) it is 83.5 G int8 operations against 55
-MB moved: bound by the tensor cores, 0.042 ms at the H100's 1,979 TOPS.
+w8)`` (``nirgan_tpu/ops/int8_trunk.py:103-108``) and the conv of
+``int8_d1_forward`` (``:130-136``), XLA convolutions with an int32 result,
+not Pallas kernels: the 3x3 conv of int8 NHWC x8 with its border gathered
+in the kernel (the trunk's reflect, replicate or zero border at stride 1;
+d1's zero border at stride 2), exact s8 x s8 -> s32 sums on the tensor
+cores, and in the epilogue the accumulator rounded to bf16 and Sigma a,
+Sigma a^2 per (image, channel) in f32 of the unrounded one.  At the serving
+trunk's shape (4, 133^2, 256) it is 83.5 G int8 operations against 55 MB
+moved: bound by the tensor cores, 0.042 ms at the H100's 1,979 TOPS; d1 at
+(4, 266^2, 128) -> (4, 133^2, 256) is 41.7 G operations against 72 MB,
+about 0.022 ms either way.
 The generator's trunk (``takes_wgmma``: Cin % 128 == 0, Cout 128 or 256)
 runs the s8 form of kernel A's wgmma engine (``csrc/igemm_wgmma.cu``: the
 same gather and ring, 128 int8 channels a 128-byte row, ``wgmma`` s8), the
@@ -42,16 +46,19 @@ over the staged accumulator with the mean and rstd of each (image, channel)
 from the moments.  Mode 0 quantises the trunk's input stream, mode 1 (after
 conv1) applies the ReLU, divides by ``s_mid`` and quantises, mode 2 (after
 conv2) adds the skip in the stream's dtype, writes the stream and, where a
-next block exists, its quantised input.  Bound by memory: 54 MB in mode 1
-and 127 MB in mode 2 at the serving shape, 0.016 and 0.038 ms.  It divides
+next block exists, its quantised input; mode 3 ends stage 2's d1: the ReLU'd
+norm written as the stream and, quantised from that rounded stream, the
+trunk's first input (so the trunk's leading mode-0 pass goes).  Bound by
+memory: 54 MB in mode 1, 127 MB in mode 2 and 91 MB in mode 3 at the
+serving shape, 0.016, 0.038 and 0.027 ms.  It divides
 (``x / s`` is a true f32 division in JAX), rounds half to even and clips to
 +-127, as ``_q8`` does.
 
 Each wrapper dispatches as the port's other kernels do: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel or raises.  Torch has
 no int8 convolution on a card, so there is no library route.  Stage 2
-(``int8_d1_forward``, the d1 conv in int8) is not ported: the JAX package
-ships it off, measured slower on the TPU.
+(``int8_d1_forward``, the d1 conv in int8) is opt-in, as in the JAX package
+(``Px2PxTask.build_trunk_q(stage2=True)``).
 """
 
 from __future__ import annotations
@@ -63,12 +70,16 @@ import torch.nn.functional as F
 
 from nirgan_tpu_torch.ops import _lib
 from nirgan_tpu_torch.ops._pack import laid_out, pack_b128
-from nirgan_tpu_torch.ops.pad import reflect_pad2d
+from nirgan_tpu_torch.ops.pad import reflect_pad2d, replicate_pad2d, zero_pad2d
 
 CONV_NAME = "int8_conv"
 NORM_NAME = "int8_norm"
 IN_EPS = 1e-5  # torch InstanceNorm2d's default, as ops/instance_norm.py
 CALIB_ROWS = 16  # the rows of a batch that calibrate (build_trunk_q)
+# kernel D's gathers (igemm::Gather): the trunk's border at stride 1, and
+# the zero border at stride 2
+GATHERS = {("reflect", 1): 0, ("replicate", 1): 3, ("zero", 1): 4, ("zero", 2): 2}
+PADS = {"reflect": reflect_pad2d, "replicate": replicate_pad2d, "zero": zero_pad2d}
 
 
 # ------------------------------------------------------------ quantisation
@@ -93,7 +104,8 @@ def quantize_trunk(state_dict, n_blocks: int, calib: dict) -> dict:
     """The int8 trunk pack from a generator's state_dict (``r{i}.conv1`` and
     ``conv2`` weights) and the scales of ``calibrate_trunk``: per block w1,
     w2 (Cout, Cin, 3, 3) int8, eps1, eps2, s_in and s_mid (C,) f32, on the
-    weights' device."""
+    weights' device; with ``calib["d1_in"]`` (stage 2) also ``pack["d1"] =
+    {"w", "eps", "s_in"}`` for ``int8_d1_forward``."""
     pack = {key: [] for key in ("w1", "w2", "eps1", "eps2", "s_in", "s_mid")}
     for i in range(n_blocks):
         w1 = state_dict[f"r{i}.conv1.weight"]
@@ -104,13 +116,18 @@ def quantize_trunk(state_dict, n_blocks: int, calib: dict) -> dict:
         for key, v in (("w1", w1q), ("w2", w2q), ("eps1", e1), ("eps2", e2),
                        ("s_in", si), ("s_mid", sm)):
             pack[key].append(v)
+    if "d1_in" in calib:
+        w = state_dict["d1.weight"]
+        sd1 = torch.as_tensor(calib["d1_in"], dtype=torch.float32, device=w.device)
+        wd1, ed1 = quant_folded(w, sd1)
+        pack["d1"] = {"w": wd1, "eps": ed1, "s_in": sd1}
     return pack
 
 
 @torch.no_grad()
 def calibrate_trunk(netG, x_padded: torch.Tensor,
                     embeds: Optional[torch.Tensor] = None,
-                    margin: float = 1.2) -> dict:
+                    margin: float = 1.2, stage2: bool = False) -> dict:
     """One float forward of ``netG`` with hooks -> the per-channel
     quantisation scales (absmax * margin / 127) of each block's input stream
     and of each block's inner activation (``calibrate_trunk``): {"in":
@@ -122,7 +139,9 @@ def calibrate_trunk(netG, x_padded: torch.Tensor,
     Each hook reduces its tensor to a (C,) vector on the device at once, so
     no activation is kept.  A channel dead on the calibration batch gets a
     floor of 1e-3 of the tensor's largest scale (its folded weights are
-    about 0 anyway)."""
+    about 0 anyway).  With ``stage2`` also ``"d1_in"``: the scale of the
+    input of ``d1``, the ReLU'd stream after ``nd0`` (and after the inject
+    combination)."""
     nb = netG.n_blocks
     found: dict = {}
 
@@ -136,6 +155,10 @@ def calibrate_trunk(netG, x_padded: torch.Tensor,
     taps += [(getattr(netG, f"r{i}"), f"in{i + 1}", True) for i in range(nb - 1)]
     taps += [(getattr(netG, f"r{i}").norm1, f"mid{i}", False) for i in range(nb)]
     handles = [m.register_forward_hook(keep(name, a)) for m, name, a in taps]
+    if stage2:
+        d1_in = keep("d1_in", True)
+        handles.append(netG.d1.register_forward_pre_hook(
+            lambda module, args: d1_in(module, args, args[0])))
     try:
         netG(x_padded, *(() if embeds is None else (embeds,)))
     finally:
@@ -147,26 +170,38 @@ def calibrate_trunk(netG, x_padded: torch.Tensor,
         v = v.cpu()
         return (v * k).clamp(min=max(float(v.max()) * k * 1e-3, 1e-12))
 
-    return {"in": [clamp(found[f"in{i}"]) for i in range(nb)],
-            "mid": [clamp(found[f"mid{i}"]) for i in range(nb)]}
+    out = {"in": [clamp(found[f"in{i}"]) for i in range(nb)],
+           "mid": [clamp(found[f"mid{i}"]) for i in range(nb)]}
+    if stage2:
+        out["d1_in"] = clamp(found["d1_in"])
+    return out
 
 
 # ---------------------------------------------------------------- kernel D
-def conv_i8_plain(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
-    """The int32 accumulator of the 3x3 conv of int8 NHWC x8 with its
-    reflect border and a (Cout, Cin, 3, 3) int8 weight: float64 sums of
-    integers, exact (``_conv_i8`` on the padded input)."""
-    xp = reflect_pad2d(x8.double(), 1)
-    acc = F.conv2d(xp.permute(0, 3, 1, 2), w8.double())
+def out_side(n: int, stride: int) -> int:
+    """The output side of kernel D's 3x3 conv over a side of n: n at stride
+    1, (n - 1) // 2 + 1 at stride 2 (k3 s2 p1)."""
+    return n if stride == 1 else (n - 1) // 2 + 1
+
+
+def conv_i8_plain(x8: torch.Tensor, w8: torch.Tensor, border: str = "reflect",
+                  stride: int = 1) -> torch.Tensor:
+    """The int32 accumulator of the 3x3 conv of int8 NHWC x8 with a
+    (Cout, Cin, 3, 3) int8 weight: at stride 1 with the trunk's ``border``
+    (``_conv_i8`` on ``_pad2d``'s input), at stride 2 with the zero border
+    (``int8_d1_forward``'s conv); float64 sums of integers, exact."""
+    xp = PADS[border](x8.double(), 1)
+    acc = F.conv2d(xp.permute(0, 3, 1, 2), w8.double(), stride=stride)
     return acc.permute(0, 2, 3, 1).to(torch.int32)
 
 
-def conv_moments_plain(x8: torch.Tensor,
-                       w8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def conv_moments_plain(x8: torch.Tensor, w8: torch.Tensor, border: str = "reflect",
+                       stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """``_conv_moments``: (the accumulator rounded to bf16, NHWC; its f32
     moments (B, 2, Cout): Sigma a and Sigma a^2 over the pixels of each image,
-    of the accumulator in f32 before the bf16 rounding)."""
-    a32 = conv_i8_plain(x8, w8).float()
+    of the accumulator in f32 before the bf16 rounding), the conv of
+    ``conv_i8_plain``."""
+    a32 = conv_i8_plain(x8, w8, border, stride).float()
     moments = torch.stack([a32.sum(dim=(1, 2)), a32.square().sum(dim=(1, 2))], 1)
     return a32.to(torch.bfloat16), moments
 
@@ -213,11 +248,13 @@ def conv_tiles(hw: int) -> int:
     return -(-hw // 128)
 
 
-def _launch(x8: torch.Tensor, w8: torch.Tensor,
-            packed: bool) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch(x8: torch.Tensor, w8: torch.Tensor, packed: bool,
+            border: str = "reflect", stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """One call of kernel D, the wgmma kernel (``packed``) or the mma.sync
     kernel; the C entry refuses a shape the one named cannot take."""
     req = _lib.require
+    req((border, stride) in GATHERS, CONV_NAME,
+        f"no gather for border {border!r} at stride {stride}")
     req(x8.is_cuda and x8.dtype == torch.int8 and x8.dim() == 4
         and x8.is_contiguous(), CONV_NAME, "x8 must be a contiguous int8 "
         "(B, H, W, C) CUDA tensor")
@@ -227,46 +264,53 @@ def _launch(x8: torch.Tensor, w8: torch.Tensor,
         f"w8 must be int8 (Cout, {ci}, 3, 3), got {w8.dtype} {tuple(w8.shape)}")
     req(takes_conv(ci, co), CONV_NAME,
         f"channels {ci}->{co}: the kernel needs Cin % 32 == 0 and Cout % 8 == 0")
-    req(h >= 2 and w >= 2 and b > 0, CONV_NAME, "reflect padding needs H, W >= 2")
+    least = 2 if border == "reflect" else 1
+    req(h >= least and w >= least and b > 0, CONV_NAME,
+        f"the {border} border needs H, W >= {least}")
     req(b * h * w * max(ci, co) < 2 ** 31, CONV_NAME, "tensor too large")
     wk = laid_out(w8, x8.device, torch.int8, pack_weight if packed else kernel_weight)
+    ho, wo = out_side(h, stride), out_side(w, stride)
     if packed:
-        tiles = -(-b * h * w // tile_rows(co))
+        tiles = -(-b * ho * wo // tile_rows(co))
         scratch = (tiles, 2, 2, co)
     else:
-        tiles = conv_tiles(h * w)
+        tiles = conv_tiles(ho * wo)
         scratch = (b, tiles, 2, co)
-    hb = torch.empty((b, h, w, co), device=x8.device, dtype=torch.bfloat16)
+    hb = torch.empty((b, ho, wo, co), device=x8.device, dtype=torch.bfloat16)
     part = torch.empty(scratch, device=x8.device, dtype=torch.float32)
     moments = torch.empty((b, 2, co), device=x8.device, dtype=torch.float32)
     req(_lib.aligned(x8, wk, hb), CONV_NAME, "tensors must be 16-byte aligned")
     err = _lib.library().nirgan_int8_conv(
         x8.device.index, x8.data_ptr(), wk.data_ptr(), hb.data_ptr(),
         part.data_ptr(), moments.data_ptr(), b, h, w, ci, co, tiles,
-        int(packed), _lib.stream_of(x8))
+        int(packed), GATHERS[(border, stride)], _lib.stream_of(x8))
     _lib.check(err, CONV_NAME)
     return hb, moments
 
 
-def conv_moments_cuda(x8: torch.Tensor,
-                      w8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def conv_moments_cuda(x8: torch.Tensor, w8: torch.Tensor, border: str = "reflect",
+                      stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel D on contiguous int8 NHWC x8 on a card, the wgmma
-    kernel where ``takes_wgmma``: the arguments and results of
-    ``conv_moments_plain``."""
+    kernel where ``takes_wgmma`` (counted in output pixels): the arguments
+    and results of ``conv_moments_plain``."""
     _lib.require(x8.dim() == 4, CONV_NAME, "x8 must be (B, H, W, C)")
-    out = _launch(x8, w8, takes_wgmma(x8.shape[3], w8.shape[0],
-                                      x8.shape[1] * x8.shape[2]))
+    hw = out_side(x8.shape[1], stride) * out_side(x8.shape[2], stride)
+    out = _launch(x8, w8, takes_wgmma(x8.shape[3], w8.shape[0], hw), border, stride)
     conv_moments_cuda.launches += 1
+    key = (border, stride)
+    conv_moments_cuda.by_gather[key] = conv_moments_cuda.by_gather.get(key, 0) + 1
     return out
 
 
 conv_moments_cuda.launches = 0
+conv_moments_cuda.by_gather = {}  # the launches by (border, stride)
 
 
-def conv_moments(x8: torch.Tensor, w8: torch.Tensor):
+def conv_moments(x8: torch.Tensor, w8: torch.Tensor, border: str = "reflect",
+                 stride: int = 1):
     """Kernel D on a card, its plain version on the CPU."""
     fwd = conv_moments_cuda if _lib.route(x8, CONV_NAME) else conv_moments_plain
-    return fwd(x8, w8)
+    return fwd(x8, w8, border, stride)
 
 
 # ---------------------------------------------------------------- kernel E
@@ -305,33 +349,48 @@ def norm_skip_quant_plain(hb: torch.Tensor, moments: torch.Tensor,
     return out, (quantize_plain(out, s_next) if s_next is not None else None)
 
 
+def norm_relu_stream_quant_plain(hb: torch.Tensor, moments: torch.Tensor,
+                                 eps_adj: torch.Tensor, s: torch.Tensor,
+                                 dtype: torch.dtype):
+    """Mode 3, after stage 2's d1 conv: the stream ``relu(norm).to(dtype)``
+    (``int8_d1_forward(...).astype(compute_dtype)``) and the trunk's first
+    input ``q8(stream.f32 / s)``, quantised from the rounded stream."""
+    out = torch.relu(norm_from_moments(hb, moments, eps_adj)).to(dtype)
+    return out, quantize_plain(out, s)
+
+
 def norm_quant_plain(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
                      moments: Optional[torch.Tensor] = None,
                      eps_adj: Optional[torch.Tensor] = None,
-                     x: Optional[torch.Tensor] = None):
+                     x: Optional[torch.Tensor] = None,
+                     dtype: Optional[torch.dtype] = None):
     """Kernel E's plain version under the kernel wrapper's signature: mode 0
     ``quantize_plain``, 1 ``norm_relu_quant_plain``, 2
-    ``norm_skip_quant_plain``."""
+    ``norm_skip_quant_plain``, 3 ``norm_relu_stream_quant_plain``."""
     if mode == 0:
         return quantize_plain(src, s)
     if mode == 1:
         return norm_relu_quant_plain(src, moments, eps_adj, s)
+    if mode == 3:
+        return norm_relu_stream_quant_plain(src, moments, eps_adj, s, dtype)
     return norm_skip_quant_plain(src, moments, eps_adj, x, s)
 
 
 def norm_quant_cuda(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
                     moments: Optional[torch.Tensor] = None,
                     eps_adj: Optional[torch.Tensor] = None,
-                    x: Optional[torch.Tensor] = None):
-    """Launch kernel E in ``mode`` (0, 1 or 2) on a card.  ``src``: the
-    stream (mode 0, bf16 or f32) or the staged bf16 accumulator (modes 1,
-    2), contiguous NHWC; ``s``: the (C,) scale the quantised output is
+                    x: Optional[torch.Tensor] = None,
+                    dtype: Optional[torch.dtype] = None):
+    """Launch kernel E in ``mode`` (0 to 3) on a card.  ``src``: the
+    stream (mode 0, bf16 or f32) or the staged bf16 accumulator (modes 1 to
+    3), contiguous NHWC; ``s``: the (C,) scale the quantised output is
     divided by (None in mode 2 after the last block); ``moments`` (B, 2, C)
-    and ``eps_adj`` (C,) f32 in modes 1 and 2; ``x`` the stream the skip
-    adds to, in mode 2.  Returns the int8 output (mode 0, 1) or (stream,
-    int8 or None) (mode 2)."""
+    and ``eps_adj`` (C,) f32 in modes 1 to 3; ``x`` the stream the skip
+    adds to, in mode 2; ``dtype`` the stream's (bf16 or f32) in mode 3.
+    Returns the int8 output (mode 0, 1) or (stream, int8 or None) (modes 2,
+    3)."""
     req = _lib.require
-    req(mode in (0, 1, 2), NORM_NAME, f"mode must be 0, 1 or 2, got {mode}")
+    req(mode in (0, 1, 2, 3), NORM_NAME, f"mode must be 0 to 3, got {mode}")
     req(src.is_cuda and src.dim() == 4 and src.is_contiguous(), NORM_NAME,
         "src must be a contiguous (B, H, W, C) CUDA tensor")
     b, h, w, c = src.shape
@@ -352,13 +411,18 @@ def norm_quant_cuda(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
         code = _lib.dtype_code(x, NORM_NAME)
     else:
         req(s is not None, NORM_NAME, f"mode {mode} needs a scale")
+    if mode == 3:
+        req(dtype in (torch.float32, torch.bfloat16), NORM_NAME,
+            f"mode 3 writes an f32 or bf16 stream, not {dtype}")
+        code = 1 if dtype == torch.bfloat16 else 0
 
     def f32(t):
         return None if t is None else t.to(device=src.device, dtype=torch.float32).contiguous()
 
     s32, eps32 = f32(s), f32(eps_adj)
     q = torch.empty(src.shape, device=src.device, dtype=torch.int8) if s is not None else None
-    out = torch.empty_like(x) if mode == 2 else None
+    out = (torch.empty_like(x) if mode == 2 else
+           torch.empty(src.shape, device=src.device, dtype=dtype) if mode == 3 else None)
     tensors = [t for t in (src, x, q, out) if t is not None]
     req(_lib.aligned(*tensors), NORM_NAME, "tensors must be 16-byte aligned")
 
@@ -370,35 +434,57 @@ def norm_quant_cuda(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
         ptr(s32), ptr(x), ptr(out), ptr(q), b, h * w, c, _lib.stream_of(src))
     _lib.check(err, NORM_NAME)
     norm_quant_cuda.launches += 1
-    return (out, q) if mode == 2 else q
+    norm_quant_cuda.by_mode[mode] = norm_quant_cuda.by_mode.get(mode, 0) + 1
+    return (out, q) if mode in (2, 3) else q
 
 
 norm_quant_cuda.launches = 0
+norm_quant_cuda.by_mode = {}  # the launches by mode
 
 
 def norm_quant(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
                moments: Optional[torch.Tensor] = None,
                eps_adj: Optional[torch.Tensor] = None,
-               x: Optional[torch.Tensor] = None):
+               x: Optional[torch.Tensor] = None,
+               dtype: Optional[torch.dtype] = None):
     """Kernel E on a card, its plain version on the CPU (the arguments of
     ``norm_quant_cuda``)."""
     fwd = norm_quant_cuda if _lib.route(src, NORM_NAME) else norm_quant_plain
-    return fwd(mode, src, s, moments, eps_adj, x)
+    return fwd(mode, src, s, moments, eps_adj, x, dtype)
 
 
 # ------------------------------------------------------------------ trunk
-def int8_trunk_forward(x: torch.Tensor, pack: dict) -> torch.Tensor:
+def int8_d1_forward(x: torch.Tensor, qd1: dict, s_next: torch.Tensor,
+                    dtype: Optional[torch.dtype] = None) -> tuple:
+    """Stage 2 (``int8_d1_forward``): the d1 downsample conv (3x3, stride
+    2, zero border, 2 ngf -> 4 ngf) with its affine-free norm and ReLU in
+    accumulator units.  x (B, H, W, 2 ngf) is the ReLU'd stream after
+    ``nd0``; returns (the stream (B, (H - 1) // 2 + 1, ..., 4 ngf) in
+    ``dtype``, x's by default, and its quantisation by ``s_next``, the
+    trunk's first input).  Three launches: E (mode 0) quantises x by
+    ``qd1["s_in"]``, D convolves at stride 2, E (mode 3) ends it."""
+    x = x.contiguous()
+    x8 = norm_quant(0, x, qd1["s_in"])
+    hb, m = conv_moments(x8, qd1["w"], "zero", 2)
+    return norm_quant(3, hb, s_next, m, qd1["eps"], dtype=dtype or x.dtype)
+
+
+def int8_trunk_forward(x: torch.Tensor, pack: dict, padding_type: str = "reflect",
+                       x8: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The residual trunk in int8 (``int8_trunk_forward``): x (B, H, W, C)
-    the float stream after ``nd1``; returns the stream after the last block,
-    in x's dtype.  A forward is one launch of E to quantise the input, then
-    per block D, E (mode 1), D, E (mode 2): 2n launches of D, 2n + 1 of E."""
+    the float stream after ``nd1`` (or stage 2's d1), each conv with the
+    trunk's ``padding_type`` border; returns the stream after the last
+    block, in x's dtype.  A forward is one launch of E to quantise the input
+    (none where ``x8``, that quantisation, is given), then per block D, E
+    (mode 1), D, E (mode 2): 2n launches of D, 2n + 1 of E."""
     n_blocks = len(pack["w1"])
     x = x.contiguous()
-    x8 = norm_quant(0, x, pack["s_in"][0])
+    if x8 is None:
+        x8 = norm_quant(0, x, pack["s_in"][0])
     for i in range(n_blocks):
-        hb, m = conv_moments(x8, pack["w1"][i])
+        hb, m = conv_moments(x8, pack["w1"][i], padding_type)
         h8 = norm_quant(1, hb, pack["s_mid"][i], m, pack["eps1"][i])
-        hb, m = conv_moments(h8, pack["w2"][i])
+        hb, m = conv_moments(h8, pack["w2"][i], padding_type)
         s_next = pack["s_in"][i + 1] if i + 1 < n_blocks else None
         x, x8 = norm_quant(2, hb, s_next, m, pack["eps2"][i], x)
     return x

@@ -26,7 +26,7 @@ from nirgan_tpu_torch.data.pipeline import DeviceStager
 from nirgan_tpu_torch.losses import calculate_metrics, mse_loss
 from nirgan_tpu_torch.models.baselines import build_baseline
 from nirgan_tpu_torch.models.layers import dtype_of
-from nirgan_tpu_torch.train.state import TrainState, check_param_dtype
+from nirgan_tpu_torch.train.state import TrainState, check_finite, param_dtype_of
 
 __all__ = ["BaselineTask"]
 
@@ -48,7 +48,11 @@ class BaselineTask:
         self.seed = int(seed)
         self.stager = DeviceStager(self.device)
         tpu = tpu_section(config)
-        check_param_dtype(tpu)
+        # the JAX baseline task reads no param_dtype: its parameters are f32
+        # whatever the key says (a name it does not take still raises)
+        param_dtype_of(tpu)
+        # raise on the first non-finite loss or gradient (jax_debug_nans)
+        self.debug_nans = bool(tpu.get("debug_nans", False))
         self.compute_dtype = dtype_of(tpu.compute_dtype)
         self.lr = float(self.opt.learning_rate)
         self.netG = self._model(self.seed).to(self.device)
@@ -90,6 +94,8 @@ class BaselineTask:
         loss = mse_loss(pred, nir)
         state.opt_g.zero_grad(set_to_none=True)
         loss.backward()
+        if self.debug_nans:
+            check_finite("model", loss, self.netG)
         state.opt_g.step()
         state.step += 1
         with torch.no_grad():

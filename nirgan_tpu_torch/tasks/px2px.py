@@ -67,7 +67,13 @@ from nirgan_tpu_torch.models.layers import dtype_of, set_dropout_generator
 from nirgan_tpu_torch.ops.int8_trunk import CALIB_ROWS, calibrate_trunk, quantize_trunk
 from nirgan_tpu_torch.ops.pad import reflect_pad2d, reflect_pad_to
 from nirgan_tpu_torch.ops.resize import resize_bicubic
-from nirgan_tpu_torch.train.state import TrainState, adam_for, check_param_dtype
+from nirgan_tpu_torch.train.state import (
+    TrainState,
+    adam_for,
+    cast_params,
+    check_finite,
+    param_dtype_of,
+)
 
 __all__ = ["Px2PxTask"]
 
@@ -109,8 +115,17 @@ class Px2PxTask:
         # pinned buffers and a copy stream of their own
         self.stager = DeviceStager(self.device)
         tpu = tpu_section(config)
-        check_param_dtype(tpu)
+        # G's and D's parameters (and Adam's moments) in tpu.param_dtype
+        self.param_dtype = param_dtype_of(tpu)
         self.compute_dtype = dtype_of(tpu.compute_dtype)
+        # float rgb / nir cast on the host to this dtype before their copy
+        # (e.g. "float16"), widened on the device by the step: the JAX task
+        # casts them in extract_batch alone
+        td = tpu.get("transfer_dtype", None)
+        self.transfer_dtype = np.dtype(td) if td else None
+        # raise on the first non-finite loss or gradient of a train step
+        # (the JAX trainer's jax_debug_nans)
+        self.debug_nans = bool(tpu.get("debug_nans", False))
         self.dn_scale = float(config.Data.get("dn_scale", 10000.0))
         self.shape_buckets = sorted(int(b) for b in tpu.shape_buckets)
         # train metrics every 10th step, as the reference (pix2pix.py:183)
@@ -170,7 +185,8 @@ class Px2PxTask:
 
     def _networks(self, seed: int):
         """The generator and the discriminator on the host, drawn from one
-        generator seeded with ``seed``, G first."""
+        generator seeded with ``seed``, G first, their parameters in
+        ``tpu.param_dtype``."""
         concat = self.satclip_style == "concat"
         gen = torch.Generator().manual_seed(seed)
         # generator selection (reference model/pix2pix.py:27-53)
@@ -192,7 +208,7 @@ class Px2PxTask:
             self.opt.ndf, self.opt.netD, self.opt.n_layers_D, self.opt.norm,
             self.opt.init_type, self.opt.init_gain,
             compute_dtype=self.compute_dtype, generator=gen)
-        return netG, netD
+        return cast_params(netG, self.param_dtype), cast_params(netD, self.param_dtype)
 
     # ------------------------------------------------------------- applies
     def g_apply(self, rgb: torch.Tensor, embeds: Optional[torch.Tensor] = None,
@@ -242,7 +258,7 @@ class Px2PxTask:
         embeds = batch.get("embeds")
         if self.satclip and embeds is None:
             embeds = self._embed(batch.get("coords"))
-        arrays = [batch["rgb"], batch["nir"]]
+        arrays = [self._for_transfer(batch["rgb"]), self._for_transfer(batch["nir"])]
         if self.satclip:
             arrays.append(np.asarray(embeds, np.float32))
         staged = self._ingest(*arrays)
@@ -265,15 +281,26 @@ class Px2PxTask:
         through the tower."""
         return self.satclip_model.embed(np.asarray(coords, np.float32))
 
+    def _for_transfer(self, x) -> np.ndarray:
+        """A float batch array cast to ``tpu.transfer_dtype`` on the host
+        (the JAX task's ``_ingest``); DN integers and, without the key,
+        every array as it is."""
+        x = np.asarray(x)
+        if self.transfer_dtype is None or x.dtype in (np.uint8, np.uint16):
+            return x
+        return np.asarray(x, self.transfer_dtype)
+
     def _ingest(self, *arrays) -> list:
         """Host arrays -> tensors on the task's device, in one staged copy:
-        each 4-d NCHW array becomes an NHWC view; uint8/uint16 DN pass
-        through as integers, everything else becomes f32."""
+        each 4-d NCHW array becomes an NHWC view; uint8/uint16 DN and arrays
+        already in the transfer dtype pass through, everything else becomes
+        f32."""
+        keep = (np.uint8, np.uint16) + ((self.transfer_dtype,) if self.transfer_dtype
+                                        else ())
         host = []
         for x in arrays:
             x = np.asarray(x)
-            host.append(x if x.dtype in (np.uint8, np.uint16)
-                        else np.asarray(x, np.float32))
+            host.append(x if x.dtype in keep else np.asarray(x, np.float32))
         return [t.permute(0, 2, 3, 1) if t.dim() == 4 else t
                 for t in self.stager.to_device(host)]
 
@@ -346,6 +373,8 @@ class Px2PxTask:
             loss_d = loss_d * 0.5
         state.opt_d.zero_grad(set_to_none=True)
         loss_d.backward()
+        if self.debug_nans:
+            check_finite("D", loss_d, self.netD)
         state.opt_d.step()
 
         # --- generator update through the updated D, which takes no
@@ -375,6 +404,8 @@ class Px2PxTask:
             loss_g = loss_g + term * self.lambda_rs
         state.opt_g.zero_grad(set_to_none=True)
         loss_g.backward()
+        if self.debug_nans:
+            check_finite("G", loss_g, self.netG)
         state.opt_g.step()
 
         with torch.no_grad():
@@ -425,17 +456,15 @@ class Px2PxTask:
         exactly as ``g_apply`` receives it (NHWC reflectance, the concat
         route's plane attached); its first 16 rows, reflect-padded by the
         task's pad, go through one float forward with hooks, then the
-        weights are quantised per output channel.  ``stage2`` (the d1 conv
-        in int8, ``int8_d1_forward``) is not ported."""
-        if stage2:
-            raise NotImplementedError("build_trunk_q(stage2=True): the int8 d1 "
-                                      "conv (int8_d1_forward) is not ported "
-                                      "(ROADMAP A7-stage2)")
+        weights are quantised per output channel.  ``stage2`` also
+        quantises the d1 conv (``int8_d1_forward``); as in the JAX package
+        it is off by default and no config key turns it on."""
         x = x[:CALIB_ROWS]
         xp = reflect_pad2d(x, self.pad_amount) if self.use_padding else x
         e = embeds[:CALIB_ROWS].to(self.device) if self.inject and embeds is not None else None
         with torch.no_grad():
-            calib = calibrate_trunk(self.netG, xp.to(self.compute_dtype), e)
+            calib = calibrate_trunk(self.netG, xp.to(self.compute_dtype), e,
+                                    stage2=stage2)
             # the pack outlives the inference-mode call that calibrates: its
             # tensors are made as normal ones, so kernel D keeps their layout
             with torch.inference_mode(False):

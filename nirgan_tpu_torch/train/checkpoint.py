@@ -33,6 +33,21 @@ def merge_state_dict(module: torch.nn.Module,
     module.load_state_dict(keep, strict=False)
 
 
+def _load_in_saved_dtype(module: torch.nn.Module,
+                         saved: Mapping[str, torch.Tensor]) -> None:
+    """``module.load_state_dict(saved, strict=True)`` with each parameter
+    first given its saved dtype: a run made with ``tpu.param_dtype`` bf16
+    or f16 builds its networks in that dtype, and the JAX step's first
+    update turns them f32, which the checkpoint holds; a plain copy would
+    round them back.  Each parameter keeps its object, so the optimizer's
+    references stay valid."""
+    with torch.no_grad():
+        for k, p in module.named_parameters():
+            if k in saved and saved[k].dtype != p.dtype:
+                p.data = torch.empty_like(p, dtype=saved[k].dtype)
+    module.load_state_dict(saved, strict=True)
+
+
 def run_checkpoint(path: str) -> str:
     """A checkpoint file of the trainer: ``path`` itself if it is a file,
     else the ``best.pt`` (or, without one, the ``last.pt``) of the run
@@ -115,10 +130,10 @@ class CheckpointManager:
             return None
         blob = torch.load(self.path(which), map_location=task.device,
                           weights_only=True)
-        task.netG.load_state_dict(blob["G"], strict=True)
+        _load_in_saved_dtype(task.netG, blob["G"])
         state.opt_g.load_state_dict(blob["opt_g"])
         if "D" in blob:
-            task.netD.load_state_dict(blob["D"], strict=True)
+            _load_in_saved_dtype(task.netD, blob["D"])
             state.opt_d.load_state_dict(blob["opt_d"])
         if "rng" in blob and state.rng is not None:
             state.rng.set_state(blob["rng"].cpu())

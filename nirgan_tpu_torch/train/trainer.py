@@ -55,6 +55,7 @@ from nirgan_tpu_torch.data.pipeline import DeviceFeed
 from nirgan_tpu_torch.train.checkpoint import CheckpointManager, merge_state_dict
 from nirgan_tpu_torch.train.scheduler import ReduceLROnPlateau
 from nirgan_tpu_torch.utils.loggers import ExperimentLogger
+from nirgan_tpu_torch.utils.logging_helpers import plot_index, plot_tensors_hist
 
 __all__ = ["Trainer"]
 
@@ -276,26 +277,18 @@ class Trainer:
         """What one of the first ``num_val_images`` validation batches logs
         (``nirgan_tpu/train/trainer.py:426-475``), from the batch's first
         three channels and its NIR as the loader gave them and the
-        prediction: the image panels (where matplotlib is installed), the
-        NDVI panels with ``log_ndvi``, the six ``val_stats/*`` with
+        prediction: the image panels (matplotlib's, or PIL's where it is not
+        installed), the NDVI panels with ``log_ndvi``, the six ``val_stats/*`` with
         ``log_input_stats``, and the six ``indices_loss/*`` errors when the
         index losses are on."""
         rgb = np.asarray(batch["rgb"], np.float32)[:, :3]
         nir = np.asarray(batch["nir"], np.float32)
         pred_nchw = np.transpose(pred.float().cpu().numpy()[:len(rgb)], (0, 3, 1, 2))
-        try:
-            from nirgan_tpu_torch.utils.logging_helpers import (
-                plot_index,
-                plot_tensors_hist,
-            )
-
-            self.logger.log_image("Images/Val NIR",
-                                  plot_tensors_hist(rgb, nir, pred_nchw), step_no)
-            if self.log_ndvi:
-                self.logger.log_image("Images/Val NDVI",
-                                      plot_index(rgb, nir, pred_nchw), step_no)
-        except ImportError as e:  # matplotlib is optional
-            print(f"validation image panels skipped: {e}")
+        self.logger.log_image("Images/Val NIR",
+                              plot_tensors_hist(rgb, nir, pred_nchw), step_no)
+        if self.log_ndvi:
+            self.logger.log_image("Images/Val NDVI",
+                                  plot_index(rgb, nir, pred_nchw), step_no)
         if self.log_input_stats:
             self.logger.log_metrics({
                 "val_stats/min_pred": pred_nchw.min(),

@@ -4,8 +4,7 @@
 ``utils/logging_helpers.py:9-193``).
 
   * ``plot_tensors``      — RGB | NIR | predicted-NIR rows (RdYlGn), the
-    spider sweep's example panels; drawn with PIL
-    (``utils/pil_plots.py``) where matplotlib is not installed.
+    spider sweep's example panels.
   * ``plot_tensors_hist`` — 4-panel row + intensity histogram, with the
     reference's quirks kept: 1.5× NIR display stretch (:71), center-crop to
     240 (inputs < 350 px) else 500 (:80-83), 100-bin histograms, viridis.
@@ -13,10 +12,10 @@
     clipped to [-1, 1] then displayed on [0, 1].
 
 Inputs are NCHW float arrays in [0, 1] (the logging call sites' contract,
-``model/pix2pix.py:286-298``); each returns a PIL image.  matplotlib and PIL
-are imported inside the functions, so the module imports without them and
-a missing one raises ``ImportError`` at the call (``plot_tensors`` then
-draws with PIL).
+``model/pix2pix.py:286-298``); each returns a PIL image: JAX's matplotlib
+figure where matplotlib imports, else the same panels drawn with PIL
+(``utils/pil_plots.py``).  matplotlib and PIL are imported inside the
+functions, so the module imports without them.
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ import io
 import numpy as np
 
 from nirgan_tpu_torch.data.normalise import minmax_percentile
+from nirgan_tpu_torch.utils.pil_plots import has_matplotlib
 
 __all__ = ["plot_tensors", "plot_tensors_hist", "plot_index"]
 
@@ -52,10 +52,9 @@ def _prep(rgb, nir, pred, max_rows=5):
 
 
 def plot_tensors(rgb, nir, pred_nir, title="Train"):
-    try:
-        import matplotlib
-    except ImportError:
+    if not has_matplotlib():
         return _plot_tensors_pil(rgb, nir, pred_nir)
+    import matplotlib
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
@@ -78,13 +77,12 @@ def plot_tensors(rgb, nir, pred_nir, title="Train"):
 def _plot_tensors_pil(rgb, nir, pred_nir):
     """``plot_tensors``'s panels without matplotlib: the same rows, drawn
     by ``pil_plots.image_grid``."""
-    from nirgan_tpu_torch.utils.pil_plots import image_grid, rdylgn
+    from nirgan_tpu_torch.utils.pil_plots import colormap, image_grid, unit_rgb
 
     rgb, nir, pred, n = _prep(rgb, nir, pred_nir)
     rgb = minmax_percentile(rgb, perc=2)
-    rows = [[np.round(np.clip(np.transpose(rgb[i], (1, 2, 0)), 0, 1) * 255)
-             .astype(np.uint8), rdylgn(nir[i, 0]), rdylgn(pred[i, 0])]
-            for i in range(n)]
+    rows = [[unit_rgb(np.transpose(rgb[i], (1, 2, 0))), colormap(nir[i, 0]),
+             colormap(pred[i, 0])] for i in range(n)]
     return image_grid(rows, ["RGB Image", "NIR Image", "Predicted NIR Image"])
 
 
@@ -94,13 +92,14 @@ def _center_crop_nchw(x, size):
     return x[..., y0:y0 + size, x0:x0 + size]
 
 
-def plot_tensors_hist(rgb, nir, pred_nir, title="Validation"):
-    import matplotlib
+HIST_TITLES = ["RGB Image", "NIR Image", "Predicted NIR Image", "NIR/ predNIR Histogram"]
+HIST_LABELS = ["Real NIR", "Predicted NIR"]
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
 
-    # display stretch + crop quirks preserved (reference :71, :80-83)
+def _hist_panels(rgb, nir, pred_nir):
+    """The reference's display stretch and crop (:71, :80-83), and each
+    row's two 100-bin histograms over [0, 1] as shares of the pixels: (rgb,
+    nir, pred, n, bin centres, [(real, predicted)] a row)."""
     nir = np.asarray(nir, np.float32) * 1.5
     pred_nir = np.asarray(pred_nir, np.float32) * 1.5
     rgb, nir, pred, n = _prep(rgb, nir, pred_nir)
@@ -108,47 +107,89 @@ def plot_tensors_hist(rgb, nir, pred_nir, title="Validation"):
     crop = 240 if rgb.shape[-1] < 350 else 500
     crop = min(crop, rgb.shape[-1], rgb.shape[-2])
     rgb, nir, pred = (_center_crop_nchw(a, crop) for a in (rgb, nir, pred))
-
-    fig, axes = plt.subplots(n, 4, figsize=(20, 5 * n), squeeze=False)
     bins = np.linspace(0, 1, 101)
     centers = (bins[:-1] + bins[1:]) / 2
-    for i in range(n):
-        axes[i, 0].imshow(np.transpose(rgb[i], (1, 2, 0)))
-        axes[i, 1].imshow(nir[i, 0], cmap="viridis")
-        axes[i, 2].imshow(pred[i, 0], cmap="viridis")
-        total = nir[i, 0].size
-        axes[i, 3].plot(centers, np.histogram(nir[i, 0], bins=bins)[0] / total, color="blue")
-        axes[i, 3].plot(centers, np.histogram(pred[i, 0], bins=bins)[0] / total, color="red")
-        axes[i, 3].legend(["Real NIR", "Predicted NIR"])
-        axes[i, 3].set_xlabel("Pixel Intensity")
-        axes[i, 3].set_ylabel("Value Frequency")
-    for ax, t in zip(axes[0], ["RGB Image", "NIR Image", "Predicted NIR Image",
-                               "NIR/ predNIR Histogram"]):
-        ax.set_title(t)
-    fig.tight_layout()
-    return _figure_to_pil(fig)
+    hists = [tuple(np.histogram(a[i, 0], bins=bins)[0] / nir[i, 0].size
+                   for a in (nir, pred)) for i in range(n)]
+    return rgb, nir, pred, n, centers, hists
 
 
-def plot_index(rgb, nir, pred_nir, title="Validation", index_name="NDVI"):
+def plot_tensors_hist(rgb, nir, pred_nir, title="Validation"):
+    rgb, nir, pred, n, centers, hists = _hist_panels(rgb, nir, pred_nir)
+    if not has_matplotlib():
+        return _plot_tensors_hist_pil(rgb, nir, pred, n, centers, hists)
     import matplotlib
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
+    fig, axes = plt.subplots(n, 4, figsize=(20, 5 * n), squeeze=False)
+    for i in range(n):
+        axes[i, 0].imshow(np.transpose(rgb[i], (1, 2, 0)))
+        axes[i, 1].imshow(nir[i, 0], cmap="viridis")
+        axes[i, 2].imshow(pred[i, 0], cmap="viridis")
+        axes[i, 3].plot(centers, hists[i][0], color="blue")
+        axes[i, 3].plot(centers, hists[i][1], color="red")
+        axes[i, 3].legend(HIST_LABELS)
+        axes[i, 3].set_xlabel("Pixel Intensity")
+        axes[i, 3].set_ylabel("Value Frequency")
+    for ax, t in zip(axes[0], HIST_TITLES):
+        ax.set_title(t)
+    fig.tight_layout()
+    return _figure_to_pil(fig)
+
+
+def _plot_tensors_hist_pil(rgb, nir, pred, n, centers, hists):
+    """``plot_tensors_hist``'s panels without matplotlib: RGB, NIR and
+    predicted NIR through viridis, and the two histograms (blue and red, as
+    the reference's) as a line chart of the images' size."""
+    from nirgan_tpu_torch.utils.pil_plots import colormap, image_grid, line_chart, unit_rgb
+
+    size = (rgb.shape[-1], rgb.shape[-2])
+    rows = [[unit_rgb(np.transpose(rgb[i], (1, 2, 0))), colormap(nir[i, 0], "viridis"),
+             colormap(pred[i, 0], "viridis"),
+             line_chart(list(hists[i]), HIST_LABELS, x=centers,
+                        xlabel="Pixel Intensity", ylabel="Value Frequency",
+                        size=size, colours=((0, 0, 255), (255, 0, 0)))]
+            for i in range(n)]
+    return image_grid(rows, HIST_TITLES)
+
+
+def _ndvi_panels(rgb, nir, pred_nir):
+    """plot_index's rows: (the RGB stretched by its 2-98 percentiles, the
+    actual and the predicted NDVI clipped to [-1, 1] and mapped to [0, 1])."""
     rgb = np.asarray(rgb, np.float32)
     nir = np.asarray(nir, np.float32)
     pred = np.asarray(pred_nir, np.float32)
-    n = min(pred.shape[0], 5)
-    fig, axes = plt.subplots(n, 3, figsize=(15, 5 * n), squeeze=False)
-    for i in range(n):
+    rows = []
+    for i in range(min(pred.shape[0], 5)):
         red = rgb[i, 0]
         ndvi = np.clip((nir[i, 0] - red) / (nir[i, 0] + red + 1e-6), -1, 1)
         ndvi_p = np.clip((pred[i, 0] - red) / (pred[i, 0] + red + 1e-6), -1, 1)
-        axes[i, 0].imshow(np.transpose(minmax_percentile(rgb[i], 2), (1, 2, 0)))
-        axes[i, 1].imshow((ndvi + 1) / 2, cmap="RdYlGn")
-        axes[i, 2].imshow((ndvi_p + 1) / 2, cmap="RdYlGn")
-    for ax, t in zip(axes[0], ["RGB Image", f"{index_name} (Actual)",
-                               f"{index_name} (Predicted)"]):
+        rows.append((np.transpose(minmax_percentile(rgb[i], 2), (1, 2, 0)),
+                     (ndvi + 1) / 2, (ndvi_p + 1) / 2))
+    return rows
+
+
+def plot_index(rgb, nir, pred_nir, title="Validation", index_name="NDVI"):
+    rows = _ndvi_panels(rgb, nir, pred_nir)
+    titles = ["RGB Image", f"{index_name} (Actual)", f"{index_name} (Predicted)"]
+    if not has_matplotlib():
+        from nirgan_tpu_torch.utils.pil_plots import colormap, image_grid, unit_rgb
+
+        return image_grid([[unit_rgb(a), colormap(b), colormap(c)] for a, b, c in rows],
+                          titles)
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, axes = plt.subplots(len(rows), 3, figsize=(15, 5 * len(rows)), squeeze=False)
+    for i, row in enumerate(rows):
+        axes[i, 0].imshow(row[0])
+        axes[i, 1].imshow(row[1], cmap="RdYlGn")
+        axes[i, 2].imshow(row[2], cmap="RdYlGn")
+    for ax, t in zip(axes[0], titles):
         ax.set_title(t)
     fig.tight_layout()
     return _figure_to_pil(fig, dpi=50)

@@ -1,15 +1,18 @@
-"""The validation figures drawn with PIL alone, for installations that
-have PIL but not matplotlib.
+"""The port's figures drawn with PIL alone, for installations that have
+PIL but not matplotlib.
 
-``plot_tensors`` (``utils/logging_helpers.py``) and
-``plot_radar_comparison`` (``validation/spiders.py``) draw with matplotlib,
-as the JAX package does, where it can be imported; otherwise they draw the
-same content here: the example panels as a grid of images (RGB as it is,
-NIR and predicted NIR through the RdYlGn colour map, each normalised to
-its own range as ``imshow`` does), and the radar comparison as one polar
-panel a metric with both series' polygons.  The figures are simpler than
-matplotlib's (PIL's built-in font, no tick labels); what they show is the
-same.  PIL is imported inside the functions.
+Each figure function (``utils/logging_helpers.py``: ``plot_tensors``,
+``plot_tensors_hist``, ``plot_index``; ``validation/spiders.py``:
+``plot_radar_comparison``; ``validation/time_series.py``:
+``plot_timeline``; ``utils/plot_clc.py``; ``inference/synthesize.py``'s
+example plot) draws with matplotlib, as the JAX package does, where
+``has_matplotlib()``; otherwise it draws the same content here: images in
+a grid under their titles (a colour map's image normalised to its own range
+as ``imshow`` does, or to the range the figure gives it), line charts with
+their legend and axis labels, and the radar comparison as one polar panel a
+metric with both series' polygons.  The figures are simpler than
+matplotlib's (PIL's built-in font, no tick labels but the x axis's names);
+what they show is the same.  PIL is imported inside the functions.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import math
 
 import numpy as np
 
-__all__ = ["rdylgn", "image_grid", "radar_panels"]
+__all__ = ["has_matplotlib", "colormap", "listed", "unit_rgb",
+           "image_grid", "line_chart", "caption", "stack", "radar_panels"]
 
 # ColorBrewer's RdYlGn, the 11 anchors of matplotlib's "RdYlGn" map, which
 # interpolates linearly between them
@@ -26,22 +30,56 @@ _RDYLGN = np.array([
     (165, 0, 38), (215, 48, 39), (244, 109, 67), (253, 174, 97), (254, 224, 139),
     (255, 255, 191), (217, 239, 139), (166, 217, 106), (102, 189, 99),
     (26, 152, 80), (0, 104, 55)], np.float64)
+# matplotlib's "viridis" at 0, 0.1, ..., 1 and "gray", interpolated linearly
+_VIRIDIS = np.array([
+    (68, 1, 84), (72, 36, 117), (65, 68, 135), (53, 95, 141), (42, 120, 142),
+    (33, 145, 140), (34, 168, 132), (68, 191, 112), (122, 209, 81), (189, 223, 38),
+    (253, 231, 37)], np.float64)
+_GRAY = np.array([(0, 0, 0), (255, 255, 255)], np.float64)
+_MAPS = {"RdYlGn": _RDYLGN, "viridis": _VIRIDIS, "gray": _GRAY}
 # matplotlib's first two colours of its default cycle
 SERIES_COLOURS = ((31, 119, 180), (255, 127, 14))
 _PAD, _TITLE = 8, 24
 
 
-def rdylgn(img: np.ndarray) -> np.ndarray:
-    """(H, W) floats -> (H, W, 3) uint8 through RdYlGn, normalised to the
+def has_matplotlib() -> bool:
+    """Whether matplotlib imports here: the figures' route."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def colormap(img: np.ndarray, name: str = "RdYlGn", vmin: float | None = None,
+             vmax: float | None = None) -> np.ndarray:
+    """(H, W) floats -> (H, W, 3) uint8 through the colour map ``name``
+    (RdYlGn, viridis or gray), normalised to [vmin, vmax], by default the
     image's own min and max (``imshow``'s default)."""
     img = np.asarray(img, np.float64)
-    lo, hi = float(img.min()), float(img.max())
+    anchors = _MAPS[name]
+    lo = float(img.min()) if vmin is None else vmin
+    hi = float(img.max()) if vmax is None else vmax
     t = (img - lo) / (hi - lo) if hi > lo else np.zeros_like(img)
-    pos = np.clip(t, 0.0, 1.0) * (len(_RDYLGN) - 1)
-    i = np.minimum(pos.astype(np.int64), len(_RDYLGN) - 2)
+    pos = np.clip(t, 0.0, 1.0) * (len(anchors) - 1)
+    i = np.minimum(pos.astype(np.int64), len(anchors) - 2)
     f = (pos - i)[..., None]
-    rgb = _RDYLGN[i] * (1.0 - f) + _RDYLGN[i + 1] * f
+    rgb = anchors[i] * (1.0 - f) + anchors[i + 1] * f
     return np.round(rgb).astype(np.uint8)
+
+
+def listed(img: np.ndarray, colours: list, vmin: float, vmax: float) -> np.ndarray:
+    """(H, W) values -> (H, W, 3) uint8 through a list of "#rrggbb" colours,
+    as matplotlib's ``ListedColormap`` maps [vmin, vmax] onto them."""
+    table = np.array([[int(c[k:k + 2], 16) for k in (1, 3, 5)] for c in colours],
+                     np.uint8)
+    t = (np.asarray(img, np.float64) - vmin) / (vmax - vmin)
+    return table[np.clip((t * len(table)).astype(np.int64), 0, len(table) - 1)]
+
+
+def unit_rgb(img: np.ndarray) -> np.ndarray:
+    """(H, W, 3) floats in [0, 1] -> uint8, as ``imshow`` shows them."""
+    return np.round(np.clip(np.asarray(img, np.float64), 0, 1) * 255).astype(np.uint8)
 
 
 def image_grid(rows: list, titles: list):
@@ -127,4 +165,74 @@ def radar_panels(categories: list, metrics: list, series: list, labels,
             ly = size - 40 + 16 * k
             draw.line([(size * m + 20, ly), (size * m + 50, ly)], fill=colour, width=2)
             _text(draw, (size * m + 58, ly), labels[k], "black", centred=False)
+    return out
+
+
+def line_chart(series: list, labels: list, x_names: list | None = None,
+               x: np.ndarray | None = None, xlabel: str = "", ylabel: str = "",
+               size: tuple = (480, 360), markers: bool = False,
+               colours: tuple = SERIES_COLOURS) -> np.ndarray:
+    """A line chart as an (H, W, 3) uint8 array of ``size`` (W, H), at least
+    240 x 180: each of ``series`` (values
+    over ``x``, by default 0 .. n - 1) in ``colours`` (matplotlib's default
+    cycle), with a dot at each point if ``markers``, a legend of
+    ``labels``, the axis labels and, under the axis, ``x_names`` at their
+    points."""
+    from PIL import Image, ImageDraw
+
+    w, h = max(size[0], 240), max(size[1], 180)  # room for the labels
+    img = Image.new("RGB", (w, h), "white")
+    draw = ImageDraw.Draw(img)
+    left, right, top, bottom = 52, w - 12, 24, h - (52 if x_names else 36)
+    draw.rectangle([left, top, right, bottom], outline="black")
+    values = [np.asarray(v, np.float64) for v in series]
+    xs = np.asarray(np.arange(len(values[0])) if x is None else x, np.float64)
+    finite = np.concatenate([v[np.isfinite(v)] for v in values])
+    lo, hi = (float(finite.min()), float(finite.max())) if finite.size else (0.0, 1.0)
+    margin = 0.5 if hi <= lo else 0.05 * (hi - lo)
+    lo, hi = lo - margin, hi + margin
+    x0 = float(xs.min())
+    x1 = float(xs.max()) if xs.max() > x0 else x0 + 1.0
+
+    def at(xv, yv):
+        return (left + (xv - x0) / (x1 - x0) * (right - left),
+                bottom - (yv - lo) / (hi - lo) * (bottom - top))
+
+    for k, v in enumerate(values):
+        colour = colours[k % len(colours)]
+        pts = [at(a, b) for a, b in zip(xs, v) if np.isfinite(b)]
+        if len(pts) > 1:
+            draw.line(pts, fill=colour, width=2)
+        if markers:
+            for px, py in pts:
+                draw.ellipse([px - 3, py - 3, px + 3, py + 3], fill=colour)
+        _text(draw, (right - 150, top + 12 + 14 * k), labels[k], colour, centred=False)
+    for name, xv in zip(x_names or [], xs):
+        _text(draw, (at(xv, lo)[0], bottom + 12), str(name), "black")
+    _text(draw, ((left + right) / 2, h - 12), xlabel, "black")
+    _text(draw, (left, top / 2), ylabel, "black", centred=False)
+    _text(draw, (left / 2, top + 6), f"{hi:.3g}", "grey")
+    _text(draw, (left / 2, bottom - 6), f"{lo:.3g}", "grey")
+    return np.asarray(img)
+
+
+def caption(text: str, width: int):
+    """A white strip of ``width`` with ``text`` centred: a figure's title."""
+    from PIL import Image, ImageDraw
+
+    out = Image.new("RGB", (width, _TITLE), "white")
+    _text(ImageDraw.Draw(out), (width / 2, _TITLE / 2), text, "black")
+    return out
+
+
+def stack(images: list):
+    """PIL images one above the other, left-aligned, on white."""
+    from PIL import Image
+
+    out = Image.new("RGB", (max(i.width for i in images), sum(i.height for i in images)),
+                    "white")
+    y = 0
+    for im in images:
+        out.paste(im, (0, y))
+        y += im.height
     return out

@@ -6,7 +6,9 @@ predicted-NIR / 5-class CLC mask panels with the fixed class colormap
 
 Differences from the reference: output paths are parameters instead of
 hardcoded absolute paths (``plot_clc_pred.py:57``), and the figures are
-returned as PIL images in addition to optional saving.
+returned as PIL images in addition to optional saving.  Where matplotlib
+is not installed the same panels are drawn with PIL
+(``utils/pil_plots.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import os
 from typing import Optional
 
 import numpy as np
+
+from nirgan_tpu_torch.utils.pil_plots import has_matplotlib
 
 __all__ = ["plot_rgb_nir_and_mask", "plot_rgb_and_mask", "CLC_COLORS"]
 
@@ -28,6 +32,13 @@ CLC_COLORS = [
 ]
 
 
+def _save(img, out_path: Optional[str]):
+    if out_path:
+        os.makedirs(os.path.dirname(out_path), exist_ok=True)
+        img.save(out_path)
+    return img
+
+
 def _finish(fig, out_path: Optional[str], dpi: int = 150):
     import matplotlib.pyplot as plt
     from PIL import Image
@@ -36,63 +47,76 @@ def _finish(fig, out_path: Optional[str], dpi: int = 150):
     fig.savefig(buf, format="png", dpi=dpi)
     buf.seek(0)
     img = Image.open(buf).copy()
-    if out_path:
-        os.makedirs(os.path.dirname(out_path), exist_ok=True)
-        img.save(out_path)
     plt.close(fig)
-    return img
+    return _save(img, out_path)
+
+
+def _panels(panels, title: Optional[str], out_path: Optional[str], size: tuple):
+    """``panels`` [(image, title, imshow keywords)] side by side under
+    ``title``: JAX's matplotlib figure of ``size`` inches, or where
+    matplotlib is not installed the same images drawn with PIL (a
+    ``cmap`` of "viridis" or the CLC classes' ``ListedColormap`` over the
+    keywords' vmin and vmax)."""
+    if not has_matplotlib():
+        from nirgan_tpu_torch.utils.pil_plots import (
+            caption,
+            colormap,
+            image_grid,
+            listed,
+            stack,
+            unit_rgb,
+        )
+
+        def draw(img, kw):
+            if "cmap" not in kw:
+                return unit_rgb(img)
+            if kw["cmap"] == "clc":
+                return listed(img, CLC_COLORS, kw["vmin"], kw["vmax"])
+            return colormap(img, kw["cmap"], kw["vmin"], kw["vmax"])
+
+        grid = image_grid([[draw(img, kw) for img, _, kw in panels]],
+                          [t for _, t, _ in panels])
+        if title:
+            grid = stack([caption(title, grid.width), grid])
+        return _save(grid, out_path)
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from matplotlib.colors import ListedColormap
+
+    fig, axs = plt.subplots(1, len(panels), figsize=size)
+    for ax, (img, t, kw) in zip(axs, panels):
+        if kw.get("cmap") == "clc":
+            kw = {**kw, "cmap": ListedColormap(CLC_COLORS)}
+        ax.imshow(img, **kw)
+        ax.set_title(t)
+        ax.axis("off")
+    if title:
+        fig.suptitle(title)
+    return _finish(fig, out_path)
 
 
 def plot_rgb_nir_and_mask(rgb, nir, pred_nir, mask, it: int = 0,
                           title: Optional[str] = None,
                           out_dir: Optional[str] = None):
     """rgb (3,H,W), nir/pred (1|H,W), mask (H,W) int → 4-panel figure."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-    from matplotlib.colors import ListedColormap
-
     rgb_np = np.clip(np.transpose(np.asarray(rgb, np.float32), (1, 2, 0)) * 5, 0, 1)
     nir_np = np.squeeze(np.asarray(nir, np.float32))
     pred_np = np.squeeze(np.asarray(pred_nir, np.float32))
-    mask_np = np.asarray(mask)
-    cmap = ListedColormap(CLC_COLORS)
-
-    fig, axs = plt.subplots(1, 4, figsize=(20, 6))
-    for ax, (img, t, kw) in zip(axs, [
+    out = os.path.join(out_dir, f"clc_mask_{it}.png") if out_dir else None
+    return _panels([
         (rgb_np, "RGB", {}),
         (nir_np, "Ground Truth NIR", dict(cmap="viridis", vmin=0, vmax=1)),
         (pred_np, "Predicted NIR", dict(cmap="viridis", vmin=0, vmax=1)),
-        (mask_np, "CLC Mask", dict(cmap=cmap, vmin=0, vmax=4)),
-    ]):
-        ax.imshow(img, **kw)
-        ax.set_title(t)
-        ax.axis("off")
-    if title:
-        fig.suptitle(title)
-    out = os.path.join(out_dir, f"clc_mask_{it}.png") if out_dir else None
-    return _finish(fig, out)
+        (np.asarray(mask), "CLC Mask", dict(cmap="clc", vmin=0, vmax=4)),
+    ], title, out, (20, 6))
 
 
 def plot_rgb_and_mask(rgb, mask, it: int = 0, title: Optional[str] = None,
                       out_dir: Optional[str] = None):
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-    from matplotlib.colors import ListedColormap
-
     rgb_np = np.clip(np.transpose(np.asarray(rgb, np.float32), (1, 2, 0)) * 5, 0, 1)
-    mask_np = np.asarray(mask)
-    fig, axs = plt.subplots(1, 2, figsize=(10, 5))
-    axs[0].imshow(rgb_np)
-    axs[0].set_title("RGB Image")
-    axs[0].axis("off")
-    axs[1].imshow(mask_np, cmap=ListedColormap(CLC_COLORS), vmin=0, vmax=4)
-    axs[1].set_title("CLC Mask")
-    axs[1].axis("off")
-    if title:
-        fig.suptitle(title)
     out = os.path.join(out_dir, f"clc_mask_{it}.png") if out_dir else None
-    return _finish(fig, out)
+    return _panels([(rgb_np, "RGB Image", {}),
+                    (np.asarray(mask), "CLC Mask", dict(cmap="clc", vmin=0, vmax=4))],
+                   title, out, (10, 5))

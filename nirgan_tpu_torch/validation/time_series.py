@@ -91,32 +91,50 @@ def _patch_mean_ndvi(rgb, nir, patch: int):
 
 def plot_timeline(rgbs, nirs, nir_preds, timestamps, mean_patch_size: int = 32):
     """Timeline of center-patch mean NDVI (real vs predicted) + a row of up
-    to 6 RGB sample panels; returns a PIL image (reference ``:120-215``)."""
+    to 6 RGB sample panels; returns a PIL image (reference ``:120-215``):
+    JAX's matplotlib figure, or where matplotlib is not installed the same
+    chart and panels drawn with PIL."""
+    from nirgan_tpu_torch.utils.pil_plots import has_matplotlib
+
+    ndvi_real = [_patch_mean_ndvi(r, n, mean_patch_size) for r, n in zip(rgbs, nirs)]
+    ndvi_pred = [_patch_mean_ndvi(r, p, mean_patch_size) for r, p in zip(rgbs, nir_preds)]
+    labels = ["NDVI (real NIR)", "NDVI (predicted NIR)"]
+    t = len(timestamps)
+    n_show = min(6, t)
+    show_idx = np.linspace(0, t - 1, n_show).astype(int)
+    panels = [np.clip(np.transpose(rgbs[i], (1, 2, 0)) * 3, 0, 1) for i in show_idx]
+    if not has_matplotlib():
+        from PIL import Image
+
+        from nirgan_tpu_torch.utils.pil_plots import image_grid, line_chart, stack, unit_rgb
+
+        chart = line_chart([ndvi_real, ndvi_pred], labels, x_names=list(timestamps),
+                           ylabel="mean NDVI (center patch)", size=(1200, 420),
+                           markers=True)
+        row = image_grid([[unit_rgb(p) for p in panels]],
+                         [timestamps[i] for i in show_idx])
+        return stack([Image.fromarray(chart), row])
+
+    import io
+
     import matplotlib
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
-    import io
     from PIL import Image
 
-    ndvi_real = [_patch_mean_ndvi(r, n, mean_patch_size) for r, n in zip(rgbs, nirs)]
-    ndvi_pred = [_patch_mean_ndvi(r, p, mean_patch_size) for r, p in zip(rgbs, nir_preds)]
-
-    t = len(timestamps)
-    n_show = min(6, t)
     fig = plt.figure(figsize=(16, 7))
     gs = fig.add_gridspec(2, max(n_show, 1), height_ratios=[2, 1])
     ax = fig.add_subplot(gs[0, :])
-    ax.plot(range(t), ndvi_real, "-o", label="NDVI (real NIR)")
-    ax.plot(range(t), ndvi_pred, "-s", label="NDVI (predicted NIR)")
+    ax.plot(range(t), ndvi_real, "-o", label=labels[0])
+    ax.plot(range(t), ndvi_pred, "-s", label=labels[1])
     ax.set_xticks(range(t))
     ax.set_xticklabels(timestamps, rotation=45, fontsize=8)
     ax.set_ylabel("mean NDVI (center patch)")
     ax.legend()
-    show_idx = np.linspace(0, t - 1, n_show).astype(int)
     for j, i in enumerate(show_idx):
         axi = fig.add_subplot(gs[1, j])
-        axi.imshow(np.clip(np.transpose(rgbs[i], (1, 2, 0)) * 3, 0, 1))
+        axi.imshow(panels[j])
         axi.set_title(timestamps[i], fontsize=8)
         axi.axis("off")
     fig.tight_layout()

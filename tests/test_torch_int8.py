@@ -350,9 +350,19 @@ def test_int8_is_refused_where_the_config_cannot_take_it():
     assert not task.wants_int8_serving()
     task.predict_step(np.zeros((1, 3, 64, 64), np.float32))
     assert task._trunk_q is None
+    # stage 2 is no config's to take: only build_trunk_q(stage2=True) builds
+    # it, as in the JAX package, and the generator then serves d1 in int8
     port = Px2PxTask(_config("int8"), device="cpu", seed=0)
-    with pytest.raises(NotImplementedError, match="A7-stage2"):
-        port.build_trunk_q(torch.zeros((1, 64, 64, 3)), stage2=True)
+    x = torch.rand((1, 64, 64, 3), generator=torch.Generator().manual_seed(4)) * 0.3
+    pack = port.build_trunk_q(x, stage2=True)
+    ngf = port.netG.d1.weight.shape[1] // 2
+    assert pack["d1"]["w"].dtype == torch.int8
+    assert tuple(pack["d1"]["w"].shape) == (4 * ngf, 2 * ngf, 3, 3)
+    assert "d1" not in port.build_trunk_q(x)
+    with torch.no_grad():
+        xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (2, 2, 2, 2),
+                                     mode="reflect").permute(0, 2, 3, 1)
+        assert _psnr(port.netG(xp, trunk_q=pack).numpy(), port.netG(xp).numpy()) >= 36.0
 
 
 def test_synthesize_dataset_int8_matches_jax(tmp_path):

@@ -397,6 +397,108 @@ def test_plot_clc_panels_equal_jax(tmp_path):
                           np.asarray(jax_plot_clc.plot_rgb_and_mask(rgb, mask)))
 
 
+def _cell(img, i, j, shape, slot):
+    """Cell (i, j) of a ``pil_plots.image_grid`` whose slots are ``slot``
+    (width, height) and whose cell there is ``shape`` (H, W)."""
+    pad, top = 8, 24
+    x, y = pad + j * (slot[0] + pad), top + pad + i * (slot[1] + pad)
+    return np.asarray(img)[y:y + shape[0], x:x + shape[1]]
+
+
+def test_figures_equal_jax_and_draw_without_matplotlib(tmp_path, monkeypatch):
+    """The trainer's panels (``plot_tensors_hist``, ``plot_index``), the
+    serving CLI's example plot, the timeline and the CLC figures: with
+    matplotlib JAX's figures pixel for pixel; without it (``matplotlib`` not
+    importable) the same images drawn with PIL: each panel's pixels are its
+    array through the same colour map (``pil_plots``), the histograms the
+    matplotlib route's values."""
+    from nirgan_tpu.inference.synthesize import _plot_example as jax_plot_example
+    from nirgan_tpu_torch.inference.synthesize import _plot_example
+    from nirgan_tpu_torch.utils import pil_plots
+
+    rng = np.random.default_rng(5)
+    rgb, nir, pred = (rng.random((2, c, 24, 24), np.float32) for c in (3, 1, 1))
+    for name in ("plot_tensors_hist", "plot_index"):
+        got = np.asarray(getattr(logging_helpers, name)(rgb, nir, pred))
+        assert np.array_equal(got, np.asarray(getattr(jax_helpers, name)(rgb, nir, pred)))
+    stack = {"rgbs": rng.random((4, 3, 16, 16)), "nirs": rng.random((4, 1, 16, 16)),
+             "preds": rng.random((4, 1, 16, 16))}
+    stamps = ["20230101", "20230201", "20230301", "20230401"]
+    args = (stack["rgbs"], stack["nirs"], stack["preds"], stamps, 4)
+    assert np.array_equal(np.asarray(time_series.plot_timeline(*args)),
+                          np.asarray(jax_ts.plot_timeline(*args)))
+    batch = {"hr": rng.integers(0, 3000, (1, 3, 32, 32), np.uint16),
+             "lr": rng.integers(0, 3000, (1, 3, 8, 8), np.uint16),
+             "s2_nir": rng.integers(0, 3000, (1, 1, 32, 32), np.uint16)}
+    example = rng.random((1, 1, 32, 32), np.float32)
+    _plot_example(batch, example, 0, str(tmp_path / "port"))
+    jax_plot_example(batch, example, 0, str(tmp_path / "jax"))
+    from PIL import Image
+
+    png = str(tmp_path / "port" / "example_0.png")
+    mpl_size = Image.open(png).size
+    assert np.array_equal(np.asarray(Image.open(png)),
+                          np.asarray(Image.open(str(tmp_path / "jax" / "example_0.png"))))
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    assert not pil_plots.has_matplotlib()
+    # plot_tensors_hist: RGB, NIR and prediction through viridis, histograms
+    img = logging_helpers.plot_tensors_hist(rgb, nir, pred)
+    p_rgb, p_nir, p_pred, n, centers, hists = logging_helpers._hist_panels(rgb, nir, pred)
+    slot = (240, 180)  # the chart's least size, larger than the 24^2 images
+    for i in range(n):
+        assert np.array_equal(_cell(img, i, 1, (24, 24), slot),
+                              pil_plots.colormap(p_nir[i, 0], "viridis"))
+        assert np.array_equal(_cell(img, i, 2, (24, 24), slot),
+                              pil_plots.colormap(p_pred[i, 0], "viridis"))
+        bins = np.linspace(0, 1, 101)
+        np.testing.assert_array_equal(
+            hists[i][0], np.histogram(p_nir[i, 0], bins=bins)[0] / p_nir[i, 0].size)
+    # plot_index: the NDVI panels through RdYlGn
+    img = logging_helpers.plot_index(rgb, nir, pred)
+    rows = logging_helpers._ndvi_panels(rgb, nir, pred)
+    for i, (_, actual, predicted) in enumerate(rows):
+        assert np.array_equal(_cell(img, i, 1, (24, 24), (24, 24)), pil_plots.colormap(actual))
+        assert np.array_equal(_cell(img, i, 2, (24, 24), (24, 24)),
+                              pil_plots.colormap(predicted))
+    # the CLC figure: viridis on [0, 1] and the class colours
+    mask = rng.integers(0, 5, (24, 24))
+    img = plot_clc.plot_rgb_nir_and_mask(rgb[0], nir[0], pred[0], mask, it=2,
+                                         out_dir=str(tmp_path))
+    assert (tmp_path / "clc_mask_2.png").is_file()
+    assert np.array_equal(_cell(img, 0, 1, (24, 24), (24, 24)),
+                          pil_plots.colormap(nir[0, 0], "viridis", 0, 1))
+    classes = _cell(img, 0, 3, (24, 24), (24, 24))
+    assert np.array_equal(classes, pil_plots.listed(mask, plot_clc.CLC_COLORS, 0, 4))
+    assert {tuple(c) for c in classes.reshape(-1, 3)} <= {
+        tuple(int(h[k:k + 2], 16) for k in (1, 3, 5)) for h in plot_clc.CLC_COLORS}
+    assert plot_clc.plot_rgb_and_mask(rgb[0], mask, title="t").size[0] > 48
+    # the timeline: the chart over the RGB panels
+    img = time_series.plot_timeline(*args)
+    assert img.size[0] >= 1200 and img.size[1] > 420
+    # the serving CLI's example: the four panels
+    _plot_example(batch, example, 0, str(tmp_path / "pil"))
+    pil = Image.open(str(tmp_path / "pil" / "example_0.png"))
+    assert pil.size != mpl_size
+    assert np.array_equal(_cell(pil, 0, 2, (32, 32), (32, 32)),
+                          pil_plots.colormap(example[0, 0], "gray"))
+
+
+def test_trainer_logs_its_panels_without_matplotlib(tmp_path, monkeypatch):
+    """Without matplotlib the train CLI still logs ``Images/Val NIR`` and,
+    with ``log_ndvi`` (on in ``config_px2px.yaml``), ``Images/Val NDVI`` at
+    each validation, drawn with PIL: no panel is skipped."""
+    from tests.test_torch_train import _tiny_config_file
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    cfg = _tiny_config_file(tmp_path)
+    run = str(tmp_path / "run")
+    cli.main(["--config", cfg, "--device", "cpu", "--logdir", run, "--log-every", "2",
+              "--max-steps", "2"])
+    images = sorted(os.listdir(os.path.join(run, "images")))
+    assert images == ["Images_Val_NDVI_00000002.png", "Images_Val_NIR_00000002.png"]
+
+
 # ---------------------------------------------------------------- the trainer
 def _train(tmp_path, name, **experimentation):
     (tmp_path / name).mkdir()
