@@ -43,6 +43,15 @@ never prints the final ``"ok": true`` line:
    (d1 in int8: D 19, E 20 a forward, timed beside the trunk-only forward
    and the bf16 one with their dB) and with the replicate and zero trunks,
    D and E counted by gather and mode.
+   The serving export (``phase_export``): the bf16 plain, inject and int8
+   programs of 4 x 512^2 exported with ``torch.export``
+   (``nirgan_tpu_torch.inference.export``), each against the live
+   ``g_apply`` bit for bit, with the same launches a forward (18 A, 23 B,
+   1 C; int8 18 D, 19 E, 5 B, 1 C) and its CUDA-event ms beside the live
+   forward's; then loaded and run in a process that imports only
+   ``nirgan_tpu_torch.ops`` and the export module (bit for bit again, no
+   model, task or config module, no jax); and the host microseconds a call
+   of an operator at a tiny shape, registered four ways.
    Scene serving (``inference/scene.py``, bf16, 512^2 windows at overlap
    32, batch 32, on the card by ``Px2PxTask``'s default device): a seeded
    3000 x 4000 uint16 scene with UTM metadata (63 windows, the last row
@@ -78,7 +87,9 @@ never prints the final ``"ok": true`` line:
    f32 step on the card against the same seeded step on the CPU at a small
    config (the loss terms, D's gradients and its parameters after the
    update element by element, the G GAN term once the elements that Adam
-   moved the other way are set to the CPU's, and a step at LR 0); then
+   moved the other way are set to the CPU's, a step at LR 0, and three runs
+   of the card's step bit for bit, timed with cuDNN's deterministic
+   algorithms and without); then
    ``python -m nirgan_tpu_torch.train`` for 8 steps on the fake data
    (``last`` and ``best``) and a resume for 2 more.  Twice:
    ``config_px2px.yaml`` (batch 16 at 256^2), then the flagship
@@ -110,7 +121,8 @@ never prints the final ``"ok": true`` line:
    through a batch-norm D, card against CPU, and through the instance-norm
    ``basic`` and ``pixel`` Ds (B and B4 under ``create_graph``), card
    against an f64 evaluation on the CPU, beside the kernels after the plain
-   forward and a control the check must reject; the penalty step's ms,
+   forward and a control the check must reject, and on ``real`` the
+   kernels within 1.5x the plain route's distance; the penalty step's ms,
    kernels against the plain route.  The baselines: ``python -m
    nirgan_tpu_torch.train --baseline y --max-steps 4`` (batch 32 of
    256^2), then a step and a forward of each of Linear_NIR, MLP_NIR and
@@ -173,8 +185,13 @@ every launch plan its kernels take at the main path's shapes, beside the
 plan that ``launch_plan`` chooses.
 ``python3 chip_smoke.py --phase NAME [NAME ...]`` runs, after phases 0 and
 1, only the named phases (``ALONE``: int8, train, variants, nonsquare,
-param_dtype), with no JSON lines: a phase's checks read without what the
-phases before it leave set.
+param_dtype, export), with no JSON lines: a phase's checks read without
+what the phases before it leave set.
+``python3 chip_smoke.py --times DIR`` times, after phases 0 and 1 run on
+the package of the checkout at DIR (a parent commit's, unpacked), kernel B
+at two shapes, the bf16 forward, the batch-16 step and the instance norm's
+host cost a call (``phase_times``): run it for two checkouts in turns in
+one call to compare them on one card.
 
 Before the last line it prints one JSON object with every kernel's route,
 source, launches in the training CLI's run (``per_step``: in one fused
@@ -185,6 +202,9 @@ launches (``per_forward``: in one generator forward); every kernel's
 E's: the 3000 x 4000 int8 scene's), every kernel's
 ``validation`` entry (A, B, C; D and E from the int8 sweep) its launches
 in the validation sweep of 64 samples and per batch of 8, every kernel's
+``export`` entry its launches in one forward of each exported program (the
+line's ``export`` holds the exported and live forwards' ms, ``host_us``
+the operators' host cost a call), every kernel's
 ``satclip`` entry holds its launches on the SatCLIP inject route (the
 training CLI's default run, one step, the serving CLI, one forward) and its
 ``satclip_step`` entry (``satclip_u1`` / ``satclip_u0`` for the transposed
@@ -455,9 +475,12 @@ def phase_build() -> None:
     path, seconds, report = _lib.build()
     _lib.library()
     log("build", f"{path.name} built in {seconds:.1f} s")
+    entry_name = ""
     for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log("build", line.strip())
+        if "Compiling entry function" in line:
+            entry_name = line.split("'")[1] if "'" in line else line.strip()
+        elif "registers" in line or "spill" in line:
+            log("build", f"{entry_name[:90]}: {line.strip()}")
     spills = [line for line in report.splitlines()
               if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
     if spills:
@@ -1881,9 +1904,10 @@ def check_f32_step(name: str, cfg, device: str = "cuda") -> None:
       again with the elements of D that its update moved the other way
       (more than lr from the CPU's) set to the CPU's values, all eight
       terms within rtol 1e-4 + atol 1e-6.  So the term's distance in the
-      plain card step (printed, with its spread over three runs of the step
-      and two with cuDNN's deterministic algorithms: the card's f32 step is
-      not bit-reproducible) comes from those elements alone;
+      plain card step (printed) comes from those elements alone;
+    - the card's step repeats: three runs of it from the seed give the same
+      eight terms bit for bit (the f32 step runs on cuDNN's deterministic
+      algorithms); its time (CUDA events) is printed;
     - a step at LR 0, where G's loss runs through the D both sides share:
       all eight terms within rtol 1e-4 + atol 1e-6.
 
@@ -1929,12 +1953,23 @@ def check_f32_step(name: str, cfg, device: str = "cuda") -> None:
         reset_counts()
         task, got = step(device)
         launched = counts()
-        spread = [got[gan_key]] + [step(device)[1][gan_key] for _ in range(2)]
-        torch.backends.cudnn.deterministic = True
-        try:
-            deterministic = [step(device)[1][gan_key] for _ in range(2)]
-        finally:
-            torch.backends.cudnn.deterministic = False
+        again = [step(device)[1] for _ in range(2)]
+        if device == "cuda":
+            # the step's time on cuDNN's deterministic algorithms and, in
+            # turns, on those cuDNN picks otherwise
+            from nirgan_tpu_torch.tasks import px2px
+
+            timed = Px2PxTask(cfg, device=device, seed=SEED)
+            state, ex = timed.init_state(), timed.extract_batch(batch)
+
+            def free_step():
+                with mock.patch.object(px2px, "_cudnn_deterministic",
+                                       lambda on: contextlib.nullcontext()):
+                    timed.train_step(state, ex)
+
+            step_ms, free_ms = compare_ms(lambda: timed.train_step(state, ex), free_step,
+                                          iters=5)
+            del timed
         mixed = step(device, after_d=to_cpu_where_flipped)[1]
         got0 = step(device, lr=0.0)[1]
     others = {k: v for k, v in ref.items() if k != gan_key}
@@ -1982,8 +2017,13 @@ def check_f32_step(name: str, cfg, device: str = "cuda") -> None:
     log("train", f"{name}: f32 step 1, the G GAN term through the updated D: card "
         f"{got[gan_key]:.7g} vs CPU {ref[gan_key]:.7g} ({gan_ratio:.3f} of rtol 1e-4); "
         f"on the card over three runs of the same step "
-        f"{[round(v, 7) for v in spread]}, two with cuDNN's deterministic "
-        f"algorithms {[round(v, 7) for v in deterministic]}")
+        f"{[round(v[gan_key], 7) for v in [got] + again]} (must repeat bit for bit)")
+    if any(run != got for run in again):
+        raise AssertionError(f"{name}: the f32 step on the card does not repeat: {got}, "
+                             f"{again}")
+    if device == "cuda":
+        log("train", f"{name}: the f32 step (TF32 off) {step_ms:.3f} ms on cuDNN's "
+            f"deterministic algorithms, {free_ms:.3f} ms on those it picks otherwise")
     check_terms(f"{name}: f32 step 1 with the {sum(swapped)} elements of D that its "
                 "update moved the other way set to the CPU's, card vs CPU", mixed, ref,
                 1e-4, 1e-6)
@@ -3282,7 +3322,9 @@ def penalty_card_vs_cpu(nets: dict, real: torch.Tensor, fake: torch.Tensor,
     norm's second order, E[x^2] - E[x]^2 in f32 (the JAX formula) is
     ill-posed on some inputs: at 256^2 with ndf 64 the plain route lies up
     to 2.2e-2 from f64 (``gp_type`` fake, on the card and the CPU alike), so
-    the f32 routes are held to f64, not to each other.  Two more runs on the
+    the f32 routes are held to f64, not to each other; with ``gp_type`` real
+    the kernels at most 1.5x the card's plain route's distance from it (B
+    adds its sums exactly).  Two more runs on the
     card, reported: the kernels with B's forward (its output and moments)
     replaced by the plain forward's, which shows how much of the kernels'
     distance comes from B's moments; and a control, the kernels with the A y
@@ -3346,6 +3388,12 @@ def penalty_card_vs_cpu(nets: dict, real: torch.Tensor, fake: torch.Tensor,
         if not own["cuda control"] > 1e-1:
             raise AssertionError(f"gradient_penalty {gp_type} through {what}: the check "
                                  f"passes a second order without A y: {own}")
+        # B's sums as exact pairs: the kernels as near f64 as the plain route
+        # (the sequential sums they had read 2.12e-2 against its 7.79e-3)
+        if gp_type == "real" and not own["cuda"] <= 1.5 * own["cuda plain"]:
+            raise AssertionError(f"gradient_penalty {gp_type} through {what}: the kernels "
+                                 f"lie {own['cuda']:.2e} from f64, over 1.5x the plain "
+                                 f"route's {own['cuda plain']:.2e}")
     net_max = max(float(v.abs().max()) for v in vals["cpu"][1].values())
     noise = max([float(torch.maximum(vals["cuda"][1][k].abs(), v.abs()).max()) / net_max
                  for k, v in vals["cpu"][1].items() if k in ahead] or [0.0])
@@ -4376,6 +4424,281 @@ def phase_norm_launches() -> None:
                                      f"a call in the {e['regime']} regime")
 
 
+# ------------------------------------------------------------------ export
+# the exported serving programs: (tag, config, int8 trunk)
+EXPORTS = (("bf16", CONFIG, False), ("inject", SATCLIP_CONFIG, False),
+           ("int8", CONFIG, True))
+_FLOAT_FORWARD = {**EVAL_LAUNCHES, "int8_conv": 0, "int8_norm": 0}
+# every kernel's launches in one exported forward: the int8 trunk's 18
+# blocks' norms are E's, not B's
+EXPORT_KERNELS = {"bf16": _FLOAT_FORWARD, "inject": _FLOAT_FORWARD,
+                  "int8": {**_FLOAT_FORWARD, "trunk_conv": 0,
+                           "instance_norm": EVAL_LAUNCHES["instance_norm"] - 18,
+                           **INT8_FORWARD}}
+# a process that loads each artifact with ``nirgan_tpu_torch.ops`` and the
+# export module only, runs it on the card and counts its launches; argv:
+# the directory of the artifacts (<tag>.pt2) and their inputs (<tag>.in.pt)
+EXPORT_RUNNER = r"""
+import json, os, sys
+import torch
+from nirgan_tpu_torch.inference.export import load_exported, run_exported
+from nirgan_tpu_torch.ops import convt_bwd, head_conv, instance_norm, int8_trunk, trunk_conv
+
+KERNELS = {"trunk_conv": trunk_conv.trunk_conv_cuda,
+           "instance_norm": instance_norm.instance_norm_cuda,
+           "instance_norm_bwd": instance_norm.instance_norm_bwd_cuda,
+           "head_conv": head_conv.head_conv_cuda,
+           "convt_bwd": convt_bwd.convt_k3s2_bwd_cuda,
+           "int8_conv": int8_trunk.conv_moments_cuda,
+           "int8_norm": int8_trunk.norm_quant_cuda}
+folder, report = sys.argv[1], {}
+for tag in sys.argv[2:]:
+    with open(os.path.join(folder, tag + ".pt2"), "rb") as f:
+        exported = load_exported(f.read())
+    a = torch.load(os.path.join(folder, tag + ".in.pt"), map_location="cuda")
+    for fn in KERNELS.values():
+        fn.launches = 0
+    y = run_exported(exported, a["params"], a["rgb"], a["embeds"], a["trunk_q"])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    torch.save(y.cpu(), os.path.join(folder, tag + ".out.pt"))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        exported.call(a["params"], a["rgb"], a["embeds"], a["trunk_q"])
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(10):
+        exported.call(a["params"], a["rgb"], a["embeds"], a["trunk_q"])
+    end.record()
+    end.synchronize()
+    report[tag] = {"launches": launches, "ms": start.elapsed_time(end) / 10}
+report["modules"] = sorted(m for m in sys.modules
+                           if m.split(".")[0] in ("jax", "nirgan_tpu")
+                           or m.startswith(("nirgan_tpu_torch.models", "nirgan_tpu_torch.tasks",
+                                            "nirgan_tpu_torch.config")))
+print(json.dumps(report))
+"""
+
+
+def all_kernel_counts() -> dict:
+    return {**counts(), **int8_counts()}
+
+
+def op_host_us() -> dict:
+    """Host microseconds a call of the instance norm at a tiny shape (1, 4,
+    4, 32) bf16 on the card, the same implementation reached four ways: the
+    routed call itself (no dispatcher); the port's operator
+    (``torch.library.Library``, its gradient a lean ``Autograd`` kernel,
+    ``ops/_registry.py``); the same schema with its gradient through
+    ``torch.library.register_autograd``; and through
+    ``torch.library.custom_op``.  Each without and with autograd recording
+    (x requiring grad), in turns, forth and back, 2000 calls each after a
+    warm-up; the card's kernel takes a few microseconds, so the host bounds
+    the loop."""
+    from nirgan_tpu_torch.ops import instance_norm as inm
+
+    schema = "(Tensor x, Tensor? residual, float eps, bool relu) -> (Tensor, Tensor)"
+    lib = torch.library.Library("nirgan_probe", "DEF")
+    lib.define("instance_norm" + schema)
+    for key in ("CPU", "CUDA"):
+        lib.impl("instance_norm", inm._routed, key)
+    torch.library.register_fake("nirgan_probe::instance_norm", inm._fake, lib=lib)
+    torch.library.register_autograd("nirgan_probe::instance_norm", inm._backward,
+                                    setup_context=inm._setup, lib=lib)
+    probe = torch.library.custom_op("nirgan_probe::instance_norm_op", inm._routed,
+                                    mutates_args=(), schema=schema)
+    probe.register_fake(inm._fake)
+    probe.register_autograd(inm._backward, setup_context=inm._setup)
+    x = torch.randn((1, 4, 4, 32), device="cuda", dtype=torch.bfloat16)
+    xg = x.clone().requires_grad_(True)
+    ways = {"routed call": lambda t: inm._routed(t, None, 1e-5, False),
+            "port operator": lambda t: torch.ops.nirgan.instance_norm(t, None, 1e-5, False),
+            "register_autograd": lambda t: torch.ops.nirgan_probe.instance_norm(
+                t, None, 1e-5, False),
+            "custom_op": lambda t: probe(t, None, 1e-5, False)}
+
+    def us(fn, t, n=2000):
+        for _ in range(50):
+            fn(t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(t)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    out = {}
+    for grad, t in (("no_grad", x), ("grad", xg)):
+        with torch.set_grad_enabled(grad == "grad"):
+            forth = {k: us(fn, t) for k, fn in ways.items()}
+            back = {k: us(ways[k], t) for k in reversed(ways)}
+        out[grad] = {k: (forth[k] + back[k]) / 2 for k in ways}
+    del lib
+    return out
+
+
+def phase_export(tmp: str) -> dict:
+    """``nirgan_tpu_torch.inference.export`` on the card: the bf16 plain,
+    inject and int8 serving programs of 4 x 512^2 (reflect-padded to 532^2
+    inside) exported with ``torch.export``; in this process each artifact
+    against the live ``g_apply`` (bit for bit, the same launches a forward,
+    no weight layout made anew by a second call, CUDA-event ms of both in
+    turns); then all three loaded and run in a
+    fresh process that imports ``nirgan_tpu_torch.ops`` and the export
+    module only (no jax, no ``nirgan_tpu``, no model, task or config code):
+    bit for bit and the same launches again.  Last, the operators' host cost
+    a call (``op_host_us``).  Returns the launches of one exported forward
+    by artifact."""
+    from nirgan_tpu_torch.config import load_config
+    from nirgan_tpu_torch.inference.export import export_generator, load_exported
+    from nirgan_tpu_torch.ops import _pack
+    from nirgan_tpu_torch.tasks import Px2PxTask
+
+    seeded = torch.Generator().manual_seed(SEED)
+    rgb = (torch.rand((BATCH, 3, TILE, TILE), generator=seeded) * 0.3).cuda()
+    folder = os.path.join(tmp, "export")
+    os.makedirs(folder, exist_ok=True)
+    live_out, per_forward = {}, {}
+    for tag, config, int8 in EXPORTS:
+        task = Px2PxTask(load_config(config), device="cuda", seed=SEED)
+        embeds = torch.zeros((BATCH, 256), device="cuda")
+        if task.inject:
+            embeds = torch.randn((BATCH, 256), generator=seeded).cuda()
+            with torch.no_grad():
+                task.netG.scale_param.fill_(0.5)  # so a fault in the plane shows
+        x = rgb.permute(0, 2, 3, 1).to(task.compute_dtype)
+        tq = task.build_trunk_q(x) if int8 else None
+        params = task.netG.state_dict()
+        t0 = time.perf_counter()
+        blob = export_generator(task, params, TILE, BATCH, trunk_q=tq)
+        export_s = time.perf_counter() - t0
+        exported = load_exported(blob)
+
+        def live():
+            return task.g_apply(rgb.permute(0, 2, 3, 1).to(task.compute_dtype),
+                                embeds if task.inject else None, tq).float().permute(0, 3, 1, 2)
+
+        def run():
+            return exported.call(params, rgb, embeds, tq)
+
+        with torch.no_grad():
+            reset_counts()
+            want = live()
+            torch.cuda.synchronize()
+            live_launches = all_kernel_counts()
+            reset_counts()
+            got = run()
+            torch.cuda.synchronize()
+            launches = all_kernel_counts()
+            same = torch.equal(got, want)
+            # the kernels' weight layouts (A's and C's; D's pack) kept
+            # across calls of the artifact: none made anew by another call
+            kept = {k: id(v[2]) for k, v in _pack._LAID_OUT.items()}
+            run()
+            relaid = sum(kept.get(k) != id(v[2]) for k, v in _pack._LAID_OUT.items())
+            ms_live, ms_exported = compare_ms(live, run, iters=20)
+        nodes = {}
+        for node in exported.program.graph.nodes:
+            if node.op == "call_function" and str(node.target).startswith("nirgan."):
+                name = str(node.target).split(".")[1]
+                nodes[name] = nodes.get(name, 0) + 1
+        log("export", f"{tag}: exported in {export_s:.1f} s ({len(blob) / 2**20:.1f} MiB); "
+            f"the program's operators {nodes}; launches a forward exported {launches}, "
+            f"live {live_launches} (want {EXPORT_KERNELS[tag]}); exported vs live "
+            f"bit for bit: {same}; weight layouts made anew by a second exported "
+            f"forward: {relaid} (must be 0); forward of {BATCH} x {TILE}^2 (CUDA "
+            f"events) exported "
+            f"{ms_exported:.3f} ms, live {ms_live:.3f} ms ({ms_exported / ms_live:.4f}x)")
+        if not (same and relaid == 0 and launches == live_launches == EXPORT_KERNELS[tag]
+                and tuple(got.shape) == (BATCH, 1, TILE, TILE)):
+            raise AssertionError(f"export {tag}: {same}, {relaid}, {launches}, "
+                                 f"{live_launches}")
+        per_forward[tag] = {"launches": launches, "ms": ms_exported, "live_ms": ms_live,
+                            "export_s": export_s}
+        live_out[tag] = want.cpu()
+        with open(os.path.join(folder, f"{tag}.pt2"), "wb") as f:
+            f.write(blob)
+        torch.save({"params": params, "rgb": rgb, "embeds": embeds, "trunk_q": tq},
+                   os.path.join(folder, f"{tag}.in.pt"))
+        del task, exported, params, tq
+
+    env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    res = subprocess.run([sys.executable, "-c", EXPORT_RUNNER, folder,
+                          *(tag for tag, _, _ in EXPORTS)], capture_output=True, text=True,
+                         timeout=600, env=env)
+    if res.returncode != 0:
+        raise AssertionError(f"the artifacts' own process failed:\n{res.stderr[-4000:]}")
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    for tag, _, _ in EXPORTS:
+        got = torch.load(os.path.join(folder, f"{tag}.out.pt"))
+        same = torch.equal(got, live_out[tag])
+        log("export", f"{tag} in a process of its own: bit for bit with the live "
+            f"forward: {same}; launches {report[tag]['launches']}; forward "
+            f"{report[tag]['ms']:.3f} ms")
+        if not (same and report[tag]["launches"] == per_forward[tag]["launches"]):
+            raise AssertionError(f"export {tag} in its own process: {same}, {report[tag]}")
+        per_forward[tag]["process_ms"] = report[tag]["ms"]
+    log("export", f"modules of the package, jax or nirgan_tpu in that process: "
+        f"{report['modules']} (must be none)")
+    if report["modules"]:
+        raise AssertionError(f"loading an artifact imported {report['modules']}")
+    host = op_host_us()
+    log("export", f"host us a call of the instance norm at (1, 4, 4, 32) bf16: {host}")
+    per_forward["host_us"] = host
+    return per_forward
+
+
+def phase_times() -> dict:
+    """The times that hold a commit against another on one card
+    (``--times ROOT`` runs them on the package at ROOT): kernel B at (16,
+    69^2, 256) and (16, 276^2, 64), bf16 with the ReLU, over rotated inputs;
+    the bf16 serving forward of 4 x 532^2 and the batch-16 fused step of
+    ``config_px2px.yaml`` (CUDA events, in turns, the median of three
+    rounds); the host's microseconds a call of the public instance norm at
+    (1, 4, 4, 32) bf16 with autograd recording, as the step calls it."""
+    from nirgan_tpu_torch.config import load_config
+    from nirgan_tpu_torch.ops.instance_norm import instance_norm, instance_norm_cuda
+    from nirgan_tpu_torch.tasks import Px2PxTask
+
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    for shape in ((TRAIN_BATCH, 69, 69, 256), (TRAIN_BATCH, TRAIN_SIDE, TRAIN_SIDE, 64)):
+        xb = torch.randn(shape, generator=g, device="cuda").bfloat16()
+        sets = rotation(xb)
+        ms = [time_ms(rotating(lambda x: instance_norm_cuda(x, relu=True), sets),
+                      iters=10, run_ahead=True) for _ in range(3)]
+        out[f"B {shape}"] = sorted(ms)[1]
+    cfg = load_config(CONFIG)
+    task = Px2PxTask(cfg, device="cuda", seed=SEED)
+    x = (torch.rand((BATCH, TILE, TILE, 3), generator=torch.Generator().manual_seed(1))
+         * 0.3).cuda().bfloat16()
+    state, ex = task.init_state(), task.extract_batch(first_batch(cfg))
+
+    def forward():
+        with torch.inference_mode():
+            task.g_apply(x)
+
+    rounds = [compare_ms(forward, lambda: task.train_step(state, ex), iters=10)
+              for _ in range(3)]
+    out["forward"] = sorted(r[0] for r in rounds)[1]
+    out["step"] = sorted(r[1] for r in rounds)[1]
+    xs = torch.randn((1, 4, 4, 32), device="cuda", dtype=torch.bfloat16,
+                     requires_grad=True)
+    for _ in range(50):
+        instance_norm(xs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        instance_norm(xs)
+    torch.cuda.synchronize()
+    out["instance_norm host us"] = (time.perf_counter() - t0) / 2000 * 1e6
+    import nirgan_tpu_torch
+
+    log("times", f"{os.path.dirname(os.path.dirname(nirgan_tpu_torch.__file__))}: "
+        + json.dumps(out))
+    return out
+
+
 def alone_int8() -> None:
     """Kernels D and E in every gather and mode, then the int8 forwards."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -4395,14 +4718,23 @@ def alone_train() -> None:
 # ``python3 chip_smoke.py --phase NAME ...``: after the device and build
 # phases, only the named phases, in order (no JSON lines): a phase's checks
 # read alone, without what the phases before it leave set
+def alone_export() -> None:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase_export(tmp)
+
+
 ALONE = {"int8": alone_int8, "train": alone_train, "variants": phase_variants,
-         "nonsquare": phase_nonsquare, "param_dtype": phase_param_dtype}
+         "nonsquare": phase_nonsquare, "param_dtype": phase_param_dtype,
+         "export": alone_export}
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False)")
+    if sys.argv[1:2] == ["--times"]:
+        # the package of another checkout (a parent commit's), ahead of this one
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
     import nirgan_tpu_torch  # noqa: F401  (fail before printing anything)
 
     os.chdir(ROOT)  # the training CLI's default configs are relative paths
@@ -4419,6 +4751,9 @@ def main() -> None:
         for name in sys.argv[2:]:
             ALONE[name]()
         return
+    if sys.argv[1:2] == ["--times"]:
+        phase_times()
+        return
     phase_kernels()
     per_forward = phase_generator()
     sat_forward = phase_generator(satclip=True)
@@ -4428,6 +4763,7 @@ def main() -> None:
     padded_int8 = {p: phase_int8_serving(padding=p) for p in ("replicate", "zero")}
     phase_scene()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        exports = phase_export(tmp)
         phase_scene_cli(tmp)
         serving = phase_serving(tmp)
         sat_serving = phase_serving(tmp, SATCLIP_CONFIG, "serving, inject")
@@ -4512,14 +4848,21 @@ def main() -> None:
                     "route": "cuda", "source": RESULTS["int8_norm"]["source"],
                     "replaces": "nirgan_tpu/ops/int8_trunk.py:139", "max_abs_err": 1.0,
                     "launches": n, "per_forward": n})
-    # B and B4 under gradient_penalty; the bf16-parameter step
+    # B and B4 under gradient_penalty; the bf16-parameter step; the
+    # exported serving programs' launches a forward
     for kernel in entries:
+        if kernel["name"] in EXPORT_KERNELS["int8"]:
+            kernel["export"] = {tag: exports[tag]["launches"][kernel["name"]]
+                                for tag, _, _ in EXPORTS}
         if kernel["name"] in ("instance_norm", "instance_norm_bwd"):
             kernel["gradient_penalty"] = {what: launched[kernel["name"]]
                                           for what, launched in PENALTY_LAUNCHES.items()}
         if kernel["name"] in STEP_LAUNCHES:
             kernel["bf16_params"] = {"per_step": bf16_params["per_step"][kernel["name"]]}
     print(json.dumps({"kernels": entries, "stage2": STAGE2,
+                      "export": {tag: {k: v for k, v in exports[tag].items()
+                                       if k != "launches"} for tag, _, _ in EXPORTS},
+                      "host_us": exports["host_us"],
                       "bf16_params": {k: v for k, v in bf16_params.items()
                                       if k != "per_step"}}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -36,15 +36,25 @@
 //    The threads' sums meet in a fixed order (shuffles, then warps, then the
 //    cluster's ranks in rank order through distributed shared memory), so
 //    every rank holds the same statistics and a run repeats bit for bit.
+//    The sums cascade: a thread adds each group of UNROLL pixels on its own
+//    and then the group into its running sums (the forward's; the
+//    backward's of g and g * y run pixel by pixel), the lanes' sums meet in
+//    the shuffles' tree, and from there on (warps, ranks, the streaming
+//    slabs) every sum is a pair (hi, lo) whose parts add exactly (Knuth's
+//    two-sum).  One running f32 sum of a whole image's share lost digits
+//    that ill-conditioned channels (a variance far below the squared mean)
+//    need in the JAX formula's E[x^2] - E[x]^2, which is then taken in f32
+//    from the sums.
 //    The block then normalises out of shared memory with the per-channel
 //    constants in registers and writes 16 bytes a thread.  No scratch in
 //    device memory, no second read of the activation.
 //  * streaming, where no cluster can hold the slab: two launches.  The sums
-//    kernel writes per-slab partial sums, four independent 16-byte loads a
-//    thread in flight; the elementwise kernel first adds the partials of its
-//    own channels in slab order (so no finalize launch), keeps the rounded
-//    constants in registers, and walks its pixels with a fixed channel
-//    vector a thread: no division and no load of a constant per element.
+//    kernel writes per-slab partial sums as (hi, lo) pairs, four independent
+//    16-byte loads a thread in flight; the elementwise kernel first adds the
+//    partials of its own channels in slab order (so no finalize launch),
+//    keeps the rounded constants in registers, and walks its pixels with a
+//    fixed channel vector a thread: no division and no load of a constant
+//    per element.
 //    Any C that is a multiple of 8 is taken.
 
 #include <cooperative_groups.h>
@@ -64,8 +74,9 @@ constexpr int MAX_VECS = 32;      // 16-byte vectors per streaming channel group
 constexpr int GROUP = 32;         // channels of a resident slab
 constexpr int STAGES = 4;         // cp.async groups in flight a thread
 constexpr int UNROLL = 4;         // 16-byte pieces a group, loads a pass
-// resident scratch ahead of the slab: per-warp sums, the block's sums, the
-// cluster's statistics (two values a channel each)
+// resident scratch ahead of the slab: per-warp sums, then the block's as
+// exact pairs (four values a channel); the cluster's statistics (two values
+// a channel) reuse the per-warp part
 constexpr int SCRATCH_FLOATS = 2 * (MAX_THREADS / 32) * GROUP + 4 * GROUP;
 constexpr int SCRATCH_BYTES = SCRATCH_FLOATS * 4;
 constexpr int MAX_SMEM = 232448;
@@ -161,6 +172,47 @@ __device__ __forceinline__ void add_moments(const Chunk<T>& xv, float* a,
     const float xe = xv.get(e);
     a[e] += xe;
     q[e] = fmaf(xe, xe, q[e]);
+  }
+}
+
+// s = a + b rounded and err = what the rounding dropped, exactly (Knuth's
+// two-sum: any magnitudes, no branch; the _rn intrinsics keep nvcc from
+// fusing or reordering it)
+__device__ __forceinline__ float two_sum(float a, float b, float& err) {
+  const float s = __fadd_rn(a, b);
+  const float bb = __fsub_rn(s, a);
+  err = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
+  return s;
+}
+
+// the pair (hi, lo) plus the pair (ohi, olo)
+__device__ __forceinline__ void add_pair(float& hi, float& lo, float ohi,
+                                         float olo) {
+  float err;
+  hi = two_sum(hi, ohi, err);
+  lo = __fadd_rn(__fadd_rn(lo, olo), err);
+}
+
+// the first pixel of a group's sums
+template <typename T>
+__device__ __forceinline__ void init_moments(const Chunk<T>& xv, float* a,
+                                             float* q) {
+#pragma unroll
+  for (int e = 0; e < Chunk<T>::N; ++e) {
+    const float xe = xv.get(e);
+    a[e] = xe;
+    q[e] = __fmul_rn(xe, xe);
+  }
+}
+
+// a group's sums into the running ones
+template <int N>
+__device__ __forceinline__ void add_group(float* a, float* q, const float* ga,
+                                          const float* gq) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    a[e] += ga[e];
+    q[e] += gq[e];
   }
 }
 
@@ -276,8 +328,8 @@ in_resident_kernel(const T* __restrict__ x, const T* __restrict__ g,
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int N = Chunk<T>::N;
   float* s_warp = reinterpret_cast<float*>(smem);        // [2][warps][GROUP]
-  float* s_block = s_warp + 2 * (MAX_THREADS / 32) * GROUP;  // [2][GROUP]
-  float* s_stat = s_block + 2 * GROUP;                       // [2][GROUP]
+  float* s_block = s_warp + 2 * (MAX_THREADS / 32) * GROUP;  // [4][GROUP]
+  float* s_stat = s_warp;  // [2][GROUP], once the warps' sums are read
   unsigned char* slab_x = smem + SCRATCH_BYTES;
   unsigned char* slab_g = slab_x + (size_t)rows * GROUP * sizeof(T);
 
@@ -323,6 +375,9 @@ in_resident_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int groups = (mine + UNROLL - 1) / UNROLL;
   for (int j = 0; j < groups; ++j) {
     hopper::cp_async_wait<STAGES - 1>();
+    float ga[N], gq[N];  // the forward's sums of this group's pixels
+#pragma unroll
+    for (int e = 0; e < N; ++e) ga[e] = gq[e] = 0.f;
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int i = j * UNROLL + u;
@@ -337,16 +392,20 @@ in_resident_kernel(const T* __restrict__ x, const T* __restrict__ g,
             store_chunk(reinterpret_cast<T*>(slab_g + at), gv);
           }
           add_bwd_sums(xv, gv, k, a, q);
+        } else if (u == 0) {  // i = j * UNROLL < mine: always a pixel
+          init_moments(xv, ga, gq);
         } else {
-          add_moments(xv, a, q);
+          add_moments(xv, ga, gq);
         }
       }
     }
+    if (!BWD) add_group<N>(a, q, ga, gq);
     copy_group(j + STAGES);
   }
   hopper::cp_async_wait<0>();
 
-  // 2. threads -> warp (lanes of one piece are RC apart) -> block -> cluster
+  // 2. threads -> warp (lanes of one piece are RC apart, a tree) -> block
+  // -> cluster, in exact pairs from the warps on
 #pragma unroll
   for (int off = RC; off < 32; off <<= 1) {
 #pragma unroll
@@ -363,25 +422,41 @@ in_resident_kernel(const T* __restrict__ x, const T* __restrict__ g,
     }
   }
   __syncthreads();
+  // s_block: (hi, lo) of the first sum, then of the second
   if (tid < GROUP) {
-    float sa = 0.f, sq = 0.f;
+    float sa = 0.f, sa_lo = 0.f, sq = 0.f, sq_lo = 0.f;
+#pragma unroll 4
     for (int w = 0; w < warps; ++w) {
-      sa += s_warp[w * GROUP + tid];
-      sq += s_warp[(warps + w) * GROUP + tid];
+      add_pair(sa, sa_lo, s_warp[w * GROUP + tid], 0.f);
+      add_pair(sq, sq_lo, s_warp[(warps + w) * GROUP + tid], 0.f);
     }
     s_block[tid] = sa;
-    s_block[GROUP + tid] = sq;
+    s_block[GROUP + tid] = sa_lo;
+    s_block[2 * GROUP + tid] = sq;
+    s_block[3 * GROUP + tid] = sq_lo;
   }
   cluster.sync();
   if (tid < GROUP) {
-    float sa = 0.f, sq = 0.f;
-    for (int r = 0; r < K; ++r) {
-      const float* theirs = cluster.map_shared_rank(s_block, r);
-      sa += theirs[tid];
-      sq += theirs[GROUP + tid];
+    float sa = 0.f, sa_lo = 0.f, sq = 0.f, sq_lo = 0.f;
+    float rv[8][4];  // every rank's pairs in flight, then added in rank order
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      if (r < K) {
+        const float* theirs = cluster.map_shared_rank(s_block, r);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) rv[r][t] = theirs[t * GROUP + tid];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      if (r < K) {
+        add_pair(sa, sa_lo, rv[r][0], rv[r][1]);
+        add_pair(sq, sq_lo, rv[r][2], rv[r][3]);
+      }
     }
     float v0, v1;
-    finish<BWD>(sa, sq, (float)HW, eps, &v0, &v1);
+    finish<BWD>(__fadd_rn(sa, sa_lo), __fadd_rn(sq, sq_lo), (float)HW, eps, &v0,
+                &v1);
     s_stat[tid] = v0;
     s_stat[GROUP + tid] = v1;
     if (!BWD && rank == 0) {
@@ -424,7 +499,8 @@ in_resident_kernel(const T* __restrict__ x, const T* __restrict__ g,
 // grid (S, B, groups).  A channel group is CV <= 32 pieces of 16 bytes;
 // thread t owns piece t % CV of the group for the pixels p of this slab with
 // p % G == t / CV, G = 256 / CV.  Forward (BWD = false): sums of x and x^2.
-// Backward: sums of g and g * y, g masked as above.  part is (B, S, 2, C).
+// Backward: sums of g and g * y, g masked as above.  part is (B, S, 4, C):
+// hi of both sums, then lo of both.
 template <typename T, bool BWD>
 __global__ void __launch_bounds__(THREADS)
 in_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
@@ -462,17 +538,23 @@ in_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
           if (BWD) gv[u] = load_chunk(g + off);
         }
       }
+      float ga[N], gq[N];  // the forward's sums of these pixels
+#pragma unroll
+      for (int e = 0; e < N; ++e) ga[e] = gq[e] = 0.f;
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         if (p + u * G < p1) {
           if (BWD) {
             if (relu) mask_cotangent(xv[u], gv[u], k);
             add_bwd_sums(xv[u], gv[u], k, a, q);
+          } else if (u == 0) {  // p < p1: always a pixel
+            init_moments(xv[u], ga, gq);
           } else {
-            add_moments(xv[u], a, q);
+            add_moments(xv[u], ga, gq);
           }
         }
       }
+      if (!BWD) add_group<N>(a, q, ga, gq);
     }
   }
   if (grp < G) {
@@ -483,21 +565,25 @@ in_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
     }
   }
   __syncthreads();
+  // the threads' sums in thread order, in exact pairs
   const int c = blockIdx.z * CV * N + tid;
   if (tid < CV * N && c < C) {
-    float sa = 0.f, sq = 0.f;
+    float sa = 0.f, sa_lo = 0.f, sq = 0.f, sq_lo = 0.f;
+#pragma unroll 8
     for (int gg = 0; gg < G; ++gg) {
-      sa += s_a[gg * CV * N + tid];
-      sq += s_q[gg * CV * N + tid];
+      add_pair(sa, sa_lo, s_a[gg * CV * N + tid], 0.f);
+      add_pair(sq, sq_lo, s_q[gg * CV * N + tid], 0.f);
     }
-    float* dst = part + ((long long)b * S + s) * 2 * C;
+    float* dst = part + ((long long)b * S + s) * 4 * C;
     dst[c] = sa;
     dst[C + c] = sq;
+    dst[2 * C + c] = sa_lo;
+    dst[3 * C + c] = sq_lo;
   }
 }
 
 // The elementwise pass, same grid and thread layout.  Each block first adds
-// the S partials of its group's channels in slab order; the forward's
+// the S partial pairs of its group's channels in slab order; the forward's
 // slab-0 blocks write them to stats (B, 2, C), which the backward reads.
 template <typename T, bool BWD>
 __global__ void __launch_bounds__(THREADS)
@@ -516,14 +602,28 @@ in_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int c0 = v * N;
   const int c = blockIdx.z * CV * N + tid;
   if (tid < CV * N && c < C) {
-    const float* src = part + (long long)b * S * 2 * C + c;
-    float sa = 0.f, sq = 0.f;
-    for (int j = 0; j < S; ++j) {
-      sa += src[(long long)j * 2 * C];
-      sq += src[(long long)j * 2 * C + C];
+    const float* src = part + (long long)b * S * 4 * C + c;
+    float sa = 0.f, sa_lo = 0.f, sq = 0.f, sq_lo = 0.f;
+    // eight slabs' loads in flight, then their pairs in slab order
+    for (int j0 = 0; j0 < S; j0 += 8) {
+      float pv[8][4];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float* slab = src + (long long)min(j0 + u, S - 1) * 4 * C;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) pv[u][t] = slab[t * C];
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (j0 + u < S) {
+          add_pair(sa, sa_lo, pv[u][0], pv[u][2]);
+          add_pair(sq, sq_lo, pv[u][1], pv[u][3]);
+        }
+      }
     }
     float v0, v1;
-    finish<BWD>(sa, sq, (float)HW, eps, &v0, &v1);
+    finish<BWD>(__fadd_rn(sa, sa_lo), __fadd_rn(sq, sq_lo), (float)HW, eps, &v0,
+                &v1);
     s_stat[0][tid] = v0;
     s_stat[1][tid] = v1;
     if (!BWD && s == 0) {
@@ -703,7 +803,7 @@ int dispatch(int dtype, const Plan& p, const void* x, const void* g,
 // The forward.  dtype: 0 = float32, 1 = bfloat16.  x, y and residual (null
 // for none) are contiguous (B, HW, C), C a multiple of 8.  regime, group,
 // cluster, threads, slabs and smem_bytes are the launch plan (see Plan).
-// part is f32 scratch of B * slabs * 2 * C, read only when streaming; stats
+// part is f32 scratch of B * slabs * 4 * C, read only when streaming; stats
 // (B, 2, C) f32 receives mean and scale, which the backward takes.  Returns
 // a cudaError_t; cudaErrorInvalidValue for a plan the kernels cannot take.
 extern "C" int nirgan_instance_norm(int device, int dtype, const void* x,

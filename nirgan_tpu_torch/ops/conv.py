@@ -6,9 +6,11 @@ package computes them in XLA, outside any Pallas kernel.  The stem, d0, d1,
 u0 and u1 use them.  Weights are cast to the activation dtype, as the JAX
 ops cast the kernel, and the bias is added after the convolution in that
 dtype.  The reference's k3/s2/p1/op1 transposed convolution (u0, u1) is one
-autograd Function whose backward is kernel B5 on a card
-(``ops/convt_bwd.py``, the counterpart of ``_convt_core_k3s2_pallas``) and
-its plain version on the CPU; the bias stays outside it, as in JAX.
+operator, ``torch.ops.nirgan.convt_k3s2``: its forward is PyTorch's
+transposed convolution, its gradient the operator
+``nirgan::convt_k3s2_bwd``, kernel B5 on a card (``ops/convt_bwd.py``, the
+counterpart of ``_convt_core_k3s2_pallas``) and its plain version on the
+CPU; the bias stays outside it, as in JAX.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from nirgan_tpu_torch.ops import _lib
+from nirgan_tpu_torch.ops import _lib, _registry
 from nirgan_tpu_torch.ops import convt_bwd as _convt_bwd
 
 
@@ -41,28 +43,35 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
     return _nhwc(y)
 
 
-class ConvTransposeK3S2(torch.autograd.Function):
-    """The k3/s2/p1/op1 core without bias on NHWC x: forward on PyTorch's
-    convolution, backward kernel B5 on a card, its plain version on the
-    CPU.  The weight gradient comes back in f32, then in the weight's
-    dtype."""
+def _convt_k3s2(x, weight):
+    """``nirgan::convt_k3s2``'s CPU and CUDA implementation: the k3/s2/p1/op1
+    core without bias on NHWC x, on PyTorch's convolution."""
+    return _nhwc(F.conv_transpose2d(_nchw(x), weight.to(x.dtype), stride=2,
+                                    padding=1, output_padding=1))
 
-    @staticmethod
-    def forward(ctx, x, weight):
-        ctx.save_for_backward(x, weight)
-        return _nhwc(F.conv_transpose2d(_nchw(x), weight.to(x.dtype), stride=2,
-                                        padding=1, output_padding=1))
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        x, weight = ctx.saved_tensors
-        bwd = (_convt_bwd.convt_k3s2_bwd_cuda
-               if _lib.route(x, _convt_bwd.NAME)
-               else _convt_bwd.convt_k3s2_bwd_plain)
-        dx, dw = bwd(g.to(x.dtype).contiguous(), x.contiguous(), weight,
-                     ctx.needs_input_grad)
-        return dx, dw.to(weight.dtype) if dw is not None else None
+def _fake(x, weight):
+    _lib.route(x, _convt_bwd.NAME)
+    b, h, w, _ = x.shape
+    return x.new_empty((b, 2 * h, 2 * w, weight.shape[1]))
+
+
+def _setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+@once_differentiable
+def _backward(ctx, g):
+    """Kernel B5 on a card, its plain version on the CPU; the weight
+    gradient comes back in f32, then in the weight's dtype."""
+    x, weight = ctx.saved_tensors
+    dx, dw = _convt_bwd.convt_k3s2_bwd(g.to(x.dtype).contiguous(), x.contiguous(),
+                                       weight, ctx.needs_input_grad)
+    return dx, dw.to(weight.dtype) if dw is not None else None
+
+
+_registry.define("convt_k3s2(Tensor x, Tensor weight) -> Tensor", _convt_k3s2, _fake,
+                 _backward, _setup)
 
 
 def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor,
@@ -70,10 +79,10 @@ def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor,
                      padding: int = 1, output_padding: int = 1) -> torch.Tensor:
     """torch ``nn.ConvTranspose2d``: x (B, H, W, Cin), weight
     (Cin, Cout, kh, kw).  The reference's k3 s2 p1 op1 gives an exact 2x
-    upsample and runs through ``ConvTransposeK3S2``."""
+    upsample and runs through ``nirgan::convt_k3s2``."""
     if (tuple(weight.shape[2:]) == (3, 3) and stride == 2 and padding == 1
             and output_padding == 1):
-        y = ConvTransposeK3S2.apply(x, weight)
+        y = torch.ops.nirgan.convt_k3s2(x, weight)
     else:
         y = _nhwc(F.conv_transpose2d(_nchw(x), weight.to(x.dtype),
                                      stride=stride, padding=padding,

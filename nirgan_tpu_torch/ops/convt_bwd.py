@@ -12,17 +12,21 @@ at the generator's shapes (bf16, Ci 128 or 256, Co % 64 == 0; the weights
 go to dx packed by ``_pack.pack_b128``), on WMMA or SIMT f32 otherwise.
 The source's header has the design.
 
-Dispatch: ``ops/conv.py`` calls ``convt_k3s2_bwd_cuda`` for a CUDA tensor
-(the kernel or an error) and ``convt_k3s2_bwd_plain`` for a CPU tensor.
+Dispatch: ``convt_k3s2_bwd`` is one operator,
+``torch.ops.nirgan.convt_k3s2_bwd`` (``_registry``), the gradient of
+``ops/conv.py``'s ``nirgan::convt_k3s2``: ``convt_k3s2_bwd_cuda`` for a CUDA
+tensor (the kernel or an error), ``convt_k3s2_bwd_plain`` for a CPU tensor.
 Both take and return the JAX kernel's layout of activations (NHWC) and
 torch's weight layout (Cin, Cout, 3, 3).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from nirgan_tpu_torch.ops import _lib
+from nirgan_tpu_torch.ops import _lib, _registry
 from nirgan_tpu_torch.ops._pack import laid_out, pack_b128, taps_first
 
 NAME = "convt_bwd"
@@ -81,10 +85,12 @@ def convt_k3s2_bwd_plain(ct: torch.Tensor, z: torch.Tensor,
         None, [2, 2], [1, 1], [1, 1], True, [1, 1], 1,
         [needs[0], needs[1], False])
     dx = dx.permute(0, 2, 3, 1).contiguous() if needs[0] else None
-    dw = dw.float() if needs[1] else None
+    dw = dw.float().contiguous() if needs[1] else None
     return dx, dw
 
 
+# by shape alone: kept, so a call's host time does not repeat it
+@functools.lru_cache(maxsize=256)
 def launch_plan(dtype: torch.dtype, z_shape: tuple, ct_shape: tuple,
                 w_shape: tuple) -> tuple[bool, int, int]:
     """(packed weights?, slabs, pixels a slab) of a launch on z (B, H, W,
@@ -149,3 +155,29 @@ def convt_k3s2_bwd_cuda(ct: torch.Tensor, z: torch.Tensor,
 
 
 convt_k3s2_bwd_cuda.launches = 0
+
+
+def _routed(ct, z, weight, need_dx, need_dw):
+    """The operator's CPU and CUDA implementation: (dx, dW), each None
+    where it is not needed."""
+    bwd = convt_k3s2_bwd_cuda if _lib.route(z, NAME) else convt_k3s2_bwd_plain
+    return bwd(ct, z, weight, (need_dx, need_dw))
+
+
+def _fake(ct, z, weight, need_dx, need_dw):
+    _lib.route(z, NAME)
+    ci, co = weight.shape[:2]
+    return (z.new_empty(z.shape) if need_dx else None,
+            z.new_empty((ci, co, 3, 3), dtype=torch.float32) if need_dw else None)
+
+
+_registry.define("convt_k3s2_bwd(Tensor ct, Tensor z, Tensor weight, bool need_dx, "
+                 "bool need_dw) -> (Tensor?, Tensor?)", _routed, _fake)
+
+
+def convt_k3s2_bwd(ct: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
+                   needs=(True, True)) -> tuple:
+    """(dx, dW) of the k3/s2/p1/op1 transposed conv of NHWC z for the NHWC
+    cotangent ct: kernel B5 on a card, its plain version on the CPU; dx in
+    z's dtype, dW in f32, each None where ``needs`` says so."""
+    return torch.ops.nirgan.convt_k3s2_bwd(ct, z, weight, bool(needs[0]), bool(needs[1]))

@@ -11,26 +11,28 @@ registers while a block walks down the rows of its strip (``takes_mma``,
 takes the f32-FMA kernel with the weight as (ky, kx, C).  The source's
 header has the design.
 
-``head_conv`` is one ``torch.autograd.Function``.  Forward: a CPU tensor
-takes ``head_conv_plain``; a CUDA tensor of the shape the kernel is built
-for (64 channels in, one out: ``takes_kernel``) launches it or raises; any
-other CUDA tensor takes the library route, ``head_conv_library``:
-``F.conv2d`` with the bias, then ``torch.tanh``, counted apart from the
-kernel.  The choice is by shape alone (``forward_route``), not a fallback.
-Backward: as ``pallas_head.py``'s custom VJP, tanh' = 1 - y^2 on the saved
-output, then PyTorch's own convolution gradients for dx and the weight, and
-a sum for the bias.
+``head_conv`` is one operator, ``torch.ops.nirgan.head_conv``
+(``_registry``).  Forward: a CPU tensor takes ``head_conv_plain``; a CUDA
+tensor of the shape the kernel is built for (64 channels in, one out:
+``takes_kernel``) launches it or raises; any other CUDA tensor takes the
+library route, ``head_conv_library``: ``F.conv2d`` with the bias, then
+``torch.tanh``, counted apart from the kernel.  The choice is by shape
+alone (``forward_route``), not a fallback.  Backward (the operator's
+autograd formula, once differentiable): as ``pallas_head.py``'s custom
+VJP, tanh' = 1 - y^2 on the saved output, then PyTorch's own convolution
+gradients for dx and the weight, and a sum for the bias.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from nirgan_tpu_torch.ops import _lib
+from nirgan_tpu_torch.ops import _lib, _registry
 from nirgan_tpu_torch.ops._pack import head_toeplitz, laid_out, mma_b_fragments
 
 NAME = "head_conv"
@@ -105,6 +107,8 @@ def taps_f32(weight: torch.Tensor) -> torch.Tensor:
     return weight.float()[0].permute(1, 2, 0).contiguous()
 
 
+# by shape alone: kept, so a call's host time does not repeat it
+@functools.lru_cache(maxsize=256)
 def launch_plan(b: int, ho: int, wo: int, sms: int) -> int:
     """The output rows of a run of the mma kernel, whose blocks each own a
     strip of 64 columns and two runs: the count that needs the fewest
@@ -184,22 +188,31 @@ def head_conv_bwd(x_padded: torch.Tensor, weight: torch.Tensor,
     return dx, dw, db
 
 
-class HeadConv(torch.autograd.Function):
-    """Forward kernel C (the plain version on the CPU, the library route at
-    widths the kernel is not built for), backward ``head_conv_bwd``."""
+def _routed(x_padded, weight, bias):
+    """The operator's CPU and CUDA implementation: ``forward_route``'s."""
+    return forward_route(x_padded, weight)(x_padded, weight, bias)
 
-    @staticmethod
-    def forward(ctx, x_padded, weight, bias):
-        fwd = forward_route(x_padded, weight)
-        y = fwd(x_padded, weight, bias)
-        ctx.save_for_backward(x_padded, weight, y)
-        return y
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        x_padded, weight, y = ctx.saved_tensors
-        return head_conv_bwd(x_padded, weight, y, g, ctx.needs_input_grad)
+def _fake(x_padded, weight, bias):
+    _lib.route(x_padded, NAME)
+    b, hp, wp, _ = x_padded.shape
+    return x_padded.new_empty((b, hp - weight.shape[2] + 1, wp - weight.shape[3] + 1,
+                               weight.shape[0]))
+
+
+def _setup(ctx, inputs, output):
+    x_padded, weight, _ = inputs
+    ctx.save_for_backward(x_padded, weight, output)
+
+
+@once_differentiable
+def _backward(ctx, g):
+    x_padded, weight, y = ctx.saved_tensors
+    return head_conv_bwd(x_padded, weight, y, g, ctx.needs_input_grad)
+
+
+_registry.define("head_conv(Tensor x_padded, Tensor weight, Tensor? bias) -> Tensor",
+                 _routed, _fake, _backward, _setup)
 
 
 def head_conv(x_padded: torch.Tensor, weight: torch.Tensor,
@@ -207,4 +220,4 @@ def head_conv(x_padded: torch.Tensor, weight: torch.Tensor,
     """``tanh(conv2d(x_padded, weight) + bias)`` for the 7x7 head on an NHWC
     input that is already reflect-padded by 3,
     differentiable in all three."""
-    return HeadConv.apply(x_padded, weight, bias)
+    return torch.ops.nirgan.head_conv(x_padded, weight, bias)

@@ -16,23 +16,26 @@ statistics, and the fused ReLU's mask from x with the forward's own
 roundings, so the forward's output is never saved.  The source's header has
 the design.
 
-``instance_norm`` is one ``torch.autograd.Function`` whose backward is a
-second one, ``InstanceNormBackward``: a CUDA tensor launches the kernels in
-both directions or raises, a CPU tensor takes the plain versions, so the
-CPU runs the same graph wiring as the card.  The backward is itself
-differentiable (``gradient_penalty`` trains D through it): its second-order
-terms are PyTorch ops (``instance_norm_bwd_bwd``), where the JAX package
-lets XLA differentiate its norm twice.  It is the entry the models call,
+``instance_norm`` is one operator, ``torch.ops.nirgan.instance_norm``
+(``_registry``; it returns the output and the f32 statistics), whose
+gradient is a second one, ``torch.ops.nirgan.instance_norm_bwd``: a CUDA
+tensor launches the kernels in both directions or raises, a CPU tensor
+takes the plain versions, so the CPU runs the same graph wiring as the
+card.  The backward operator is itself differentiable (``gradient_penalty``
+trains D through it): its autograd formula is the second-order terms in
+PyTorch ops (``instance_norm_bwd_bwd``), where the JAX package lets XLA
+differentiate its norm twice.  It is the entry the models call,
 the counterpart of ``nirgan_tpu/ops/norm.py`` (affine-free, stat-free
 everywhere, reference ``model/networks.py:30``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
-from nirgan_tpu_torch.ops import _lib
+from nirgan_tpu_torch.ops import _lib, _registry
 
 NAME = "instance_norm"
 BWD_NAME = "instance_norm_bwd"
@@ -103,6 +106,8 @@ def streaming_plan(b: int, hw: int, c: int, itemsize: int) -> Plan:
     return Plan("streaming", group, 1, 256, 0, 0, slabs)
 
 
+# by shape alone: kept, so a call's host time does not repeat it
+@functools.lru_cache(maxsize=256)
 def launch_plan(b: int, hw: int, c: int, itemsize: int,
                 backward: bool) -> Plan:
     """The plan for (b, hw, c) activations of ``itemsize`` bytes, by shape
@@ -243,11 +248,12 @@ def _plan_args(plan: Plan) -> tuple:
 
 
 def _scratch(x: torch.Tensor, plan: Plan) -> torch.Tensor | None:
-    """The partial sums' f32 buffer, which only the streaming regime has."""
+    """The partial sums' f32 buffer, which only the streaming regime has: a
+    slab's two sums as pairs (hi, hi, lo, lo) that add exactly."""
     if plan.regime == "resident":
         return None
     b, c = x.shape[0], x.shape[3]
-    return torch.empty((b, plan.slabs, 2, c), device=x.device,
+    return torch.empty((b, plan.slabs, 4, c), device=x.device,
                        dtype=torch.float32)
 
 
@@ -338,50 +344,63 @@ def max_active_clusters(x: torch.Tensor, plan: Plan, backward: bool) -> int:
     return n
 
 
-class InstanceNormBackward(torch.autograd.Function):
-    """The first-order backward as a function of (x, g): forward kernel B4
-    (its plain version on the CPU); backward the second-order terms of
-    ``instance_norm_bwd_bwd`` in PyTorch ops, so that a gradient taken with
-    ``create_graph=True`` (``gradient_penalty``) trains through the norm.
-    ``stats`` are the forward's, a function of x that the second-order
-    terms account for."""
-
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
-                relu: bool) -> torch.Tensor:
-        bwd = (instance_norm_bwd_cuda if _lib.route(x, BWD_NAME)
-               else instance_norm_bwd_plain)
-        ctx.relu = relu
-        ctx.save_for_backward(x, g, stats)
-        return bwd(x, g.contiguous(), stats, relu)
-
-    @staticmethod
-    def backward(ctx, v: torch.Tensor):
-        x, g, stats = ctx.saved_tensors
-        dx, dg = instance_norm_bwd_bwd(x, g, stats, ctx.relu, v)
-        return dx, dg, None, None
+def _routed(x, residual, eps, relu):
+    """``nirgan::instance_norm``'s CPU and CUDA implementation: kernel B
+    on a card, its plain version on the CPU; (y, stats)."""
+    fwd = instance_norm_cuda if _lib.route(x, NAME) else instance_norm_plain
+    return fwd(x, eps, relu, return_stats=True, residual=residual)
 
 
-class InstanceNorm(torch.autograd.Function):
-    """Forward kernel B, backward kernel B4 (the plain versions on the CPU)
-    through ``InstanceNormBackward``, which is itself differentiable.  Saves
-    x and the forward's f32 statistics, never the output."""
+def _fake(x, residual, eps, relu):
+    _lib.route(x, NAME)
+    stats_dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
+    return (x.new_empty(x.shape),
+            x.new_empty((x.shape[0], 2, x.shape[-1]), dtype=stats_dtype))
 
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, residual: torch.Tensor | None,
-                eps: float, relu: bool) -> torch.Tensor:
-        fwd = instance_norm_cuda if _lib.route(x, NAME) else instance_norm_plain
-        y, stats = fwd(x, eps, relu, return_stats=True, residual=residual)
-        ctx.relu = relu
-        ctx.save_for_backward(x, stats)
-        return y
 
-    @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        x, stats = ctx.saved_tensors
-        # the skip passes its cotangent on unchanged
-        return (InstanceNormBackward.apply(x, g, stats, ctx.relu),
-                g if ctx.needs_input_grad[1] else None, None, None)
+def _setup(ctx, inputs, output):
+    x, _, _, ctx.relu = inputs
+    stats = output[1]
+    ctx.mark_non_differentiable(stats)
+    ctx.save_for_backward(x, stats)
+
+
+def _backward(ctx, g, _):
+    x, stats = ctx.saved_tensors
+    # the skip passes its cotangent on unchanged
+    return (torch.ops.nirgan.instance_norm_bwd(x, g, stats, ctx.relu),
+            g if ctx.needs_input_grad[1] else None, None, None)
+
+
+def _routed_bwd(x, g, stats, relu):
+    """``nirgan::instance_norm_bwd``'s CPU and CUDA implementation: kernel
+    B4 on a card, its plain version on the CPU."""
+    bwd = instance_norm_bwd_cuda if _lib.route(x, BWD_NAME) else instance_norm_bwd_plain
+    return bwd(x, g.contiguous(), stats, relu)
+
+
+def _fake_bwd(x, g, stats, relu):
+    _lib.route(x, BWD_NAME)
+    return x.new_empty(x.shape)
+
+
+def _setup_bwd(ctx, inputs, output):
+    x, g, stats, ctx.relu = inputs
+    ctx.save_for_backward(x, g, stats)
+
+
+def _backward_bwd(ctx, v):
+    """The second-order terms, in PyTorch ops; ``stats`` are the forward's,
+    a function of x that they account for."""
+    x, g, stats = ctx.saved_tensors
+    dx, dg = instance_norm_bwd_bwd(x, g, stats, ctx.relu, v)
+    return dx, dg, None, None
+
+
+_registry.define("instance_norm_bwd(Tensor x, Tensor g, Tensor stats, bool relu) -> Tensor",
+                 _routed_bwd, _fake_bwd, _backward_bwd, _setup_bwd)
+_registry.define("instance_norm(Tensor x, Tensor? residual, float eps, bool relu) "
+                 "-> (Tensor, Tensor)", _routed, _fake, _backward, _setup)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5, relu: bool = False,
@@ -390,5 +409,6 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5, relu: bool = False,
     x (torch defaults: eps 1e-5, biased variance) with f32 statistics,
     normalised in x's dtype; ``relu=True`` applies ReLU to the result and
     ``residual`` is then added to it in x's dtype (both exact, fused in the
-    kernel)."""
-    return InstanceNorm.apply(x, residual, eps, relu)
+    kernel).  Forward kernel B, backward kernel B4 (the plain versions on
+    the CPU); x and the statistics are saved, never the output."""
+    return torch.ops.nirgan.instance_norm(x, residual, eps, relu)[0]

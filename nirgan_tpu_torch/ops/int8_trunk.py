@@ -54,8 +54,10 @@ serving shape, 0.016, 0.038 and 0.027 ms.  It divides
 (``x / s`` is a true f32 division in JAX), rounds half to even and clips to
 +-127, as ``_q8`` does.
 
-Each wrapper dispatches as the port's other kernels do: a CPU tensor takes
-the plain version, a CUDA tensor launches the kernel or raises.  Torch has
+Each is one operator (``_registry``), ``torch.ops.nirgan.int8_conv_moments``
+and ``torch.ops.nirgan.int8_norm_quant``, and dispatches as the port's
+other kernels do: a CPU tensor takes the plain version, a CUDA tensor
+launches the kernel or raises.  Torch has
 no int8 convolution on a card, so there is no library route.  Stage 2
 (``int8_d1_forward``, the d1 conv in int8) is opt-in, as in the JAX package
 (``Px2PxTask.build_trunk_q(stage2=True)``).
@@ -68,7 +70,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from nirgan_tpu_torch.ops import _lib
+from nirgan_tpu_torch.ops import _lib, _registry
 from nirgan_tpu_torch.ops._pack import laid_out, pack_b128
 from nirgan_tpu_torch.ops.pad import reflect_pad2d, replicate_pad2d, zero_pad2d
 
@@ -306,11 +308,30 @@ conv_moments_cuda.launches = 0
 conv_moments_cuda.by_gather = {}  # the launches by (border, stride)
 
 
-def conv_moments(x8: torch.Tensor, w8: torch.Tensor, border: str = "reflect",
-                 stride: int = 1):
-    """Kernel D on a card, its plain version on the CPU."""
+def _routed_conv(x8, w8, border, stride):
+    """``nirgan::int8_conv_moments``'s CPU and CUDA implementation."""
     fwd = conv_moments_cuda if _lib.route(x8, CONV_NAME) else conv_moments_plain
     return fwd(x8, w8, border, stride)
+
+
+def _fake_conv(x8, w8, border, stride):
+    _lib.route(x8, CONV_NAME)
+    b, h, w, _ = x8.shape
+    co = w8.shape[0]
+    return (x8.new_empty((b, out_side(h, stride), out_side(w, stride), co),
+                         dtype=torch.bfloat16),
+            x8.new_empty((b, 2, co), dtype=torch.float32))
+
+
+_registry.define("int8_conv_moments(Tensor x8, Tensor w8, str border, int stride) "
+                 "-> (Tensor, Tensor)", _routed_conv, _fake_conv)
+
+
+def conv_moments(x8: torch.Tensor, w8: torch.Tensor, border: str = "reflect",
+                 stride: int = 1):
+    """Kernel D on a card, its plain version on the CPU: the arguments and
+    results of ``conv_moments_plain``."""
+    return torch.ops.nirgan.int8_conv_moments(x8, w8, border, stride)
 
 
 # ---------------------------------------------------------------- kernel E
@@ -442,15 +463,38 @@ norm_quant_cuda.launches = 0
 norm_quant_cuda.by_mode = {}  # the launches by mode
 
 
+def _routed_norm(mode, src, s, moments, eps_adj, x, dtype):
+    """``nirgan::int8_norm_quant``'s CPU and CUDA implementation: (stream,
+    int8) in every mode, the stream None in modes 0 and 1."""
+    fwd = norm_quant_cuda if _lib.route(src, NORM_NAME) else norm_quant_plain
+    out = fwd(mode, src, s, moments, eps_adj, x, dtype)
+    return out if mode in (2, 3) else (None, out)
+
+
+def _fake_norm(mode, src, s, moments, eps_adj, x, dtype):
+    _lib.route(src, NORM_NAME)
+    q = src.new_empty(src.shape, dtype=torch.int8) if s is not None else None
+    if mode == 2:
+        return x.new_empty(x.shape), q
+    if mode == 3:
+        return src.new_empty(src.shape, dtype=dtype), q
+    return None, q
+
+
+_registry.define("int8_norm_quant(int mode, Tensor src, Tensor? s, Tensor? moments, "
+                 "Tensor? eps_adj, Tensor? x, ScalarType? dtype) -> (Tensor?, Tensor?)",
+                 _routed_norm, _fake_norm)
+
+
 def norm_quant(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
                moments: Optional[torch.Tensor] = None,
                eps_adj: Optional[torch.Tensor] = None,
                x: Optional[torch.Tensor] = None,
                dtype: Optional[torch.dtype] = None):
-    """Kernel E on a card, its plain version on the CPU (the arguments of
-    ``norm_quant_cuda``)."""
-    fwd = norm_quant_cuda if _lib.route(src, NORM_NAME) else norm_quant_plain
-    return fwd(mode, src, s, moments, eps_adj, x, dtype)
+    """Kernel E on a card, its plain version on the CPU (the arguments and
+    results of ``norm_quant_cuda``)."""
+    out, q = torch.ops.nirgan.int8_norm_quant(mode, src, s, moments, eps_adj, x, dtype)
+    return (out, q) if mode in (2, 3) else q
 
 
 # ------------------------------------------------------------------ trunk

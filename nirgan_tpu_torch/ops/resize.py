@@ -8,7 +8,8 @@ bicubically (A = -0.75, edge-clamped taps, ``model/pix2pix.py:473``).  Each
 1-D resampling is a dense (out x in) matrix built on the host and applied as
 two f32 contractions (rows, then columns), the same matrices the JAX package
 folds into its programs.  A matrix is copied to a device once and kept, so a
-train step's resize waits for no copy.
+train step's resize waits for no copy; an exported program holds it as a
+constant on the device it was exported for.
 """
 
 from __future__ import annotations
@@ -74,10 +75,26 @@ def _on_device(matrix, in_size: int, out_size: int,
         return torch.from_numpy(matrix(in_size, out_size)).to(device)
 
 
+def _matrix_on(matrix, in_size: int, out_size: int,
+               device: torch.device) -> torch.Tensor:
+    """The matrix on ``device``, copied once and kept (``_on_device``).
+    While a program is traced (``torch.export``) the kept tensor is made or
+    fetched outside the trace's fake tensors, so the cache never holds a
+    traced tensor and the program holds the matrix as a constant already on
+    its device (a host constant copied in the program would make every call
+    wait for the card)."""
+    if torch.compiler.is_compiling():
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        with _disable_current_modes():
+            return _on_device(matrix, in_size, out_size, device)
+    return _on_device(matrix, in_size, out_size, device)
+
+
 def _apply_separable(x: torch.Tensor, matrix, out_h: int, out_w: int) -> torch.Tensor:
     _, h, w, _ = x.shape
-    mh = _on_device(matrix, h, out_h, x.device)
-    mw = _on_device(matrix, w, out_w, x.device)
+    mh = _matrix_on(matrix, h, out_h, x.device)
+    mw = _matrix_on(matrix, w, out_w, x.device)
     y = torch.einsum("oh,bhwc->bowc", mh, x.float())
     y = torch.einsum("ow,bhwc->bhoc", mw, y)
     return y.to(x.dtype).contiguous()

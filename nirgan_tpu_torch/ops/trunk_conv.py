@@ -11,13 +11,15 @@ the generator's trunk shape (bf16, Cin % 64 == 0, Cout == 256; the weights
 go to it packed by ``_pack.pack_b128``), WMMA on other bf16 shapes and SIMT
 f32 on float32.  The source's header has the design.
 
-``trunk_conv`` is one ``torch.autograd.Function``.  Forward: a CPU tensor
-takes ``trunk_conv_plain``; a CUDA tensor whose channel counts the kernel is
-built for (``takes_kernel``) launches it or raises; any other CUDA tensor
-takes the library route, ``trunk_conv_library``: ``F.conv2d`` with the bias
-on the reflect-padded input, counted apart from the kernel.  The choice is
-by shape alone (``forward_route``), not a fallback.
-Backward: PyTorch's own convolution gradients on the reflect-padded input,
+``trunk_conv`` is one operator, ``torch.ops.nirgan.trunk_conv`` (``_registry``).
+Forward: a CPU tensor takes ``trunk_conv_plain``; a CUDA tensor whose
+channel counts the kernel is built for (``takes_kernel``) launches it or
+raises; any other CUDA tensor takes the library route,
+``trunk_conv_library``: ``F.conv2d`` with the bias on the reflect-padded
+input, counted apart from the kernel.  The choice is by shape alone
+(``forward_route``), not a fallback.
+Backward (the operator's autograd formula, once differentiable): PyTorch's
+own convolution gradients on the reflect-padded input,
 then the adjoint of the pad (fixed-order adds, so a step's gradients repeat
 bit for bit), as the JAX package trains the trunk through XLA's
 convolutions (``pallas_trunk.py`` has no backward kernel).
@@ -25,13 +27,14 @@ convolutions (``pallas_trunk.py`` has no backward kernel).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from nirgan_tpu_torch.ops import _lib
+from nirgan_tpu_torch.ops import _lib, _registry
 from nirgan_tpu_torch.ops._pack import laid_out, pack_b128, taps_first
 from nirgan_tpu_torch.ops.pad import reflect_pad2d, reflect_pad2d_adjoint
 
@@ -101,6 +104,8 @@ def pack_weight(weight: torch.Tensor) -> torch.Tensor:
     return pack_b128(weight.permute(2, 3, 0, 1).reshape(9, co, ci))
 
 
+# by shape alone: kept, so a call's host time does not repeat it
+@functools.lru_cache(maxsize=256)
 def launch_plan(dtype: torch.dtype, x_shape: tuple, w_shape: tuple,
                 pad: int) -> tuple[int, int, bool]:
     """(Ho, Wo, packed weights?) of a launch on x of ``x_shape`` (B, H, W,
@@ -182,25 +187,36 @@ def trunk_conv_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
     return dx, dw, db
 
 
-class TrunkConv(torch.autograd.Function):
-    """Forward kernel A (the plain version on the CPU, the library route at
-    channel counts the kernel is not built for), backward
-    ``trunk_conv_bwd``."""
+def _routed(x, weight, bias, pad):
+    """The operator's CPU and CUDA implementation: ``forward_route``'s."""
+    return forward_route(x, weight)(x, weight, bias, pad)
 
-    @staticmethod
-    def forward(ctx, x, weight, bias, pad):
-        fwd = forward_route(x, weight)
-        ctx.pad = pad
-        ctx.save_for_backward(x, weight)
-        return fwd(x, weight, bias, pad)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        x, weight = ctx.saved_tensors
-        dx, dw, db = trunk_conv_bwd(x, weight, g.contiguous(), ctx.pad,
-                                    ctx.needs_input_grad[:3])
-        return dx, dw, db, None
+def _fake(x, weight, bias, pad):
+    """The output's shape and dtype; ``launch_plan`` checks what the kernel
+    would get."""
+    if _lib.route(x, NAME) and takes_kernel(x.dtype, x.shape[-1], weight.shape[0]):
+        ho, wo, _ = launch_plan(x.dtype, tuple(x.shape), tuple(weight.shape), pad)
+    else:
+        ho, wo = (x.shape[1], x.shape[2]) if pad else (x.shape[1] - 2, x.shape[2] - 2)
+    return x.new_empty((x.shape[0], ho, wo, weight.shape[0]))
+
+
+def _setup(ctx, inputs, output):
+    x, weight, _, ctx.pad = inputs
+    ctx.save_for_backward(x, weight)
+
+
+@once_differentiable
+def _backward(ctx, g):
+    x, weight = ctx.saved_tensors
+    dx, dw, db = trunk_conv_bwd(x, weight, g.contiguous(), ctx.pad,
+                                ctx.needs_input_grad[:3])
+    return dx, dw, db, None
+
+
+_registry.define("trunk_conv(Tensor x, Tensor weight, Tensor? bias, int pad) -> Tensor",
+                 _routed, _fake, _backward, _setup)
 
 
 def trunk_conv(x: torch.Tensor, weight: torch.Tensor,
@@ -208,4 +224,4 @@ def trunk_conv(x: torch.Tensor, weight: torch.Tensor,
                pad: int = 1) -> torch.Tensor:
     """``conv2d(reflect_pad2d(x, pad), weight) + bias`` for a 3x3 stride-1
     conv on NHWC x (pad 0: VALID), differentiable in x, weight and bias."""
-    return TrunkConv.apply(x, weight, bias, pad)
+    return torch.ops.nirgan.trunk_conv(x, weight, bias, pad)

@@ -45,6 +45,7 @@ averages normalise, the dropout is off.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import warnings
 from typing import Mapping, Optional
@@ -100,6 +101,23 @@ def _set_mode(module: torch.nn.Module, train: bool) -> None:
 def _requires_grad(module: torch.nn.Module, flag: bool) -> None:
     for p in module.parameters():
         p.requires_grad_(flag)
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic(on: bool):
+    """cuDNN's deterministic algorithms while the block runs, where ``on``;
+    the setting before it comes back after.  Only this flag changes:
+    ``torch.backends.cudnn.flags`` would also set TF32 and benchmarking to
+    its own defaults for the block."""
+    if not on:
+        yield
+        return
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
 
 
 class Px2PxTask:
@@ -353,7 +371,15 @@ class Px2PxTask:
         8 ``model_loss/*`` terms (and each auxiliary term whose lambda is
         > 0) and the 4 ``train/*`` metrics as 0-d f32 tensors on the device (the metrics NaN except every
         ``train_metrics_every``-th step), and on the inject route the
-        updated ``scale_param`` / ``post_correction_param``."""
+        updated ``scale_param`` / ``post_correction_param``.  A float32 step
+        on a card runs its convolutions on cuDNN's deterministic algorithms,
+        so that it repeats bit for bit from a seed as the JAX step does (the
+        bf16 step's algorithms repeat without it)."""
+        with _cudnn_deterministic(self.compute_dtype == torch.float32
+                                  and self.device.type == "cuda"):
+            return self._fused_step(state, batch)
+
+    def _fused_step(self, state: TrainState, batch: Mapping) -> dict:
         rgb = self._dn_to_reflectance(batch["rgb"], self.compute_dtype)
         nir = self._dn_to_reflectance(batch["nir"], torch.float32)
 

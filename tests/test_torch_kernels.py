@@ -422,7 +422,7 @@ def _kernel_standins(monkeypatch):
 
 
 def _plain_autograd(monkeypatch):
-    """Route the models around the autograd Functions: the plain versions,
+    """Route the models around the kernels' operators: the plain versions,
     differentiated by torch's own autograd."""
     import torch.nn.functional as F
 
@@ -461,8 +461,9 @@ def _ahead_of_a_norm(key):
 
 
 def test_kernel_route_keeps_the_graph(monkeypatch):
-    """On the kernel route every op is an autograd Function, so a
-    kernel's output is differentiable.  With stand-ins that compute as the
+    """On the kernel route every op is an operator with its gradient
+    registered (``torch.ops.nirgan``), so a kernel's output is
+    differentiable.  With stand-ins that compute as the
     kernels do (no graph of their own), a small generator and
     discriminator get exactly the gradients of plain autograd, and every
     parameter gets one."""

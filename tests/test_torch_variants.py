@@ -4,7 +4,7 @@ a small size (ngf 8, ndf 8, batch 2): the U-Net generators (unet_128 at
 not torch's), dropout under one shared keep-mask, the pixel discriminator,
 the replicate and zero trunks, ``gradient_penalty``, the init types, the
 fused step with each variant, and a resume that repeats a run bit for bit.
-Also: the kernel Functions refuse a double backward, and the replicate
+Also: the kernel operators refuse a double backward, and the replicate
 pad's fixed-order adjoint equals ``F.pad``'s autograd."""
 
 import os
@@ -31,7 +31,7 @@ from nirgan_tpu_torch.losses import gradient_penalty
 from nirgan_tpu_torch.models import ResnetGenerator, define_D, define_G, layers
 from nirgan_tpu_torch.models.layers import Norm
 from nirgan_tpu_torch.ops import initializers as port_inits
-from nirgan_tpu_torch.ops.conv import ConvTransposeK3S2
+from nirgan_tpu_torch.ops.conv import conv_transpose2d
 from nirgan_tpu_torch.ops.head_conv import head_conv
 from nirgan_tpu_torch.ops.instance_norm import instance_norm
 from nirgan_tpu_torch.ops.pad import replicate_pad2d, replicate_pad2d_adjoint
@@ -352,7 +352,7 @@ def _kernel_calls():
         "instance_norm": (lambda x: instance_norm(x, relu=True), t(2, 6, 6, 8)),
         "trunk_conv": (lambda x: trunk_conv(x, t(16, 8, 3, 3), t(16)), t(1, 6, 6, 8)),
         "head_conv": (lambda x: head_conv(x, t(1, 8, 7, 7), t(1)), t(1, 10, 10, 8)),
-        "convt_k3s2": (lambda x: ConvTransposeK3S2.apply(x, t(8, 4, 3, 3)),
+        "convt_k3s2": (lambda x: conv_transpose2d(x, t(8, 4, 3, 3)),
                        t(1, 5, 5, 8)),
     }
 
@@ -371,7 +371,7 @@ def _plain_instance_norm(x, eps=1e-5, relu=False, residual=None):
 @pytest.mark.parametrize("name", ["instance_norm", "trunk_conv", "head_conv",
                                   "convt_k3s2"])
 def test_kernel_functions_refuse_a_double_backward(name):
-    """The Functions of G's kernels (A, C, B5) are once-differentiable: their
+    """The operators of G's kernels (A, C, B5) are once-differentiable: their
     first-order gradient stands, a backward through that gradient raises (on
     the CPU's plain route as on a card) instead of dropping the kernel's part
     of a second-order gradient; no JAX path differentiates G twice.  The
@@ -398,10 +398,11 @@ def test_kernel_functions_refuse_a_double_backward(name):
 @pytest.mark.parametrize("relu", [False, True], ids=["no_relu", "relu"])
 @pytest.mark.parametrize("skip", [False, True], ids=["no_skip", "skip"])
 def test_instance_norm_second_order_gradgradcheck(relu, skip):
-    """The second-order terms of the instance norm (``InstanceNormBackward``,
-    the plain route here) against ``torch.autograd.gradgradcheck``'s finite
-    differences in f64, with the fused ReLU and the fused skip on and off
-    (gradgradcheck's own tolerances: atol 1e-5, rtol 1e-3)."""
+    """The second-order terms of the instance norm (the autograd formula of
+    ``nirgan::instance_norm_bwd``, the plain route here) against
+    ``torch.autograd.gradgradcheck``'s finite differences in f64, with the
+    fused ReLU and the fused skip on and off (gradgradcheck's own
+    tolerances: atol 1e-5, rtol 1e-3)."""
     g = torch.Generator().manual_seed(3)
     x = torch.randn((2, 5, 4, 8), generator=g, dtype=torch.float64, requires_grad=True)
     r = torch.randn((2, 5, 4, 8), generator=g, dtype=torch.float64, requires_grad=True)
