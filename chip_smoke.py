@@ -179,6 +179,16 @@ never prints the final ``"ok": true`` line:
    ``torch.distributed.run`` over NCCL at world size 1 bit for bit with the
    CLI without a process group, the scene CLI in two row bands and the
    serving CLI with ``--mesh`` bit for bit with one process.
+   Spatial sharding (``phase_spatial``): the new kernel entry points
+   against their plain versions at the 2048^2 tile's shard shapes (B's
+   split forward, D's VALID gathers and f64 sums, E with the tile's
+   count); one seeded 2048^2 tile of ``config_px2px.yaml`` through
+   ``predict_large_tile`` on two processes sharing the card over gloo,
+   against one process's ``g_apply`` in bf16 (>= 40 dB), with the int8
+   trunk and stage 2 (JAX's bounds), each rank's wrapper calls, peak
+   memory and forward ms; f32 with TF32 off in three trunks (<= 1e-4),
+   also under ``torch.distributed.run`` over NCCL at world size 1; the
+   (2, 2) grid over four processes (>= 40 dB).
 6. launches: one call of the instance norm at each timed shape under
    ``torch.profiler``: one kernel where the plan is resident, two where it
    streams.  Then the 10980^2 scene's window loop under the profiler: its
@@ -198,7 +208,7 @@ every launch plan its kernels take at the main path's shapes, beside the
 plan that ``launch_plan`` chooses.
 ``python3 chip_smoke.py --phase NAME [NAME ...]`` runs, after phases 0 and
 1, only the named phases (``ALONE``: int8, train, variants, nonsquare,
-param_dtype, export, native, ddp), with no JSON lines: a phase's checks read without
+param_dtype, export, native, ddp, spatial), with no JSON lines: a phase's checks read without
 what the phases before it leave set.
 ``python3 chip_smoke.py --times DIR`` times, after phases 0 and 1 run on
 the package of the checkout at DIR (a parent commit's, unpacked), kernel B
@@ -242,7 +252,13 @@ E's mode 3 with their launches in the int8 forward that runs them.  The
 line also carries ``stage2`` (the int8 forward with and without it) and
 ``bf16_params`` (the first step's ms), ``native`` (the reader's images/s
 on both routes, its build, codecs and idle shares) and ``ddp`` (the
-processes' step ms beside one process's, the banded scene's wall).  The
+processes' step ms beside one process's, the banded scene's wall) and
+``spatial`` (the sharded tile's dB, max |d|, peak memory, ms and
+wrapper calls a rank beside one process's); the H-sharded tile's entry
+points (``instance_norm_sums``, ``instance_norm_apply``,
+``int8_conv_valid``, ``int8_conv_stride2_valid``, ``int8_norm_count``)
+are kernel entries of their own with their calls in a rank's sharded
+forward.  The
 last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -384,12 +400,21 @@ def library_routes():
             "head_conv_library": head_conv.head_conv_library}
 
 
+def split_norm_kernels():
+    """B's split forward, the H-sharded tile's instance norm."""
+    from nirgan_tpu_torch.ops import instance_norm
+
+    return {"instance_norm_sums": instance_norm.instance_norm_sums_cuda,
+            "instance_norm_apply": instance_norm.instance_norm_apply_cuda}
+
+
 def reset_counts() -> None:
-    for table in (kernels(), int8_kernels(), library_routes()):
+    for table in (kernels(), int8_kernels(), library_routes(), split_norm_kernels()):
         for fn in table.values():
             fn.launches = 0
     for fn in int8_kernels().values():
         getattr(fn, "by_gather", getattr(fn, "by_mode", {})).clear()
+    getattr(kernels()["trunk_conv"], "by_pad", {}).clear()
 
 
 def int8_by_route() -> dict:
@@ -1241,14 +1266,19 @@ def steps_apart(got: torch.Tensor, ref: torch.Tensor, what: str) -> int:
     """The int8 outputs of a kernel against its plain version: at most one
     step apart, on at most 1e-4 of the elements (an f32 statistic summed in
     another order, or rsqrt rounded otherwise, can move a value across a
-    rounding boundary).  Returns how many differ."""
+    rounding boundary).  Returns the largest difference, in steps."""
     d = (got.int() - ref.int()).abs()
     n = int((d > 0).sum())
     log("int8", f"{what}: {n} of {d.numel()} int8 outputs differ, by at most "
         f"{int(d.max())} (bound: 1 step on 1e-4 of them)")
     if int(d.max()) > 1 or n > 1e-4 * d.numel():
         raise AssertionError(f"{what}: {n} outputs differ, max {int(d.max())}")
-    return n
+    return int(d.max())
+
+
+def abs_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| in f32."""
+    return float((got.float() - ref.float()).abs().max())
 
 
 def step_of(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -1285,17 +1315,19 @@ def check_int8_conv(g: torch.Generator, shape: tuple, co: int,
                     stride: int = 1) -> tuple:
     """Kernel D against its plain version on int8 x8 of ``shape`` (B, H, W,
     Cin) and a (co, Cin, 3, 3) int8 weight: the staged bf16 accumulator bit
-    for bit (both round the exact int32 sum to f32, then to bf16), the sums
-    of squares within rtol 1e-5 and the sums within 1e-5 of their scale
-    sqrt(n Sigma a^2) (f32 sums of 17,689 terms in other orders; Sigma a
-    mixes signs), and a second launch bit for bit; in the gather of
+    for bit (both round the exact int32 sum to f32, then to bf16), the f64
+    moments within 1e-15 of the plain version's (both exact sums of the
+    integers below 2^53), so the sums of squares within rtol 1e-5 and the
+    sums within 1e-5 of their scale sqrt(n Sigma a^2) (Sigma a mixes signs),
+    and a second launch bit for bit; in the gather of
     ``border`` at ``stride`` (the output (H - 1) // 2 + 1 a side at stride
-    2).  Returns (x8, w8, hb, moments, worst relative moment error) and, if
+    2; without a border, ``"valid"``, H - 2 and (H - 3) // 2 + 1).  Returns (x8, w8, hb, moments, worst relative moment error) and, if
     ``timed``, the kernel, plain and kernel A ms and the bound."""
     from nirgan_tpu_torch.ops.int8_trunk import (
         _launch,
         conv_moments_cuda,
         conv_moments_plain,
+        out_side,
         takes_wgmma,
     )
     from nirgan_tpu_torch.ops.trunk_conv import trunk_conv_cuda
@@ -1308,7 +1340,7 @@ def check_int8_conv(g: torch.Generator, shape: tuple, co: int,
     hb, m = conv_moments_cuda(x8, w8, border, stride)
     rhb, rm = conv_moments_plain(x8, w8, border, stride)
     n = hb.shape[1] * hb.shape[2]
-    sides = ((shape[1] - 1) // stride + 1, (shape[2] - 1) // stride + 1)
+    sides = (out_side(shape[1], stride, border), out_side(shape[2], stride, border))
     if tuple(hb.shape) != (shape[0], *sides, co) or not torch.equal(hb, rhb):
         bad = int((hb != rhb).sum()) if hb.shape == rhb.shape else "all"
         raise AssertionError(f"int8_conv {shape}->{co} {border} s{stride}: {bad} "
@@ -1317,12 +1349,19 @@ def check_int8_conv(g: torch.Generator, shape: tuple, co: int,
     e1 = float(((m[:, 0] - rm[:, 0]).abs() / (n * rm[:, 1]).sqrt().clamp(min=1e-30)).max())
     hb2, m2 = conv_moments_cuda(x8, w8, border, stride)
     again = torch.equal(hb2, hb) and torch.equal(m2, m)
+    # the moments are the exact sums of the integers in f64, as the plain
+    # version's (equal below 2^53; 1e-15 for sums past it, added in another
+    # order), so that a shard's add up to the whole tile's
+    e64 = float(((m - rm).abs() / rm.abs().clamp(min=1.0)).max())
+    if not (m.dtype == torch.float64 and e64 <= 1e-15):
+        raise AssertionError(f"int8_conv {shape}->{co} {border} s{stride}: the f64 "
+                             f"moments {m.dtype}, {e64}")
     packed = takes_wgmma(ci, co, n)
     log("int8", f"int8_conv {shape}->{co} {border} s{stride} "
         f"({'wgmma' if packed else 'mma.sync'}): staged "
         f"accumulator equal to plain bit for bit; Sigma a^2 relative {e2:.3e}, Sigma a "
         f"{e1:.3e} of sqrt(n Sigma a^2) (bounds 1e-5); a second launch bit for bit: "
-        f"{again}")
+        f"{again}; the f64 sums {e64:.1e} from the plain ones (bound 1e-15)")
     if not (e1 <= 1e-5 and e2 <= 1e-5 and again):
         raise AssertionError(f"int8_conv {shape}->{co}: moments {e1}, {e2}, {again}")
     # where the wgmma kernel ran, the mma.sync kernel's gather agrees
@@ -1351,15 +1390,16 @@ def check_int8_conv(g: torch.Generator, shape: tuple, co: int,
 
 
 def check_int8_norm(g: torch.Generator, hb: torch.Tensor, m: torch.Tensor,
-                    timed: bool = False) -> dict:
+                    timed: bool = False) -> tuple[dict, dict]:
     """Kernel E against its plain version in its four modes on kernel D's
     staged accumulator ``hb`` and moments ``m``, with a bf16 and an f32
     stream: int8 outputs at most one step apart on at most 1e-4 of them,
     the stream within one step of its type and one of the norm
     (``within_ulp``; mode 3's bf16 stream within one bf16 step, its f32
     stream within one f32 step and two of the norm, as mode 2's), a second
-    launch bit for bit.  With ``timed`` the times of each mode, its plain
-    version and the bound, by mode."""
+    launch bit for bit.  Returns the largest |kernel - plain| of each mode
+    over its outputs (int8 steps and stream values) and, with ``timed``, the
+    times of each mode, its plain version and the bound, by mode."""
     from nirgan_tpu_torch.ops.int8_trunk import norm_quant_cuda, norm_quant_plain
 
     dev = torch.device("cuda")
@@ -1372,23 +1412,25 @@ def check_int8_norm(g: torch.Generator, hb: torch.Tensor, m: torch.Tensor,
     eps = 1e-5 / k.square()
     s = (torch.rand(c, device=dev, generator=g) + 0.5) * 3.0 / 127
     x = torch.randn(shape, device=dev, generator=g) * 2.0
-    out = {}
+    out, err = {}, dict.fromkeys(range(4), 0.0)
     for dtype in (torch.bfloat16, torch.float32):
         xs = x.to(dtype)
         tag = f"int8_norm {shape} stream {dtype}"
         q0 = norm_quant_cuda(0, xs, s)
-        steps_apart(q0, norm_quant_plain(0, xs, s), f"{tag} mode 0")
+        e0 = steps_apart(q0, norm_quant_plain(0, xs, s), f"{tag} mode 0")
         q1 = norm_quant_cuda(1, hb, s, m, eps)
-        steps_apart(q1, norm_quant_plain(1, hb, s, m, eps), f"{tag} mode 1")
+        e1 = steps_apart(q1, norm_quant_plain(1, hb, s, m, eps), f"{tag} mode 1")
         o2, q2 = norm_quant_cuda(2, hb, s, m, eps, xs)
         r2, rq2 = norm_quant_plain(2, hb, s, m, eps, xs)
-        steps_apart(q2, rq2, f"{tag} mode 2")
+        e2 = max(steps_apart(q2, rq2, f"{tag} mode 2"), abs_err(o2, r2))
         within_ulp(o2, r2, f"{tag} mode 2 stream", addend=xs)
         o3, q3 = norm_quant_cuda(3, hb, s, m, eps, dtype=dtype)
         r3, rq3 = norm_quant_plain(3, hb, s, m, eps, dtype=dtype)
         within_ulp(o3, r3, f"{tag} mode 3 stream",
                    addend=None if dtype == torch.bfloat16 else torch.zeros_like(r3))
-        steps_apart(q3, rq3, f"{tag} mode 3")
+        e3 = max(steps_apart(q3, rq3, f"{tag} mode 3"), abs_err(o3, r3))
+        for mode, e in enumerate((e0, e1, e2, e3)):
+            err[mode] = max(err[mode], e)
         last, none = norm_quant_cuda(2, hb, None, m, eps, xs)
         if none is not None or not torch.equal(last, o2):
             raise AssertionError(f"{tag} mode 2 without a next block")
@@ -1399,7 +1441,7 @@ def check_int8_norm(g: torch.Generator, hb: torch.Tensor, m: torch.Tensor,
                 and torch.equal(norm_quant_cuda(1, hb, s, m, eps), q1)):
             raise AssertionError(f"{tag}: a second launch differs")
     if not timed:
-        return out
+        return err, out
     xb = x.bfloat16()
     modes = {0: (lambda: norm_quant_cuda(0, xb, s), lambda: norm_quant_plain(0, xb, s),
                  nbytes(xb) + xb.numel()),
@@ -1419,7 +1461,7 @@ def check_int8_norm(g: torch.Generator, hb: torch.Tensor, m: torch.Tensor,
             f"({least[0] / ms * 100:.0f}% of the bound {least[0]:.4f} ms, {least[1]}), "
             f"plain {plain_ms:.4f} ms")
         out[mode] = (shape, ms, plain_ms, None, least)
-    return out
+    return err, out
 
 
 def phase_int8_kernels(g: torch.Generator) -> None:
@@ -1430,7 +1472,7 @@ def phase_int8_kernels(g: torch.Generator) -> None:
     at its shape, E in each mode."""
     serving = (BATCH, SIDE // 4, SIDE // 4, 256)
     x8, w8, hb, m, err, *d_times = check_int8_conv(g, serving, 256, timed=True)
-    e_times = check_int8_norm(g, hb, m, timed=True)
+    e_err, e_times = check_int8_norm(g, hb, m, timed=True)
     del x8, w8, hb, m
     # mma.sync: Cout no multiple of 128, an image ending inside a tile, a
     # width of 3; wgmma: tiles that straddle two images (N 256 and 128)
@@ -1439,7 +1481,8 @@ def phase_int8_kernels(g: torch.Generator) -> None:
                       ((3, 20, 30, 128), 128)):
         _, _, hb, m, e, = check_int8_conv(g, shape, co)
         err = max(err, e)
-        check_int8_norm(g, hb, m)
+        small = check_int8_norm(g, hb, m)[0]
+        e_err = {mode: max(e, small[mode]) for mode, e in e_err.items()}
     ms, plain_ms, a_ms, mma_ms, least = d_times
     RESULTS["int8_conv"] = entry(
         "int8_conv", "int8_conv.cu", "nirgan_tpu/ops/int8_trunk.py:103", err,
@@ -1449,10 +1492,13 @@ def phase_int8_kernels(g: torch.Generator) -> None:
               note="no PyTorch call convolves int8 on a card: library_ms null; "
                    "kernel_a_ms is the bf16 trunk conv at the same shape, "
                    "mma_sync_ms the mma.sync kernel that other widths take")))
+    # max_abs_err: of modes 0 to 2 (mode 3 is an entry of its own), int8
+    # steps or stream values, whichever is larger
     RESULTS["int8_norm"] = entry(
-        "int8_norm", "int8_norm.cu", "nirgan_tpu/ops/int8_trunk.py:94", 0.0,
-        e_times[2], mode0=e_times[0], mode1=e_times[1], mode3=e_times[3])
-    RESULTS["int8_norm"]["max_abs_err"] = 1.0  # at most one int8 step
+        "int8_norm", "int8_norm.cu", "nirgan_tpu/ops/int8_trunk.py:94",
+        max(e_err[0], e_err[1], e_err[2]), e_times[2], mode0=e_times[0],
+        mode1=e_times[1], mode3=e_times[3])
+    RESULTS["int8_norm"]["mode3"]["max_abs_err"] = e_err[3]
     torch.cuda.synchronize()
 
 
@@ -5298,6 +5344,495 @@ def phase_ddp(tmp: str) -> dict:
             "nccl_step_ms": step_ms["nccl"], "scene_s": {"two": r0["scene_s"], "one": one_s}}
 
 
+# ----------------------------------------------------- spatial sharding
+SPATIAL_SIDE = 2048  # (a) and (b): one seeded tile at the config's pad 10
+SPATIAL_F32_SIDE = 512  # (c)
+SPATIAL_GRID, SPATIAL_GRID_BATCH = (2, 2), 2  # (d): batch 2 of 512^2 in bf16
+SPATIAL_TRUNKS = ("reflect", "replicate", "zero")
+# wrapper calls a rank makes in one sharded forward of the 9-block
+# generator: A in VALID mode on the trunk's slabs, B's split forward for
+# every norm, C once
+SPATIAL_FORWARD = {"trunk_conv_pad0": 18, "trunk_conv_pad1": 0, "instance_norm": 0,
+                   "instance_norm_sums": 23, "instance_norm_apply": 23, "head_conv": 1}
+SPATIAL_RANK = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.spatial_rank(*sys.argv[2:])
+"""
+
+
+def spatial_task(dtype: str = "bfloat16", trunk: str = "reflect"):
+    """``config_px2px.yaml``'s task (resnet_9blocks, ngf 64, pad 10) in
+    ``dtype`` with the trunk's ``padding_type`` set to ``trunk``, seeded."""
+    from nirgan_tpu_torch.config import load_config
+    from nirgan_tpu_torch.tasks import Px2PxTask
+
+    cfg = load_config(CONFIG)
+    cfg.tpu.compute_dtype = dtype
+    task = Px2PxTask(cfg, device=DEVICE, seed=SEED)
+    task.netG.padding_type = trunk
+    for i in range(task.netG.n_blocks):
+        getattr(task.netG, f"r{i}").padding_type = trunk
+    return task
+
+
+def spatial_tile(side: int, batch: int = 1, seed: int = SEED) -> np.ndarray:
+    """A seeded (batch, 3, side, side) reflectance tile."""
+    return np.random.default_rng(seed).random((batch, 3, side, side), dtype=np.float32) * 0.3
+
+
+def spatial_counts() -> dict:
+    """The wrapper calls of the sharded forward's kernels since the last
+    reset: A by pad mode, B (one call and split), C, D by gather, E by mode,
+    and the library routes."""
+    a = kernels()["trunk_conv"]
+    out = {"trunk_conv_pad0": a.by_pad.get(0, 0), "trunk_conv_pad1": a.by_pad.get(1, 0),
+           "instance_norm": kernels()["instance_norm"].launches,
+           **{k: fn.launches for k, fn in split_norm_kernels().items()},
+           "head_conv": kernels()["head_conv"].launches}
+    out.update(int8_by_route())
+    out["library"] = sum(library_counts().values())
+    return out
+
+
+def spatial_rank(folder: str, init_file: str, rank: str, world: str, part: str) -> None:
+    """One process of ``phase_spatial`` on the one card: ``part`` "two"
+    runs (a)-(c) as one of two ranks over gloo, "grid" (d) as one of four,
+    "nccl" (c) alone under torchrun over NCCL.  Its results go to
+    ``{part}{rank}.pt`` in ``folder``."""
+    from nirgan_tpu_torch.parallel import create_mesh, initialize_multihost
+    from nirgan_tpu_torch.parallel.spatial import (
+        create_grid,
+        predict_large_tile,
+        predict_tiles_2d,
+        row_ranges,
+        spatial_predict_fn,
+    )
+
+    os.chdir(ROOT)
+    rank, world = int(rank), int(world)
+    if part == "nccl":
+        initialize_multihost(device=DEVICE)
+    else:
+        initialize_multihost(init_method=f"file://{init_file}", world_size=world, rank=rank,
+                             device=f"{DEVICE}:0", backend="gloo", timeout_s=600)
+    mesh = create_mesh(f"{DEVICE}:0")
+    out = {"backend": mesh.backend, "world": mesh.world_size}
+    if part == "grid":
+        grid = create_grid(mesh, *SPATIAL_GRID)
+        batch = spatial_tile(SPATIAL_F32_SIDE, SPATIAL_GRID_BATCH, SEED + 2)
+        reset_counts()
+        out["grid"] = predict_tiles_2d(spatial_task(), batch, grid)
+        out["launches"] = spatial_counts()
+    if part == "two":
+        task = spatial_task()
+        rgb = spatial_tile(SPATIAL_SIDE)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        pred = predict_large_tile(task, rgb, mesh)
+        sync()
+        launches = spatial_counts()
+        peak = torch.cuda.max_memory_allocated()
+        fn = spatial_predict_fn(task, mesh)
+        p = task.pad_amount
+        x = torch.from_numpy(np.pad(rgb.transpose(0, 2, 3, 1), ((0, 0), (p, p), (p, p), (0, 0)),
+                                    mode="reflect"))
+        lo, hi = row_ranges(x.shape[1], mesh.world_size)[mesh.rank]
+        rows = x[:, lo:hi].to(mesh.device)
+        ms = time_ms(lambda: fn(rows, SPATIAL_SIDE), iters=3, warmup=1)
+        out["a"] = {"pred": pred, "launches": launches, "peak": peak, "ms": ms,
+                    "rows": (lo, hi)}
+        for name in ("int8", "stage2"):
+            pack = torch.load(os.path.join(folder, f"{name}.pt"), map_location=DEVICE)
+            reset_counts()
+            out[name] = {"pred": predict_large_tile(task, rgb, mesh, trunk_q=pack),
+                         "launches": spatial_counts()}
+            sync()
+    if part in ("two", "nccl"):
+        rgb = spatial_tile(SPATIAL_F32_SIDE, 1, SEED + 1)
+        with cudnn_tf32(False):
+            out["f32"] = {trunk: predict_large_tile(spatial_task("float32", trunk), rgb, mesh)
+                          for trunk in SPATIAL_TRUNKS}
+    torch.save(out, os.path.join(folder, f"{part}{rank}.pt"))
+
+
+def check_split_norm(g: torch.Generator, shape: tuple) -> dict:
+    """B's split forward against its plain version on a map of ``shape``
+    (B, H, W, C) cut into the two shards of (a) (``row_ranges``): each
+    shard's sums (the exact pairs added, against f32 sums in another order:
+    within 1e-5 of sqrt(n Sigma x^2), as D's moments), and each shard's
+    elementwise pass on the gathered sums, with the ReLU and with the skip,
+    f32 within 1e-5 and bf16 within ``check_norm``'s bound of the plain
+    version on the same sums, and against kernel B's one call on the whole
+    map.  Times the sums and the ReLU'd pass at shard 0's shape beside
+    their plain versions, the bound and, for the pass, ``F.batch_norm``."""
+    import torch.nn.functional as F
+
+    from nirgan_tpu_torch.ops.instance_norm import (
+        instance_norm_apply_cuda,
+        instance_norm_apply_plain,
+        instance_norm_cuda,
+        instance_norm_plain,
+        instance_norm_sums_cuda,
+        instance_norm_sums_plain,
+    )
+    from nirgan_tpu_torch.parallel.spatial import row_ranges
+
+    dev = torch.device("cuda")
+    b, h, w, c = shape
+    x = torch.randn(shape, device=dev, generator=g) * 2.0 + 0.5
+    res = torch.randn(shape, device=dev, generator=g)
+    cuts = row_ranges(h, 2)
+    worst = {"sums": 0.0, "apply": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        xd, rd = x.to(dtype), res.to(dtype)
+        pieces = [xd[:, lo:hi].contiguous() for lo, hi in cuts]
+        sums = [instance_norm_sums_cuda(p) for p in pieces]
+        for p, s in zip(pieces, sums):
+            ref = instance_norm_sums_plain(p)
+            n = p.shape[1] * p.shape[2]
+            scale = (n * ref[:, 1]).sqrt().clamp(min=1e-30)
+            e1 = float(((s[:, 0] + s[:, 2] - ref[:, 0]).abs() / scale).max())
+            e2 = float(((s[:, 1] + s[:, 3] - ref[:, 1]).abs() / ref[:, 1].abs()).max())
+            worst["sums"] = max(worst["sums"], e1, e2)
+            if not (e1 <= 1e-5 and e2 <= 1e-5):
+                raise AssertionError(f"instance_norm_sums {dtype} {tuple(p.shape)}: {e1}, {e2}")
+        parts = torch.stack(sums, 1)
+        whole = instance_norm_cuda(xd, relu=True)
+        for i, (lo, hi) in enumerate(cuts):
+            for relu, skip in ((True, False), (False, True)):
+                r = rd[:, lo:hi].contiguous() if skip else None
+                got = instance_norm_apply_cuda(pieces[i], parts, h * w, relu=relu,
+                                               residual=r).float()
+                ref = instance_norm_apply_plain(pieces[i], parts, h * w, relu=relu,
+                                                residual=r).float()
+                err = (got - ref).abs()
+                if dtype == torch.float32:
+                    ok, bound = bool((err <= 1e-5).all()), "abs 1e-5"
+                else:
+                    y = instance_norm_apply_plain(pieces[i], parts, h * w, relu=relu).float()
+                    lim = 2 ** -6 * (y.abs() + 1) + (2 ** -7 * ref.abs() if skip else 0)
+                    ok, bound = bool((err <= lim).all()), "2^-6 (|y| + 1)"
+                    worst["apply"] = max(worst["apply"], float(err.max()))
+                log("spatial", f"instance_norm_apply {dtype} shard {i} "
+                    f"{tuple(pieces[i].shape)} relu={relu} skip={skip}: max|err| "
+                    f"{float(err.max()):.3e} against the plain version (bound {bound})")
+                if not ok:
+                    raise AssertionError(f"instance_norm_apply {dtype} shard {i}: "
+                                         f"{float(err.max())}")
+            # against kernel B's one call on the whole map
+            split = instance_norm_apply_cuda(pieces[i], parts, h * w, relu=True).float()
+            one = whole[:, lo:hi].float()
+            lim = 2 ** -6 * (one.abs() + 1) if dtype == torch.bfloat16 else 1e-5
+            if not bool(((split - one).abs() <= lim).all()):
+                raise AssertionError(f"split vs one call {dtype} shard {i}: "
+                                     f"{float((split - one).abs().max())}")
+    xb = x.bfloat16()[:, cuts[0][0]:cuts[0][1]].contiguous()
+    parts = torch.stack([instance_norm_sums_cuda(xb), instance_norm_sums_cuda(xb)], 1)
+    sums_ms, sums_plain = compare_ms(lambda: instance_norm_sums_cuda(xb),
+                                     lambda: instance_norm_sums_plain(xb), iters=10,
+                                     run_ahead=True)
+    # the library's stand-in for the apply: F.batch_norm in eval mode on the
+    # NCHW view (B = 1: per channel, as the instance norm), given the tile's
+    # mean and variance, without the ReLU (as F.instance_norm for kernel B)
+    count = 2 * xb.shape[1] * w
+    total = parts[:, 0] + parts[:, 1]
+    mean = (total[0, 0] + total[0, 2]) / count
+    var = (total[0, 1] + total[0, 3]) / count - mean.square()
+    lib_y = torch.relu(F.batch_norm(xb.permute(0, 3, 1, 2), mean, var, training=False,
+                                    eps=1e-5)).permute(0, 2, 3, 1).float()
+    ref_y = instance_norm_apply_plain(xb, parts, count, relu=True).float()
+    lib_err = float((lib_y - ref_y).abs().max())
+    if not bool(((lib_y - ref_y).abs() <= 2 ** -6 * (ref_y.abs() + 1)).all()):
+        raise AssertionError(f"F.batch_norm as the apply's stand-in: {lib_err}")
+    del lib_y, ref_y
+    apply_ms, apply_plain, apply_lib = compare_ms(
+        lambda: instance_norm_apply_cuda(xb, parts, count, relu=True),
+        lambda: instance_norm_apply_plain(xb, parts, count, relu=True),
+        lambda: F.batch_norm(xb.permute(0, 3, 1, 2), mean, var, training=False, eps=1e-5),
+        iters=10, run_ahead=True)
+    sums_least = least_time(0, nbytes(xb) + 16 * b * c)
+    apply_least = least_time(0, 2 * nbytes(xb) + nbytes(parts))
+    log("spatial", f"split norm bf16 at shard 0's {tuple(xb.shape)}: sums {sums_ms:.4f} ms "
+        f"({sums_least[0] / sums_ms * 100:.0f}% of the bound {sums_least[0]:.4f} ms), plain "
+        f"{sums_plain:.4f} ms; apply (ReLU) {apply_ms:.4f} ms ({apply_least[0] / apply_ms * 100:.0f}"
+        f"% of the bound {apply_least[0]:.4f} ms), plain {apply_plain:.4f} ms, F.batch_norm "
+        f"(eval, no ReLU; max |err| {lib_err:.3e} with the ReLU) {apply_lib:.4f} ms; max "
+        f"errs {worst}")
+    note = "no single PyTorch call computes this part of the norm: library_ms null"
+    lib_note = ("library_ms: F.batch_norm in eval mode on the NCHW view with the tile's "
+                "mean and variance (B = 1), without the ReLU")
+    return {"instance_norm_sums": (worst["sums"], (tuple(xb.shape), sums_ms, sums_plain, None,
+                                                   sums_least, dict(note=note))),
+            "instance_norm_apply": (worst["apply"], (tuple(xb.shape), apply_ms, apply_plain,
+                                                     apply_lib, apply_least,
+                                                     dict(note=lib_note)))}
+
+
+# kernel D without a border against its plain version: (stride, shape,
+# Cout).  wgmma: tiles across two images (N 256 and 128), odd and even
+# sides; mma.sync: a Cout that is no multiple of 128, images under a tile
+VALID_SHAPES = ((1, (3, 14, 13, 256), 256), (1, (3, 22, 32, 128), 128),
+                (1, (2, 11, 13, 32), 40), (2, (3, 29, 27, 128), 256),
+                (2, (3, 30, 28, 128), 256), (2, (2, 35, 37, 128), 128),
+                (2, (2, 12, 9, 64), 40))
+
+
+def check_int8_norm_count(g: torch.Generator, hb: torch.Tensor, m: torch.Tensor,
+                          count: int) -> tuple[float, tuple]:
+    """Kernel E with a pixel count that is not its input's HW (the tile's,
+    on a shard) against its plain version given the same count, in modes 1
+    to 3 (int8 outputs at most one step apart on at most 1e-4 of them, the
+    streams within one step); and different from E without the count, so
+    the count reached the kernel.  Returns the largest |kernel - plain| over
+    the three modes' outputs (int8 steps and stream values) and the times in
+    mode 1."""
+    from nirgan_tpu_torch.ops.int8_trunk import norm_quant_cuda, norm_quant_plain
+
+    dev = torch.device("cuda")
+    c = hb.shape[3]
+    k = (torch.rand(c, device=dev, generator=g) + 0.5) * m[:, 1].mean().sqrt() / 300
+    eps = 1e-5 / k.square()
+    s = (torch.rand(c, device=dev, generator=g) + 0.5) * 3.0 / 127
+    xs = (torch.randn(tuple(hb.shape), device=dev, generator=g) * 2.0).bfloat16()
+    tag = f"int8_norm {tuple(hb.shape)} count {count}"
+    q1 = norm_quant_cuda(1, hb, s, m, eps, count=count)
+    err = steps_apart(q1, norm_quant_plain(1, hb, s, m, eps, count=count), f"{tag} mode 1")
+    o2, q2 = norm_quant_cuda(2, hb, s, m, eps, xs, count=count)
+    r2, rq2 = norm_quant_plain(2, hb, s, m, eps, xs, count=count)
+    err = max(err, steps_apart(q2, rq2, f"{tag} mode 2"), abs_err(o2, r2))
+    within_ulp(o2, r2, f"{tag} mode 2 stream", addend=xs)
+    o3, q3 = norm_quant_cuda(3, hb, s, m, eps, dtype=torch.bfloat16, count=count)
+    r3, rq3 = norm_quant_plain(3, hb, s, m, eps, dtype=torch.bfloat16, count=count)
+    within_ulp(o3, r3, f"{tag} mode 3 stream")
+    err = max(err, steps_apart(q3, rq3, f"{tag} mode 3"), abs_err(o3, r3))
+    if torch.equal(q1, norm_quant_cuda(1, hb, s, m, eps)):
+        raise AssertionError(f"{tag}: the count did not reach the kernel")
+    ms, plain_ms = compare_ms(lambda: norm_quant_cuda(1, hb, s, m, eps, count=count),
+                              lambda: norm_quant_plain(1, hb, s, m, eps, count=count),
+                              iters=20, run_ahead=True)
+    least = least_time(0, nbytes(hb, m) + hb.numel())
+    log("spatial", f"{tag} mode 1: kernel {ms:.4f} ms ({least[0] / ms * 100:.0f}% of the "
+        f"bound {least[0]:.4f} ms), plain {plain_ms:.4f} ms; max |kernel - plain| {err}")
+    return err, (tuple(hb.shape), ms, plain_ms, None, least)
+
+
+def spatial_kernel_checks(g: torch.Generator) -> None:
+    """The kernels' new entry points against their plain versions at the
+    shapes of (a)'s shard 0 (2068 padded rows, 1036 of them; 2068 wide):
+    B's split forward at the stem's (1036, 2068, 64); D's VALID gathers at
+    the trunk's slab (261, 519, 256) -> (259, 517, 256) and stage 2's d1
+    slab (519, 1036, 128) -> 256 at stride 2, exact in s32, timed beside
+    the bound, and at ``VALID_SHAPES``; E with the tile's count at the
+    trunk's shard.  Their entries go to ``RESULTS``."""
+    from nirgan_tpu_torch.ops.int8_trunk import conv_moments_cuda, conv_moments_plain
+
+    from nirgan_tpu_torch.parallel.spatial import row_ranges
+
+    side = SPATIAL_SIDE + 2 * PAD
+    lo, hi = row_ranges(side, 2)[0]
+    split = check_split_norm(g, (1, side, side, 64))
+    err = 0.0
+    for stride, shape, co in VALID_SHAPES:
+        err = max(err, check_int8_conv(g, shape, co, border="valid", stride=stride)[-1])
+    trunk_rows, trunk_w = (hi - lo) // 4, side // 4
+    timed = {}
+    for key, stride, shape, co in (
+            ("int8_conv_valid", 1, (1, trunk_rows + 2, trunk_w + 2, 256), 256),
+            ("int8_conv_stride2_valid", 2, (1, 2 * trunk_rows + 1, side // 2 + 2, 128), 256)):
+        x8, w8, hb, m, e = check_int8_conv(g, shape, co, border="valid", stride=stride)
+        err = max(err, e)
+        # the plain version convolves in float64: few calls
+        ms, plain_ms = compare_ms(lambda: conv_moments_cuda(x8, w8, "valid", stride),
+                                  lambda: conv_moments_plain(x8, w8, "valid", stride),
+                                  iters=3, run_ahead=True)
+        ops = 2 * hb.shape[0] * hb.shape[1] * hb.shape[2] * 9 * shape[3] * co
+        least = least_time(ops, nbytes(x8, w8, hb, m), PEAK_INT8_OPS)
+        log("spatial", f"{key} {shape}->{co} s{stride}: kernel {ms:.4f} ms "
+            f"({least[0] / ms * 100:.0f}% of the bound {least[0]:.4f} ms, {least[1]}), "
+            f"plain {plain_ms:.4f} ms")
+        timed[key] = (shape, ms, plain_ms, None, least, dict(
+            note="no PyTorch call convolves int8 on a card: library_ms null"))
+        if key == "int8_conv_valid":
+            # the trunk's shard: its moments count the tile's trunk pixels
+            e_err, e_times = check_int8_norm_count(g, hb, m, (side // 4) * trunk_w)
+    src = {"instance_norm_sums": ("instance_norm.cu", "nirgan_tpu/ops/pallas_kernels.py:130"),
+           "instance_norm_apply": ("instance_norm.cu", "nirgan_tpu/ops/pallas_kernels.py:130"),
+           "int8_conv_valid": ("int8_conv.cu", "nirgan_tpu/ops/int8_trunk.py:103"),
+           "int8_conv_stride2_valid": ("int8_conv.cu", "nirgan_tpu/ops/int8_trunk.py:130"),
+           "int8_norm_count": ("int8_norm.cu", "nirgan_tpu/ops/int8_trunk.py:94")}
+    for name, (e, t) in split.items():
+        RESULTS[name] = entry(name, src[name][0], src[name][1], e, t)
+    for name, t in timed.items():
+        RESULTS[name] = entry(name, src[name][0], src[name][1], err, t)
+    RESULTS["int8_norm_count"] = entry("int8_norm_count", *src["int8_norm_count"], e_err,
+                                       e_times)
+    torch.cuda.synchronize()
+
+
+def phase_spatial(tmp: str) -> dict:
+    """The H-sharded tile (``nirgan_tpu_torch/parallel/spatial.py``) on the
+    one card, processes sharing it over gloo:
+
+    (a) ``config_px2px.yaml`` (resnet_9blocks, ngf 64, pad 10) in bf16, one
+        seeded 2048^2 tile: two ranks' ``predict_large_tile`` against one
+        process's ``g_apply`` of the whole tile, >= 40 dB (only the
+        statistics' summation order differs); each rank's wrapper calls (A
+        in VALID mode 18, B's sums and apply 23 each, C 1; A's reflect mode,
+        B's one call and the library routes 0), its peak device memory and
+        its forward's ms by CUDA events beside the one process's;
+    (b) the int8 trunk on the same tile, calibrated once by the one process
+        and handed to the ranks: JAX's bounds (max |d| < 0.1, > 40 dB against
+        the one-process int8 forward, not equal to (a)'s float output), D
+        VALID 18 and E 19 a rank; then stage 2 against one process's stage-2
+        forward, >= 40 dB;
+    (c) f32 with TF32 off, a 512^2 tile, the reflect, replicate and zero
+        trunks: two ranks each within max |d| <= 1e-4 of one process; then
+        one process under ``torch.distributed.run`` over NCCL (world size 1,
+        its collectives run) within the same bound;
+    (d) the (2, 2) grid, four ranks over gloo, batch 2 of 512^2 in bf16,
+        against one process, >= 40 dB.
+
+    The times are a baseline only: processes sharing one card over gloo,
+    whose collectives go through the host, are not a measurement of spatial
+    parallelism across cards."""
+    from nirgan_tpu_torch.parallel.spatial import row_ranges
+
+    folder = os.path.join(tmp, "spatial")
+    os.makedirs(folder)
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    with cudnn_tf32(False):
+        spatial_kernel_checks(g)
+    kernels_s = time.perf_counter() - t0
+
+    def nhwc(rgb):
+        return torch.from_numpy(np.ascontiguousarray(rgb.transpose(0, 2, 3, 1))).to(DEVICE)
+
+    def nchw(y):
+        return y.float().permute(0, 3, 1, 2).cpu().numpy()
+
+    # the one process's references
+    task = spatial_task()
+    x = nhwc(spatial_tile(SPATIAL_SIDE))
+    with torch.inference_mode():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        one = nchw(task.g_apply(x))
+        one_peak = torch.cuda.max_memory_allocated()
+        one_ms = time_ms(lambda: task.g_apply(x), iters=3, warmup=1)
+        packs = {"int8": task.build_trunk_q(x), "stage2": task.build_trunk_q(x, stage2=True)}
+        one8 = {k: nchw(task.g_apply(x, trunk_q=p)) for k, p in packs.items()}
+    for k, p in packs.items():
+        torch.save(p, os.path.join(folder, f"{k}.pt"))
+    rgb32 = spatial_tile(SPATIAL_F32_SIDE, 1, SEED + 1)
+    with cudnn_tf32(False), torch.inference_mode():
+        one32 = {trunk: nchw(spatial_task("float32", trunk).g_apply(nhwc(rgb32)))
+                 for trunk in SPATIAL_TRUNKS}
+    batch = spatial_tile(SPATIAL_F32_SIDE, SPATIAL_GRID_BATCH, SEED + 2)
+    with torch.inference_mode():
+        one_grid = nchw(task.g_apply(nhwc(batch)))
+    del task, x, packs
+    torch.cuda.empty_cache()
+
+    # (a)-(c) on two ranks and (d) on four, together
+    def ranks(part, n):
+        return [[sys.executable, "-c", SPATIAL_RANK, ROOT, folder,
+                 os.path.join(folder, f"rendezvous_{part}"), str(r), str(n), part]
+                for r in range(n)]
+
+    t1 = time.perf_counter()
+    run_processes(ranks("two", 2) + ranks("grid", 4), 600, "the spatial ranks")
+    ranks_s = time.perf_counter() - t1
+    rank_file = os.path.join(folder, "rank.py")
+    with open(rank_file, "w") as f:
+        f.write(SPATIAL_RANK)
+    t1 = time.perf_counter()
+    run_processes([[sys.executable, "-m", "torch.distributed.run", "--standalone",
+                    "--nproc-per-node", "1", rank_file, ROOT, folder, "-", "0", "1", "nccl"]],
+                  300, "the spatial rank under torchrun")
+    nccl_s = time.perf_counter() - t1
+    two = [torch.load(os.path.join(folder, f"two{r}.pt"), weights_only=False) for r in range(2)]
+    grid = [torch.load(os.path.join(folder, f"grid{r}.pt"), weights_only=False)
+            for r in range(4)]
+    nccl = torch.load(os.path.join(folder, "nccl0.pt"), weights_only=False)
+
+    def same(key, results, sub="pred"):
+        first = results[0][key] if sub is None else results[0][key][sub]
+        return all(np.array_equal(first, r[key] if sub is None else r[key][sub])
+                   for r in results[1:]), first
+
+    def apart(a, b):
+        return float(np.abs(a - b).max()), psnr(torch.from_numpy(a), torch.from_numpy(b), 2.0)
+
+    # (a)
+    equal, pred = same("a", two)
+    err, db = apart(pred, one)
+    want = row_ranges(SPATIAL_SIDE + 2 * PAD, 2)
+    launches = [r["a"]["launches"] for r in two]
+    log("spatial", f"(a) bf16 {SPATIAL_SIDE}^2 tile, two ranks over gloo (rows "
+        f"{[r['a']['rows'] for r in two]}) vs one process: {db:.2f} dB (bound 40), max|d| "
+        f"{err:.3e}; equal on both ranks {equal}; wrapper calls a rank {launches}; peak "
+        f"device memory a rank {[r['a']['peak'] for r in two]} B, one process {one_peak} B; "
+        f"forward ms a rank (CUDA events) {[round(r['a']['ms'], 3) for r in two]}, one "
+        f"process {one_ms:.3f}")
+    if not (pred.shape == (1, 1, SPATIAL_SIDE, SPATIAL_SIDE) and np.isfinite(pred).all()
+            and db >= 40.0 and equal and [r["a"]["rows"] for r in two] == want):
+        raise AssertionError(f"(a) spatial bf16: {pred.shape}, {db}, {equal}")
+    for got in launches:
+        if {k: got[k] for k in SPATIAL_FORWARD} != SPATIAL_FORWARD or got["library"]:
+            raise AssertionError(f"(a) a rank's wrapper calls {got}, want {SPATIAL_FORWARD}")
+    # (b)
+    equal8, pred8 = same("int8", two)
+    err8, db8 = apart(pred8, one8["int8"])
+    equal2, pred2 = same("stage2", two)
+    err2, db2 = apart(pred2, one8["stage2"])
+    l8, l2 = two[0]["int8"]["launches"], two[0]["stage2"]["launches"]
+    log("spatial", f"(b) int8 trunk, two ranks vs one process: {db8:.2f} dB (bound 40), "
+        f"max|d| {err8:.3e} (bound 0.1), equal to (a)'s float output "
+        f"{np.array_equal(pred8, pred)}; stage 2: {db2:.2f} dB (bound 40), max|d| {err2:.3e}; "
+        f"equal on both ranks {equal8}, {equal2}; D and E a rank: int8 "
+        f"{l8['int8_conv']} {l8['int8_norm']}, stage 2 {l2['int8_conv']} {l2['int8_norm']}")
+    if not (err8 < 0.1 and db8 > 40.0 and not np.array_equal(pred8, pred) and db2 >= 40.0
+            and equal8 and equal2 and l8["int8_conv"] == {"valid s1": 18}
+            and l2["int8_conv"] == {"valid s1": 18, "valid s2": 1}
+            and sum(l8["int8_norm"].values()) == 19 and l8["instance_norm_sums"] == 5):
+        raise AssertionError(f"(b) spatial int8: {err8}, {db8}, {db2}, {l8}, {l2}")
+    # (c)
+    f32 = {}
+    for tag, results in (("two ranks", two), ("torchrun nccl", [nccl])):
+        for trunk in SPATIAL_TRUNKS:
+            eq, got = same("f32", results, trunk)
+            f32[f"{tag} {trunk}"] = float(np.abs(got - one32[trunk]).max())
+            if not (eq and f32[f"{tag} {trunk}"] <= 1e-4):
+                raise AssertionError(f"(c) f32 {tag} {trunk}: {f32[f'{tag} {trunk}']}, {eq}")
+    log("spatial", f"(c) f32 {SPATIAL_F32_SIDE}^2, TF32 off, max|d| vs one process (bound "
+        f"1e-4): {f32}; under torchrun: backend {nccl['backend']}, world {nccl['world']}")
+    if nccl["backend"] != "nccl" or nccl["world"] != 1:
+        raise AssertionError(f"(c) torchrun: {nccl['backend']}, {nccl['world']}")
+    # (d)
+    equal_g, pred_g = same("grid", grid, None)
+    err_g, db_g = apart(pred_g, one_grid)
+    log("spatial", f"(d) ({SPATIAL_GRID[0]}, {SPATIAL_GRID[1]}) grid, four ranks, batch "
+        f"{SPATIAL_GRID_BATCH} of {SPATIAL_F32_SIDE}^2 bf16 vs one process: {db_g:.2f} dB "
+        f"(bound 40), max|d| {err_g:.3e}; equal on every rank {equal_g}; wrapper calls a "
+        f"rank {grid[0]['launches']}")
+    if not (db_g >= 40.0 and equal_g and pred_g.shape == one_grid.shape):
+        raise AssertionError(f"(d) spatial grid: {db_g}, {equal_g}")
+    log("spatial", f"kernel checks {kernels_s:.1f} s, the ranks {ranks_s:.1f} s, torchrun "
+        f"{nccl_s:.1f} s, the phase {time.perf_counter() - t0:.1f} s")
+    def finite(v):  # JSON has no infinity: bit for bit reads null
+        return v if math.isfinite(v) else None
+
+    return {"db": finite(db), "max_abs": err, "int8_db": finite(db8), "int8_max_abs": err8,
+            "stage2_db": finite(db2), "stage2_max_abs": err2, "f32_max_abs": f32,
+            "grid_db": finite(db_g), "grid_max_abs": err_g,
+            "peak_bytes": [r["a"]["peak"] for r in two], "one_peak_bytes": one_peak,
+            "ms": [r["a"]["ms"] for r in two], "one_ms": one_ms,
+            "launches": launches[0], "int8_launches": l8, "stage2_launches": l2}
+
+
 def alone_native() -> None:
     phase_native()
     phase_native_profile()
@@ -5332,9 +5867,15 @@ def alone_export() -> None:
         phase_export(tmp)
 
 
+def alone_spatial() -> None:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase_spatial(tmp)
+
+
 ALONE = {"int8": alone_int8, "train": alone_train, "variants": phase_variants,
          "nonsquare": phase_nonsquare, "param_dtype": phase_param_dtype,
-         "export": alone_export, "native": alone_native, "ddp": alone_ddp}
+         "export": alone_export, "native": alone_native, "ddp": alone_ddp,
+         "spatial": alone_spatial}
 
 
 def main() -> None:
@@ -5394,6 +5935,8 @@ def main() -> None:
     native = phase_native()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         ddp = phase_ddp(tmp)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        spatial = phase_spatial(tmp)
     phase_norm_launches()
     phase_host_waits()
     phase_pretrain_profile(pretrain)
@@ -5459,8 +6002,22 @@ def main() -> None:
     n = INT8_ROUTES["int8 serving, stage 2"]["int8_norm"]["mode 3"]
     entries.append({**RESULTS["int8_norm"]["mode3"], "name": "int8_norm_mode3",
                     "route": "cuda", "source": RESULTS["int8_norm"]["source"],
-                    "replaces": "nirgan_tpu/ops/int8_trunk.py:139", "max_abs_err": 1.0,
+                    "replaces": "nirgan_tpu/ops/int8_trunk.py:139",
                     "launches": n, "per_forward": n})
+    # the H-sharded tile's entry points, each with its wrapper calls a rank
+    # in one sharded forward: B's split forward in (a), D's VALID gathers
+    # and E with the tile's count in (b) and stage 2
+    sl, s8, s2 = spatial["launches"], spatial["int8_launches"], spatial["stage2_launches"]
+    for name, n in (("instance_norm_sums", sl["instance_norm_sums"]),
+                    ("instance_norm_apply", sl["instance_norm_apply"]),
+                    ("int8_conv_valid", s8["int8_conv"]["valid s1"]),
+                    ("int8_conv_stride2_valid", s2["int8_conv"]["valid s2"]),
+                    ("int8_norm_count", s8["int8_norm"]["mode 1"] + s8["int8_norm"]["mode 2"])):
+        entries.append({**RESULTS[name], "launches": n, "per_forward": n,
+                        "path": "spatial, a rank's sharded forward"})
+    for kernel in entries:
+        if kernel["name"] in ("trunk_conv_pad0", "head_conv"):
+            kernel["spatial"] = {"per_rank_forward": sl[kernel["name"]]}
     # B and B4 under gradient_penalty; the bf16-parameter step; the
     # exported serving programs' launches a forward
     for kernel in entries:
@@ -5476,6 +6033,7 @@ def main() -> None:
                       "export": {tag: {k: v for k, v in exports[tag].items()
                                        if k != "launches"} for tag, _, _ in EXPORTS},
                       "host_us": exports["host_us"], "native": native, "ddp": ddp,
+                      "spatial": spatial,
                       "bf16_params": {k: v for k, v in bf16_params.items()
                                       if k != "per_step"}}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -35,10 +35,13 @@
 //     each k32 step of wgmma's s8 -> s32 product advances 32 bytes as a k16
 //     bf16 step does, so the ring, the table and the swizzle are unchanged.
 //     Its epilogue rounds the exact s32 sums to bf16 and adds each column's
-//     Sigma a and Sigma a^2 (f32, of the unrounded sums) over the tile's rows
-//     of one image at a time: lanes by a butterfly, then the 8 consumer
-//     warps in order through shared memory, into a per-tile slot of scratch
-//     that a second launch adds up in tile order (no float atomics).
+//     Sigma a and Sigma a^2 (in integers, of the unrounded sums: exact, so
+//     the sums do not depend on how the pixels are cut into tiles or into
+//     the rows of H-sharded tiles) over the tile's rows of one image at a
+//     time: each lane pair's sums through shared memory, 64 columns a
+//     pass, then 4 threads a column and a butterfly, into a per-tile f64
+//     slot of scratch that a second launch adds up in tile order (no float
+//     atomics).
 
 #include "igemm_wgmma.h"
 
@@ -52,6 +55,11 @@ using namespace hopper;
 constexpr int STAGES = 4;
 constexpr int THREADS = 384;  // consumer warpgroups 0 and 1, producer 2
 
+// the stride a column of the s8 epilogue's sums in shared memory: the 32
+// lane pairs' sums and 4 spare, so that neither a warp's stores nor its
+// reads meet a bank twice (s8_epilogue)
+constexpr int RED_STRIDE = 36;
+
 template <int N, bool S8>
 struct Tile {
   static constexpr int R = 256 / N;  // 64-row blocks of one consumer warpgroup
@@ -61,8 +69,11 @@ struct Tile {
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
   static constexpr int TAB_BYTES = 9 * BM * 4;
   static constexpr int BAR_BYTES = 2 * STAGES * 8;
-  // the s8 epilogue's column sums of the 8 consumer warps
-  static constexpr int RED_BYTES = S8 ? 8 * N * 2 * 4 : 0;
+  // the s8 epilogue's sums of each lane pair of the 8 consumer warps over
+  // its rows, EPI columns a pass: Sigma a int32, Sigma a^2 int64
+  // (s8_epilogue)
+  static constexpr int EPI = N == 256 ? 64 : 32;
+  static constexpr int RED_BYTES = S8 ? EPI * RED_STRIDE * (4 + 8) : 0;
   // 1024 spare bytes: the ring is moved up to a 1024-byte boundary
   static constexpr int SMEM_BYTES =
       1024 + STAGES * STAGE_BYTES + TAB_BYTES + BAR_BYTES + RED_BYTES;
@@ -93,8 +104,8 @@ __device__ __forceinline__ void consumer_sync() {
 template <int N>
 __device__ __forceinline__ void s8_epilogue(
     const int (&d)[256 / N][N / 2], int tile, long long m0, long long M,
-    int hw, int wg, int warp, int lane, float* red,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ part) {
+    int hw, int wg, int warp, int lane, int* red,
+    __nv_bfloat16* __restrict__ out, double* __restrict__ part) {
   constexpr int R = 256 / N;
   constexpr int BM = 128 * R;
   const long long end = m0 + BM < M ? m0 + BM : M;
@@ -120,55 +131,83 @@ __device__ __forceinline__ void s8_epilogue(
   }
   const int cw = wg * 4 + warp;  // consumer warp, 0 .. 7
   const int ct = wg * 128 + warp * 32 + lane;  // consumer thread, 0 .. 255
+  // The sums in integers (a value is at most 127^2 9 Cin < 2^26 up to Cin
+  // 256, its square < 2^52; a tile's sums fit 64 bits), so that they do not
+  // depend on how the pixels are cut into tiles or shards.  EPI columns a
+  // pass: each lane's sums over its own rows of a column pair, one column
+  // kept and the other sent to the lane 16 away (lane bit 4), go to shared
+  // memory (red: Sigma a, then Sigma a^2, [column][warp][lane / 4 % 4]);
+  // then TPC threads a column each read a quarter or an eighth of its 32 in
+  // 16-byte loads and meet by a butterfly: few live registers beside the
+  // accumulators, and no shuffle chain a column.  The tile's sums go to
+  // part in f64 (exact but for the rare sum past 2^53).
+  constexpr int EPI = Tile<N, true>::EPI;
+  constexpr int TPC = 256 / EPI;  // threads a column in the second stage
+  constexpr int SPT = 32 / TPC;   // the sums each of them reads
+  int* red1 = red;
+  long long* red2 = reinterpret_cast<long long*>(red + EPI * RED_STRIDE);
+  const int keep = (lane >> 4) & 1, slot = cw * 4 + ((lane >> 2) & 3);
   for (int img = img0; img <= img1; ++img) {
 #pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+    for (int pass = 0; pass < N / EPI; ++pass) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
+      for (int jj = 0; jj < EPI / 8; ++jj) {
+        const int j = pass * (EPI / 8) + jj;
+        int s1[2] = {0, 0};  // of at most 4 values, then of 8
+        long long s2[2] = {0, 0};
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (rimg[r][h] != img) continue;
+        for (int r = 0; r < R; ++r) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float v = __int2float_rn(d[r][4 * j + 2 * h + e]);
-            s1[e] = __fadd_rn(s1[e], v);
-            s2[e] = __fadd_rn(s2[e], __fmul_rn(v, v));
+          for (int h = 0; h < 2; ++h) {
+            if (rimg[r][h] != img) continue;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int v = d[r][4 * j + 2 * h + e];
+              s1[e] += v;
+              s2[e] += (long long)v * v;
+            }
           }
         }
+        const int k1 = (keep ? s1[1] : s1[0]) +
+                       __shfl_xor_sync(0xffffffffu, keep ? s1[0] : s1[1], 16);
+        const long long k2 = (keep ? s2[1] : s2[0]) +
+                             __shfl_xor_sync(0xffffffffu, keep ? s2[0] : s2[1], 16);
+        const int at = (8 * jj + 2 * (lane & 3) + keep) * RED_STRIDE + slot;
+        red1[at] = k1;
+        red2[at] = k2;
       }
-      // the 8 lanes of a column pair meet by a butterfly (a + b is b + a)
+      consumer_sync();
+      {
+        const int col = ct / TPC, piece = ct % TPC;  // a column's threads: lanes
+        const int4* p1 = reinterpret_cast<const int4*>(red1 + col * RED_STRIDE + piece * SPT);
+        const longlong2* p2 =
+            reinterpret_cast<const longlong2*>(red2 + col * RED_STRIDE + piece * SPT);
+        long long t1 = 0, t2 = 0;
 #pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
+        for (int q = 0; q < SPT / 4; ++q) {
+          const int4 a = p1[q];
+          t1 += (long long)a.x + a.y + (long long)a.z + a.w;
+        }
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          s1[e] = __fadd_rn(s1[e], __shfl_xor_sync(0xffffffffu, s1[e], off));
-          s2[e] = __fadd_rn(s2[e], __shfl_xor_sync(0xffffffffu, s2[e], off));
+        for (int q = 0; q < SPT / 2; ++q) {
+          // each lane starts at another 16 bytes: a quarter-warp's loads
+          // meet no bank twice
+          const longlong2 a = p2[(q + (piece >> 1)) % (SPT / 2)];
+          t2 += a.x + a.y;
+        }
+#pragma unroll
+        for (int off = 1; off < TPC; off <<= 1) {
+          t1 += __shfl_xor_sync(0xffffffffu, t1, off);
+          t2 += __shfl_xor_sync(0xffffffffu, t2, off);
+        }
+        if (piece == 0) {
+          double* dst = part + ((long long)tile * 2 + (img - img0)) * 2 * N + pass * EPI + col;
+          dst[0] = (double)t1;
+          dst[N] = (double)t2;
         }
       }
-      if (lane < 4) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float* dst = red + ((long long)cw * N + 8 * j + 2 * lane + e) * 2;
-          dst[0] = s1[e];
-          dst[1] = s2[e];
-        }
-      }
+      consumer_sync();  // red is free for the next pass, image or tile
     }
-    consumer_sync();
-    for (int c = ct; c < N; c += 256) {
-      // the 8 warps in order
-      float t1 = red[(long long)c * 2], t2 = red[(long long)c * 2 + 1];
-#pragma unroll
-      for (int w = 1; w < 8; ++w) {
-        t1 = __fadd_rn(t1, red[((long long)w * N + c) * 2]);
-        t2 = __fadd_rn(t2, red[((long long)w * N + c) * 2 + 1]);
-      }
-      float* dst = part + ((long long)tile * 2 + (img - img0)) * 2 * N + c;
-      dst[0] = t1;
-      dst[N] = t2;
-    }
-    consumer_sync();  // red is free for the next image or tile
   }
 }
 
@@ -177,7 +216,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 igemm_wgmma_kernel(const __nv_bfloat16* __restrict__ src,
                    const uint8_t* __restrict__ wp,
                    const float* __restrict__ bias,
-                   __nv_bfloat16* __restrict__ out, float* __restrict__ part,
+                   __nv_bfloat16* __restrict__ out, double* __restrict__ part,
                    Shape g) {
   using T = Tile<N, S8>;
   extern __shared__ uint8_t smem_raw[];
@@ -187,9 +226,8 @@ igemm_wgmma_kernel(const __nv_bfloat16* __restrict__ src,
                                     STAGES * T::STAGE_BYTES);
   const uint32_t bars = base + STAGES * T::STAGE_BYTES + T::TAB_BYTES;
   // full[s] = bars + 8 s, empty[s] = bars + 8 (STAGES + s)
-  float* red = reinterpret_cast<float*>(smem_raw + (base - raw) +
-                                        STAGES * T::STAGE_BYTES + T::TAB_BYTES +
-                                        T::BAR_BYTES);
+  int* red = reinterpret_cast<int*>(smem_raw + (base - raw) + STAGES * T::STAGE_BYTES +
+                                    T::TAB_BYTES + T::BAR_BYTES);
 
   const int tid = threadIdx.x;
   const long long M = (long long)g.B * g.Ho * g.Wo;
@@ -354,7 +392,7 @@ igemm_wgmma_kernel(const __nv_bfloat16* __restrict__ src,
 
 template <int N, bool S8>
 cudaError_t launch_n(const void* src, const void* wp, const float* bias,
-                     void* out, float* part, Shape g, cudaStream_t stream) {
+                     void* out, double* part, Shape g, cudaStream_t stream) {
   using T = Tile<N, S8>;
   auto kernel = igemm_wgmma_kernel<N, S8>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -388,11 +426,10 @@ cudaError_t launch(int N, const void* src, const void* wp, const float* bias,
 }
 
 cudaError_t launch_s8(int N, const void* src, const void* wp, void* out,
-                      float* part, Shape g, cudaStream_t stream) {
-  const bool gather_ok = g.gather == CONV_REFLECT || g.gather == CONV_REPLICATE ||
-                         g.gather == CONV_ZERO || g.gather == STRIDE2_ZERO;
+                      double* part, Shape g, cudaStream_t stream) {
+  const bool gather_ok = g.gather >= CONV_REFLECT && g.gather <= STRIDE2_VALID;
   if (!takes_s8(N, g.Cs, g.Ho * g.Wo) || g.B <= 0 || !gather_ok ||
-      g.Hs < (g.gather == CONV_REFLECT ? 2 : 1) || g.Ws < (g.gather == CONV_REFLECT ? 2 : 1) ||
+      g.Hs < least_side(g.gather) || g.Ws < least_side(g.gather) ||
       g.Ho != out_side(g.gather, g.Hs) || g.Wo != out_side(g.gather, g.Ws) ||
       (long long)g.B * g.Hs * g.Ws >= (1LL << 31))
     return cudaErrorInvalidValue;

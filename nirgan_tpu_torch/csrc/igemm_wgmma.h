@@ -17,6 +17,8 @@ enum Gather {
                        // and the k3 s2 transposed conv's input gradient
   CONV_REPLICATE = 3,  // (clamp(oy + dy - 1), clamp(ox + dx - 1))
   CONV_ZERO = 4,       // (oy + dy - 1, ox + dx - 1)
+  STRIDE2_VALID = 5,   // (2 oy + dy, 2 ox + dx): the k3 s2 conv of a source
+                       // that carries its own border rows and columns
 };
 
 // The source pixel (sy, sx) of output pixel (oy, ox) and tap (dy, dx) under
@@ -41,6 +43,10 @@ __host__ __device__ inline bool source_pixel(int gather, int oy, int ox,
       sy = 2 * oy - 1 + dy;
       sx = 2 * ox - 1 + dx;
       break;
+    case STRIDE2_VALID:
+      sy = 2 * oy + dy;
+      sx = 2 * ox + dx;
+      break;
     case CONV_REPLICATE:
       sy = oy + dy - 1;
       sx = ox + dx - 1;
@@ -55,9 +61,22 @@ __host__ __device__ inline bool source_pixel(int gather, int oy, int ox,
 }
 
 // The output side of a source side n under `gather`: (n - 1) / 2 + 1 at
-// stride 2 (the k3 s2 p1 conv), n for the borders of stride 1.
+// stride 2 (the k3 s2 p1 conv), (n - 3) / 2 + 1 at stride 2 without a
+// border, n - 2 at stride 1 without one, n for the borders of stride 1.
 inline int out_side(int gather, int n) {
-  return gather == STRIDE2_ZERO ? (n - 1) / 2 + 1 : n;
+  switch (gather) {
+    case STRIDE2_ZERO: return (n - 1) / 2 + 1;
+    case STRIDE2_VALID: return (n - 3) / 2 + 1;
+    case CONV_VALID: return n - 2;
+    default: return n;
+  }
+}
+
+// The least source side `gather` takes: 3 without a border (one output),
+// 2 for the reflect border (ReflectionPad2d(1)), 1 for the others.
+inline int least_side(int gather) {
+  return gather == CONV_VALID || gather == STRIDE2_VALID ? 3
+         : gather == CONV_REFLECT ? 2 : 1;
 }
 
 struct Shape {
@@ -92,14 +111,14 @@ inline bool takes_s8(int N, int Cs, int hw) {
 // The s8 form, for the int8 trunk: out[m, n] = sum over tap, c of
 // src[pixel(m, tap), c] * W[tap, c, n] in exact s32 sums, rounded once to
 // bf16, src int8 (B, Hs, Ws, Cs) (g.Cs counts int8 channels) with the
-// reflect, replicate or zero border at stride 1 (Ho, Wo = Hs, Ws) or the
-// zero border at stride 2 (Ho, Wo = out_side), wp the int8 weight packed as
+// reflect, replicate or zero border at stride 1 (Ho, Wo = Hs, Ws), the zero
+// border at stride 2, or no border at stride 1 or 2 (Ho, Wo = out_side), wp the int8 weight packed as
 // for bf16 with two channels as one 16-bit element (one image of N rows x
-// 128 bytes a tap and 128 channels).  part (tiles, 2, 2, N) f32 receives
+// 128 bytes a tap and 128 channels).  part (tiles, 2, 2, N) f64 receives
 // each tile's Sigma and Sigma^2 of every column over its rows of its first
 // image (slot 0) and, where it reaches into the next, of that one (slot 1),
 // in a fixed order; tiles = ceil(B Ho Wo / tile_rows(N)).
 cudaError_t launch_s8(int N, const void* src, const void* wp, void* out,
-                      float* part, Shape g, cudaStream_t stream);
+                      double* part, Shape g, cudaStream_t stream);
 
 }  // namespace igemm

@@ -56,6 +56,14 @@
 //    fixed channel vector a thread: no division and no load of a constant
 //    per element.
 //    Any C that is a multiple of 8 is taken.
+//  * split, for one shard of an H-sharded tile (parallel/spatial.py), whose
+//    statistics cover every shard's pixels: the streaming regime cut in
+//    two entry points.  nirgan_instance_norm_sums runs the sums kernel and
+//    folds its slabs into one exact pair a channel, (B, 4, C); the caller
+//    gathers the shards' pairs; nirgan_instance_norm_apply runs the
+//    elementwise kernel, which adds the P gathered pairs in shard order and
+//    divides by the tile's pixel count.  Every shard adds the same pairs in
+//    the same order, so every shard normalises with the same numbers.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -582,18 +590,64 @@ in_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
+// The S partial pairs (B, S, 4, C) of channel c of image b added in slab
+// order, eight slabs' loads in flight: (sa, sa_lo) and (sq, sq_lo).
+__device__ __forceinline__ void add_partials(const float* __restrict__ part,
+                                             int b, int S, int C, int c,
+                                             float& sa, float& sa_lo, float& sq,
+                                             float& sq_lo) {
+  const float* src = part + (long long)b * S * 4 * C + c;
+  sa = sa_lo = sq = sq_lo = 0.f;
+  for (int j0 = 0; j0 < S; j0 += 8) {
+    float pv[8][4];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const float* slab = src + (long long)min(j0 + u, S - 1) * 4 * C;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) pv[u][t] = slab[t * C];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (j0 + u < S) {
+        add_pair(sa, sa_lo, pv[u][0], pv[u][2]);
+        add_pair(sq, sq_lo, pv[u][1], pv[u][3]);
+      }
+    }
+  }
+}
+
+// The S partial pairs of each (image, channel) folded into one pair, in slab
+// order: part (B, S, 4, C) -> sums (B, 4, C), the same layout with S = 1.
+// Grid (ceil(C / THREADS), B), a channel a thread.
+__global__ void __launch_bounds__(THREADS)
+in_fold_kernel(const float* __restrict__ part, float* __restrict__ sums, int C,
+               int S) {
+  const int b = blockIdx.y, c = blockIdx.x * THREADS + threadIdx.x;
+  if (c >= C) return;
+  float sa, sa_lo, sq, sq_lo;
+  add_partials(part, b, S, C, c, sa, sa_lo, sq, sq_lo);
+  float* dst = sums + (long long)b * 4 * C;
+  dst[c] = sa;
+  dst[C + c] = sq;
+  dst[2 * C + c] = sa_lo;
+  dst[3 * C + c] = sq_lo;
+}
+
 // The elementwise pass, same grid and thread layout.  Each block first adds
-// the S partial pairs of its group's channels in slab order; the forward's
-// slab-0 blocks write them to stats (B, 2, C), which the backward reads.
+// the S partial pairs of its group's channels in slab order (S = gridDim.x
+// where the sums kernel ran at the same grid; the shards' folded sums where
+// the tile is H-sharded) and takes count pixels for the statistics; the
+// forward's slab-0 blocks write them to stats (B, 2, C), where given, which
+// the backward reads.
 template <typename T, bool BWD>
 __global__ void __launch_bounds__(THREADS)
 in_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
                 const T* __restrict__ res, const float* __restrict__ part,
                 float* __restrict__ stats, T* __restrict__ out, int HW, int C,
-                int rows, int CV, float eps, int relu) {
+                int rows, int CV, int S, float count, float eps, int relu) {
   constexpr int N = Chunk<T>::N;
   __shared__ float s_stat[2][MAX_VECS * N];
-  const int b = blockIdx.y, s = blockIdx.x, S = gridDim.x;
+  const int b = blockIdx.y, s = blockIdx.x;
   const int tid = threadIdx.x;
   const int NV = C / N, G = THREADS / CV;
   const int cv = tid % CV, grp = tid / CV;
@@ -602,31 +656,14 @@ in_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int c0 = v * N;
   const int c = blockIdx.z * CV * N + tid;
   if (tid < CV * N && c < C) {
-    const float* src = part + (long long)b * S * 4 * C + c;
-    float sa = 0.f, sa_lo = 0.f, sq = 0.f, sq_lo = 0.f;
-    // eight slabs' loads in flight, then their pairs in slab order
-    for (int j0 = 0; j0 < S; j0 += 8) {
-      float pv[8][4];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const float* slab = src + (long long)min(j0 + u, S - 1) * 4 * C;
-#pragma unroll
-        for (int t = 0; t < 4; ++t) pv[u][t] = slab[t * C];
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        if (j0 + u < S) {
-          add_pair(sa, sa_lo, pv[u][0], pv[u][2]);
-          add_pair(sq, sq_lo, pv[u][1], pv[u][3]);
-        }
-      }
-    }
+    float sa, sa_lo, sq, sq_lo;
+    add_partials(part, b, S, C, c, sa, sa_lo, sq, sq_lo);
     float v0, v1;
-    finish<BWD>(__fadd_rn(sa, sa_lo), __fadd_rn(sq, sq_lo), (float)HW, eps, &v0,
+    finish<BWD>(__fadd_rn(sa, sa_lo), __fadd_rn(sq, sq_lo), count, eps, &v0,
                 &v1);
     s_stat[0][tid] = v0;
     s_stat[1][tid] = v1;
-    if (!BWD && s == 0) {
+    if (!BWD && s == 0 && stats) {
       stats[(long long)b * 2 * C + c] = v0;
       stats[(long long)b * 2 * C + C + c] = v1;
     }
@@ -769,8 +806,39 @@ int launch(const Plan& p, const T* x, const T* g, const T* res, float* part,
   const dim3 grid(p.slabs, B, groups);
   in_partial_kernel<T, BWD><<<grid, THREADS, 0, st>>>(x, g, stats, part, HW, C,
                                                       rows, CV, relu);
-  in_apply_kernel<T, BWD><<<grid, THREADS, 0, st>>>(x, g, res, part, stats, io,
-                                                    HW, C, rows, CV, eps, relu);
+  in_apply_kernel<T, BWD><<<grid, THREADS, 0, st>>>(
+      x, g, res, part, stats, io, HW, C, rows, CV, p.slabs, (float)HW, eps, relu);
+  return (int)cudaGetLastError();
+}
+
+// The split forward of an H-sharded tile (parallel/spatial.py): the sums of
+// this shard's pixels, folded into one exact pair a channel, sums (B, 4, C);
+// then, once the shards' sums are gathered, the elementwise pass over this
+// shard with the statistics of all of them (parts (B, P, 4, C), added in
+// shard order) and the tile's pixel count.  Streaming plans only.
+template <typename T>
+int launch_sums(const Plan& p, const T* x, float* part, float* sums, int B,
+                int HW, int C, cudaStream_t st) {
+  const int rows = (HW + p.slabs - 1) / p.slabs;
+  const int CV = p.group / Chunk<T>::N;
+  const dim3 grid(p.slabs, B, (C + p.group - 1) / p.group);
+  in_partial_kernel<T, false><<<grid, THREADS, 0, st>>>(x, nullptr, nullptr, part,
+                                                        HW, C, rows, CV, 0);
+  const dim3 fold((C + THREADS - 1) / THREADS, B);
+  in_fold_kernel<<<fold, THREADS, 0, st>>>(part, sums, C, p.slabs);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_apply(const Plan& p, const T* x, const T* res, const float* parts,
+                 int P, T* y, int B, int HW, int C, int count, float eps,
+                 int relu, cudaStream_t st) {
+  const int rows = (HW + p.slabs - 1) / p.slabs;
+  const int CV = p.group / Chunk<T>::N;
+  const dim3 grid(p.slabs, B, (C + p.group - 1) / p.group);
+  in_apply_kernel<T, false><<<grid, THREADS, 0, st>>>(
+      x, nullptr, res, parts, nullptr, y, HW, C, rows, CV, P, (float)count, eps,
+      relu);
   return (int)cudaGetLastError();
 }
 
@@ -835,6 +903,62 @@ extern "C" int nirgan_instance_norm_bwd(int device, int dtype, const void* x,
   return dispatch<true>(dtype, p, x, g, nullptr, part,
                         const_cast<void*>(stats), dx, B, HW, C, 0.f, relu,
                         stream);
+}
+
+// The split forward's first half: x (B, HW, C) contiguous in dtype (0 =
+// float32, 1 = bfloat16), a streaming plan (group, slabs), part f32 scratch
+// of B * slabs * 4 * C; sums (B, 4, C) f32 receives each channel's Sigma x
+// and Sigma x^2 over the HW pixels as exact pairs (hi of both, then lo of
+// both).  Returns a cudaError_t; cudaErrorInvalidValue for a plan the
+// kernels cannot take.
+extern "C" int nirgan_instance_norm_sums(int device, int dtype, const void* x,
+                                         void* part, void* sums, int B, int HW,
+                                         int C, int group, int slabs,
+                                         void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Plan p{2, group, 1, THREADS, slabs, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && takes(p, B, HW, C, 2, false))
+    return launch_sums<__nv_bfloat16>(p, static_cast<const __nv_bfloat16*>(x),
+                                      static_cast<float*>(part),
+                                      static_cast<float*>(sums), B, HW, C, st);
+  if (dtype == 0 && takes(p, B, HW, C, 4, false))
+    return launch_sums<float>(p, static_cast<const float*>(x),
+                              static_cast<float*>(part),
+                              static_cast<float*>(sums), B, HW, C, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split forward's second half: x, residual (null for none) and y (B, HW,
+// C) as in nirgan_instance_norm; parts (B, P, 4, C) f32 the P shards' sums
+// of nirgan_instance_norm_sums in shard order; count the pixels they sum
+// over (> 0).  Returns a cudaError_t.
+extern "C" int nirgan_instance_norm_apply(int device, int dtype, const void* x,
+                                          const void* residual,
+                                          const void* parts, int P, void* y,
+                                          int B, int HW, int C, int group,
+                                          int slabs, int count, float eps,
+                                          int relu, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Plan p{2, group, 1, THREADS, slabs, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (P <= 0 || count <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && takes(p, B, HW, C, 2, false)) {
+    using T = __nv_bfloat16;
+    return launch_apply<T>(p, static_cast<const T*>(x),
+                           static_cast<const T*>(residual),
+                           static_cast<const float*>(parts), P,
+                           static_cast<T*>(y), B, HW, C, count, eps, relu, st);
+  }
+  if (dtype == 0 && takes(p, B, HW, C, 4, false))
+    return launch_apply<float>(p, static_cast<const float*>(x),
+                               static_cast<const float*>(residual),
+                               static_cast<const float*>(parts), P,
+                               static_cast<float*>(y), B, HW, C, count, eps,
+                               relu, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // How many clusters of a resident plan the card holds at once

@@ -4,6 +4,10 @@
 // trunk's reflect, replicate or zero border, at stride 2 the zero border of
 // the d1 downsample conv (k3 s2 p1, output side (n - 1) / 2 + 1; a tap
 // outside the image reads 0, which is exact under symmetric quantisation).
+// Without a border (CONV_VALID, STRIDE2_VALID) the source is a slab that
+// carries its own border rows and columns, as the rows of one shard of an
+// H-sharded tile do with their neighbours' halo rows (parallel/spatial.py):
+// output side n - 2 at stride 1, (n - 3) / 2 + 1 at stride 2.
 //
 // Replaces _conv_moments(_pad2d(x8), w8) of nirgan_tpu/ops/int8_trunk.py
 // (lines 103-108, the pads of lines 45-47) and the conv of int8_d1_forward
@@ -36,9 +40,15 @@
 //     (grid.z is the image), so its column sums belong to one (image,
 //     channel); they go to scratch (B, tiles, 2, Cout) and
 //     int8_moments_kernel adds the tiles in a fixed order.
-// In both, each thread sums its rows, the warp adds lanes by a shuffle
-// butterfly and the warps meet in shared memory in a fixed order.  No float
-// atomics: a batch repeats bit for bit.
+// In the mma.sync kernel each thread sums its rows, the warp adds lanes by a
+// shuffle butterfly and the warps meet in shared memory in a fixed order;
+// the wgmma kernel's epilogue (igemm_wgmma.cu) adds in integers.  No float
+// atomics: a batch repeats bit for bit.  The sums are exact (integers in
+// the wgmma kernel's tiles, f64 of integers in the mma.sync kernel's and
+// across tiles: a value < 2^26, its square < 2^52) and the moments stay
+// f64, so they do not depend on how the pixels are cut into tiles, nor on
+// how an H-sharded tile is cut into shards, whose moments are added before
+// kernel E rounds them to f32 (parallel/spatial.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,11 +79,11 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
 
 __global__ void __launch_bounds__(THREADS)
 int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                 __nv_bfloat16* __restrict__ hb, float* __restrict__ part,
+                 __nv_bfloat16* __restrict__ hb, double* __restrict__ part,
                  int H, int W, int Ho, int Wo, int Ci, int Co, int gather) {
   __shared__ __align__(128) int8_t As[STAGES][BM][LD];
   __shared__ __align__(128) int8_t Bs[STAGES][BN][LD];
-  __shared__ float red[4][BN][2];
+  __shared__ double red[4][BN][2];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int HW = Ho * Wo;  // output pixels of an image
@@ -158,7 +168,7 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   for (int j = 0; j < 8; ++j) {
     const int col = wn * 64 + j * 8 + 2 * t4;  // the block's column
     const int n = n0 + col;
-    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+    double s1[2] = {0., 0.}, s2[2] = {0., 0.};
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -166,12 +176,13 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
         const int p = p0 + wm * 32 + i * 16 + g + 8 * h;
         const float v0 = __int2float_rn(acc[i][j][2 * h]);
         const float v1 = __int2float_rn(acc[i][j][2 * h + 1]);
+        const double a0 = (double)acc[i][j][2 * h], a1 = (double)acc[i][j][2 * h + 1];
         // rows past the image's end and columns past Cout read zeros: their
         // sums add 0
-        s1[0] = __fadd_rn(s1[0], v0);
-        s1[1] = __fadd_rn(s1[1], v1);
-        s2[0] = __fadd_rn(s2[0], __fmul_rn(v0, v0));
-        s2[1] = __fadd_rn(s2[1], __fmul_rn(v1, v1));
+        s1[0] = __dadd_rn(s1[0], a0);
+        s1[1] = __dadd_rn(s1[1], a1);
+        s2[0] = __dadd_rn(s2[0], __dmul_rn(a0, a0));
+        s2[1] = __dadd_rn(s2[1], __dmul_rn(a1, a1));
         if (p < HW && n < Co) {
           *reinterpret_cast<__nv_bfloat162*>(hb + ((long long)b * HW + p) * Co + n) =
               __floats2bfloat162_rn(v0, v1);
@@ -184,8 +195,8 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     for (int off = 4; off < 32; off <<= 1) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        s1[e] = __fadd_rn(s1[e], __shfl_xor_sync(0xffffffffu, s1[e], off));
-        s2[e] = __fadd_rn(s2[e], __shfl_xor_sync(0xffffffffu, s2[e], off));
+        s1[e] = __dadd_rn(s1[e], __shfl_xor_sync(0xffffffffu, s1[e], off));
+        s2[e] = __dadd_rn(s2[e], __shfl_xor_sync(0xffffffffu, s2[e], off));
       }
     }
     if (g == 0) {
@@ -199,19 +210,20 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   __syncthreads();
   if (tid < BN && n0 + tid < Co) {
     // the four warps along M in order
-    float t1 = red[0][tid][0], t2 = red[0][tid][1];
+    double t1 = red[0][tid][0], t2 = red[0][tid][1];
 #pragma unroll
     for (int m = 1; m < 4; ++m) {
-      t1 = __fadd_rn(t1, red[m][tid][0]);
-      t2 = __fadd_rn(t2, red[m][tid][1]);
+      t1 = __dadd_rn(t1, red[m][tid][0]);
+      t2 = __dadd_rn(t2, red[m][tid][1]);
     }
-    float* dst = part + ((long long)b * tiles + tile) * 2 * Co + n0 + tid;
+    double* dst = part + ((long long)b * tiles + tile) * 2 * Co + n0 + tid;
     dst[0] = t1;
     dst[Co] = t2;
   }
 }
 
-// moments (B, 2, Co) from the tiles' partial sums, added in a fixed order.
+// moments (B, 2, Co) f64 from the tiles' partial sums, added in a fixed
+// order.
 // A block takes 32 channels of one image: each of its 16 rows of threads adds
 // a contiguous run of the image's tiles in tile order, then row 0 adds the 16
 // runs in row order.  per_image > 0 (the mma.sync kernel): part is (B,
@@ -222,9 +234,9 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 constexpr int RED_ROWS = 16;
 
 __global__ void __launch_bounds__(32 * RED_ROWS)
-int8_moments_kernel(const float* __restrict__ part, float* __restrict__ moments,
+int8_moments_kernel(const double* __restrict__ part, double* __restrict__ moments,
                     int Co, int hw, int bm, int per_image) {
-  __shared__ float red[RED_ROWS][32][2];
+  __shared__ double red[RED_ROWS][32][2];
   const int b = blockIdx.y, lc = threadIdx.x & 31, row = threadIdx.x >> 5;
   const int c = blockIdx.x * 32 + lc;
   const int nslot = per_image ? 1 : 2;
@@ -234,14 +246,14 @@ int8_moments_kernel(const float* __restrict__ part, float* __restrict__ moments,
   const long long run = (t1 - t0 + RED_ROWS) / RED_ROWS;
   const long long first = t0 + row * run;
   const long long last = first + run - 1 < t1 ? first + run - 1 : t1;
-  float s1 = 0.f, s2 = 0.f;
+  double s1 = 0., s2 = 0.;
   if (c < Co) {
 #pragma unroll 4
     for (long long t = first; t <= last; ++t) {
       const int slot = per_image ? 0 : b - (int)(t * bm / hw);
-      const float* src = part + (t * nslot + slot) * 2 * Co + c;
-      s1 = __fadd_rn(s1, src[0]);
-      s2 = __fadd_rn(s2, src[Co]);
+      const double* src = part + (t * nslot + slot) * 2 * Co + c;
+      s1 = __dadd_rn(s1, src[0]);
+      s2 = __dadd_rn(s2, src[Co]);
     }
   }
   red[row][lc][0] = s1;
@@ -249,8 +261,8 @@ int8_moments_kernel(const float* __restrict__ part, float* __restrict__ moments,
   __syncthreads();
   if (row == 0 && c < Co) {
     for (int r = 1; r < RED_ROWS; ++r) {
-      s1 = __fadd_rn(s1, red[r][lc][0]);
-      s2 = __fadd_rn(s2, red[r][lc][1]);
+      s1 = __dadd_rn(s1, red[r][lc][0]);
+      s2 = __dadd_rn(s2, red[r][lc][1]);
     }
     moments[(long long)b * 2 * Co + c] = s1;
     moments[(long long)b * 2 * Co + Co + c] = s2;
@@ -261,10 +273,10 @@ int8_moments_kernel(const float* __restrict__ part, float* __restrict__ moments,
 
 // x8 (B, H, W, Ci) int8 is contiguous NHWC, hb (B, Ho, Wo, Co) bf16 with
 // (Ho, Wo) = (igemm::out_side(gather, H), igemm::out_side(gather, W)),
-// moments f32 (B, 2, Co).  gather: igemm::CONV_REFLECT (H, W >= 2),
-// CONV_REPLICATE, CONV_ZERO or STRIDE2_ZERO.  packed = 1 runs the wgmma
+// moments f64 (B, 2, Co).  gather: any
+// igemm::Gather (H, W >= igemm::least_side(gather)).  packed = 1 runs the wgmma
 // kernel, refused unless igemm::takes_s8(Co, Ci, Ho Wo): w is the int8
-// weight packed by ops/int8_trunk.py (pack_weight), part f32 scratch
+// weight packed by ops/int8_trunk.py (pack_weight), part f64 scratch
 // (tiles, 2, 2, Co) with tiles = ceil(B Ho Wo / igemm::tile_rows(Co)).
 // packed = 0 runs the mma.sync kernel, refused for Ci % 32, Co % 8: w is
 // (3, 3, Co, Ci), part (B, tiles, 2, Co) with tiles = ceil(Ho Wo / 128).
@@ -276,10 +288,8 @@ extern "C" int nirgan_int8_conv(int device, const void* x8, const void* w,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int least = gather == igemm::CONV_REFLECT ? 2 : 1;
-  if ((gather != igemm::CONV_REFLECT && gather != igemm::CONV_REPLICATE &&
-       gather != igemm::CONV_ZERO && gather != igemm::STRIDE2_ZERO) ||
-      B <= 0 || H < least || W < least)
+  if (gather < igemm::CONV_REFLECT || gather > igemm::STRIDE2_VALID || B <= 0 ||
+      H < igemm::least_side(gather) || W < igemm::least_side(gather))
     return (int)cudaErrorInvalidValue;
   const int Ho = igemm::out_side(gather, H), Wo = igemm::out_side(gather, W);
   if (packed) {
@@ -288,7 +298,7 @@ extern "C" int nirgan_int8_conv(int device, const void* x8, const void* w,
     if (!igemm::takes_s8(Co, Ci, Ho * Wo) || tiles != (m + bm - 1) / bm)
       return (int)cudaErrorInvalidValue;
     const igemm::Shape g{B, H, W, Ci, Ho, Wo, gather};
-    err = igemm::launch_s8(Co, x8, w, hb, static_cast<float*>(part), g, s);
+    err = igemm::launch_s8(Co, x8, w, hb, static_cast<double*>(part), g, s);
     if (err != cudaSuccess) return (int)err;
   } else {
     if (Ci <= 0 || Ci % BK || Co <= 0 || Co % 8 ||
@@ -297,14 +307,14 @@ extern "C" int nirgan_int8_conv(int device, const void* x8, const void* w,
     dim3 grid((unsigned)tiles, (unsigned)((Co + BN - 1) / BN), (unsigned)B);
     int8_conv_kernel<<<grid, THREADS, 0, s>>>(
         static_cast<const int8_t*>(x8), static_cast<const int8_t*>(w),
-        static_cast<__nv_bfloat16*>(hb), static_cast<float*>(part), H, W, Ho,
+        static_cast<__nv_bfloat16*>(hb), static_cast<double*>(part), H, W, Ho,
         Wo, Ci, Co, gather);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   dim3 rgrid((unsigned)((Co + 31) / 32), (unsigned)B);
   int8_moments_kernel<<<rgrid, 32 * RED_ROWS, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(moments), Co, Ho * Wo,
+      static_cast<const double*>(part), static_cast<double*>(moments), Co, Ho * Wo,
       igemm::tile_rows(Co), packed ? 0 : tiles);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,8 @@
 // nirgan_tpu/models/generator.py:271 and the trunk's first _q8, line 147,
 // which quantises the rounded stream): an elementwise
 // pass over the staged bf16 accumulator of kernel D, with the mean and the
-// rstd of each (image, channel) from D's f32 moments and eps' = eps / k^2 of
+// rstd of each (image, channel) from D's f64 moments (each rounded once to
+// f32 as it is read, JAX's f32 moments) and eps' = eps / k^2 of
 // the channel:
 //   mode 0  q = q8(x / s_in)                      the trunk's input stream
 //   mode 1  q = q8(relu((h - mean) rstd) / s_mid)  after conv1
@@ -98,10 +99,10 @@ __device__ __forceinline__ void store_q8(int8_t* p, const float (&v)[8]) {
 
 template <typename T, int MODE>
 __global__ void __launch_bounds__(256)
-int8_norm_kernel(const void* __restrict__ src_, const float* __restrict__ moments,
+int8_norm_kernel(const void* __restrict__ src_, const double* __restrict__ moments,
                  const float* __restrict__ eps, const float* __restrict__ s,
                  const T* __restrict__ x, T* __restrict__ out,
-                 int8_t* __restrict__ q, int HW, int C) {
+                 int8_t* __restrict__ q, int HW, int C, int count) {
   // the image's per-channel constants, each computed once a block: mean,
   // rstd and the scale of C channels
   extern __shared__ float consts[];
@@ -109,13 +110,14 @@ int8_norm_kernel(const void* __restrict__ src_, const float* __restrict__ moment
   float* rstd_s = consts + C;
   float* scale_s = consts + 2 * C;
   const int b = blockIdx.y;
-  const float n = (float)HW;
+  const float n = (float)count;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     scale_s[c] = s ? s[c] : 1.f;
     if (MODE != 0) {
-      const float m = __fdiv_rn(moments[(long long)b * 2 * C + c], n);
-      const float var = __fsub_rn(
-          __fdiv_rn(moments[(long long)b * 2 * C + C + c], n), __fmul_rn(m, m));
+      const float m1 = __double2float_rn(moments[(long long)b * 2 * C + c]);
+      const float m2 = __double2float_rn(moments[(long long)b * 2 * C + C + c]);
+      const float m = __fdiv_rn(m1, n);
+      const float var = __fsub_rn(__fdiv_rn(m2, n), __fmul_rn(m, m));
       mean_s[c] = m;
       rstd_s[c] = __frsqrt_rn(__fadd_rn(var, eps[c]));
     }
@@ -170,9 +172,9 @@ int8_norm_kernel(const void* __restrict__ src_, const float* __restrict__ moment
 }
 
 template <typename T, int MODE>
-cudaError_t launch(const void* src, const float* moments, const float* eps,
+cudaError_t launch(const void* src, const double* moments, const float* eps,
                    const float* s, const void* x, void* out, void* q, int B,
-                   int HW, int C, cudaStream_t stream) {
+                   int HW, int C, int count, cudaStream_t stream) {
   const int c8 = C / 8;
   const int rows = c8 >= 256 ? 1 : 256 / c8;
   const int per_image = (HW + rows - 1) / rows;
@@ -182,7 +184,7 @@ cudaError_t launch(const void* src, const float* moments, const float* eps,
   dim3 grid((unsigned)(per_image < target ? per_image : target), (unsigned)B);
   int8_norm_kernel<T, MODE><<<grid, c8 * rows, 3 * C * sizeof(float), stream>>>(
       src, moments, eps, s, static_cast<const T*>(x), static_cast<T*>(out),
-      static_cast<int8_t*>(q), HW, C);
+      static_cast<int8_t*>(q), HW, C, count);
   return cudaGetLastError();
 }
 
@@ -190,35 +192,39 @@ cudaError_t launch(const void* src, const float* moments, const float* eps,
 
 // mode 0: src the stream (B, HW, C) in dtype (0 = f32, 1 = bf16), s (C,),
 // q (B, HW, C) int8 out.  Modes 1 and 2: src the staged bf16 accumulator,
-// moments (B, 2, C) f32, eps (C,) f32.  Mode 1: s = s_mid, q out.  Mode 2:
+// moments (B, 2, C) f64, eps (C,) f32.  Mode 1: s = s_mid, q out.  Mode 2:
 // x the stream in dtype, out the new stream, and s and q both given (the
 // next block's scale and input) or both null.  Mode 3: s = s_in, out the
-// stream in dtype and q out.  C % 8 == 0, C <= 2048.
-// Returns a cudaError_t.
+// stream in dtype and q out.  C % 8 == 0, C <= 2048.  count: the pixels
+// the moments sum over, HW for a whole image; the tile's where an image is
+// one shard of an H-sharded tile and the moments are the tile's
+// (parallel/spatial.py).  Returns a cudaError_t.
 extern "C" int nirgan_int8_norm(int device, int mode, int dtype, const void* src,
                                 const void* moments, const void* eps,
                                 const void* s, const void* x, void* out,
-                                void* q, int B, int HW, int C, void* stream) {
+                                void* q, int B, int HW, int C, int count,
+                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B <= 0 || HW <= 0 || C <= 0 || C % 8 || C > 2048 || dtype < 0 || dtype > 1)
+  if (B <= 0 || HW <= 0 || C <= 0 || C % 8 || C > 2048 || dtype < 0 || dtype > 1 ||
+      count <= 0)
     return (int)cudaErrorInvalidValue;
   if ((mode != 2 && (!s || !q)) || (mode != 0 && (!moments || !eps)) ||
       (mode == 2 && (!x || !out || (!s != !q))) || (mode == 3 && !out))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* m = static_cast<const float*>(moments);
+  const double* m = static_cast<const double*>(moments);
   const float* e = static_cast<const float*>(eps);
   const float* sc = static_cast<const float*>(s);
   switch (mode * 2 + dtype) {
-    case 0: return (int)launch<float, 0>(src, m, e, sc, x, out, q, B, HW, C, st);
-    case 1: return (int)launch<__nv_bfloat16, 0>(src, m, e, sc, x, out, q, B, HW, C, st);
+    case 0: return (int)launch<float, 0>(src, m, e, sc, x, out, q, B, HW, C, count, st);
+    case 1: return (int)launch<__nv_bfloat16, 0>(src, m, e, sc, x, out, q, B, HW, C, count, st);
     case 2:
-    case 3: return (int)launch<__nv_bfloat16, 1>(src, m, e, sc, x, out, q, B, HW, C, st);
-    case 4: return (int)launch<float, 2>(src, m, e, sc, x, out, q, B, HW, C, st);
-    case 5: return (int)launch<__nv_bfloat16, 2>(src, m, e, sc, x, out, q, B, HW, C, st);
-    case 6: return (int)launch<float, 3>(src, m, e, sc, x, out, q, B, HW, C, st);
-    case 7: return (int)launch<__nv_bfloat16, 3>(src, m, e, sc, x, out, q, B, HW, C, st);
+    case 3: return (int)launch<__nv_bfloat16, 1>(src, m, e, sc, x, out, q, B, HW, C, count, st);
+    case 4: return (int)launch<float, 2>(src, m, e, sc, x, out, q, B, HW, C, count, st);
+    case 5: return (int)launch<__nv_bfloat16, 2>(src, m, e, sc, x, out, q, B, HW, C, count, st);
+    case 6: return (int)launch<float, 3>(src, m, e, sc, x, out, q, B, HW, C, count, st);
+    case 7: return (int)launch<__nv_bfloat16, 3>(src, m, e, sc, x, out, q, B, HW, C, count, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

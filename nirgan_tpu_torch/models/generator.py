@@ -48,6 +48,7 @@ from nirgan_tpu_torch.models.layers import (
     dtype_of,
     use_bias_for,
 )
+from nirgan_tpu_torch.ops.conv import conv2d
 from nirgan_tpu_torch.ops.head_conv import head_conv
 from nirgan_tpu_torch.ops.initializers import Init, normal
 from nirgan_tpu_torch.ops.int8_trunk import int8_d1_forward, int8_trunk_forward
@@ -88,6 +89,30 @@ class ResnetBlock(nn.Module):
         if self.dropout is not None:
             h = self.dropout(h)
         return self.norm2(self._conv(h, self.conv2), residual=x)
+
+    def forward_rows(self, x: torch.Tensor, shard, count: int) -> torch.Tensor:
+        """``forward`` on one shard's rows of an H-sharded tile (serving):
+        each conv is kernel A's VALID mode on the shard's slab (one halo row
+        each side, the trunk's border at the tile's edges and columns), each
+        norm the tile's (``count`` pixels)."""
+        def conv(v, c):
+            return trunk_conv(shard.slab(v, 1, 1, self.padding_type, 1), c.weight, c.bias,
+                              pad=0)
+
+        h = _norm_rows(self.norm1, conv(x, self.conv1), shard, count, relu=True)
+        if self.dropout is not None:
+            h = self.dropout(h)
+        return _norm_rows(self.norm2, conv(h, self.conv2), shard, count, residual=x)
+
+
+def _norm_rows(norm: Norm, x: torch.Tensor, shard, count: int, relu: bool = False,
+               residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``norm`` of an H-sharded tile at one shard's rows: the instance norm
+    split across the shards (``shard.norm``, ``count`` pixels); the batch
+    norm in eval mode and no norm are pixelwise."""
+    if norm.norm_type == "instance":
+        return shard.norm(x, count, relu, residual)
+    return norm(x, relu=relu, residual=residual)
 
 
 class ResnetGenerator(nn.Module):
@@ -233,3 +258,60 @@ class ResnetGenerator(nn.Module):
         if self.post_correction_param is not None:
             h = h * self.post_correction_param.to(h.dtype)
         return h
+
+    @torch.no_grad()
+    def forward_rows(self, x: torch.Tensor, shard,
+                     trunk_q: Optional[dict] = None) -> torch.Tensor:
+        """``forward`` in serving mode on one shard of an H-sharded tile
+        (``parallel/spatial.Shard``): x (B, hi - lo, W, input_nc) holds the
+        shard's rows [lo, hi) of the network input, and the result the
+        shard's rows of the output, (B, 4 t, W', output_nc) with t its trunk
+        rows.  The counterpart of GSPMD's partition of the JAX forward: each
+        layer runs on the shard's slab (``shard.slab``: the neighbours' halo
+        rows, the border at the tile's edges, the border's columns), each
+        convolution without a border of its own (the stem, d0 and d1 on
+        cuDNN, the trunk on kernel A's VALID mode, the int8 trunk and stage
+        2 on kernel D's VALID gathers, the head on kernel C, the transposed
+        convs as in ``forward`` on a slab one row deeper), and each instance
+        norm with the tile's statistics (``shard.norm``; kernel E with the
+        tile's moments and pixel count).  The inject route raises as
+        ``forward`` does without embeddings.
+
+        A sibling of ``forward``, not a path through it: ``forward`` on a
+        one-shard ``Shard`` would copy every map into a slab before each
+        border (kernels A, C and D gather the border in place) and split
+        every norm into two launches (kernel B takes the whole map in one),
+        a cost the one-process serving path has no reason to pay.  So the
+        layer sequence is written twice; a change to one is made to the
+        other, and ``tests/test_torch_spatial.py``
+        (``test_world_of_one_matches_forward``) holds them equal."""
+        if trunk_q is not None and self.norm_type != "instance":
+            raise ValueError("int8 trunk is a serving-only path and requires "
+                             "affine-free InstanceNorm (norm_type='instance')")
+        # the tile's rows at each resolution: two k3 s2 p1 halvings, rounded up
+        n1 = (shard.total_rows + 1) // 2
+        n2 = (n1 + 1) // 2
+        h = x.to(self.compute_dtype)
+        h = self.c0(shard.slab(h, 3, 3, "reflect", 3))
+        h = _norm_rows(self.n0, h, shard, shard.total_rows * h.shape[2], relu=True)
+        h = conv2d(shard.down_slab(h), self.d0.weight, self.d0.bias, stride=2)
+        if self.inject:
+            self._inject(h, None)  # raises: no embeddings reach a shard
+        h = _norm_rows(self.nd0, h, shard, n1 * h.shape[2], relu=True)
+        h8 = None
+        if trunk_q is not None and "d1" in trunk_q:
+            h, h8 = int8_d1_forward(h, trunk_q["d1"], trunk_q["s_in"][0],
+                                    self.compute_dtype, shard, n2 * ((h.shape[2] - 1) // 2 + 1))
+        else:
+            h = conv2d(shard.down_slab(h), self.d1.weight, self.d1.bias, stride=2)
+            h = _norm_rows(self.nd1, h, shard, n2 * h.shape[2], relu=True)
+        trunk = n2 * h.shape[2]
+        if trunk_q is not None:
+            h = int8_trunk_forward(h, trunk_q, self.padding_type, h8, shard, trunk)
+        for i in range(self.n_blocks if trunk_q is None else 0):
+            h = getattr(self, f"r{i}").forward_rows(h, shard, trunk)
+        for up, norm, rows in ((self.u0, self.nu0, 2 * n2), (self.u1, self.nu1, 4 * n2)):
+            t = h.shape[1]
+            h = up(shard.up_slab(h))[:, :2 * t]
+            h = _norm_rows(norm, h, shard, rows * h.shape[2], relu=True)
+        return head_conv(shard.slab(h, 3, 3, "reflect", 3), self.c1.weight, self.c1.bias)

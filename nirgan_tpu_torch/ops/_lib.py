@@ -49,13 +49,16 @@ _SIGNATURES = {
     "nirgan_instance_norm_bwd": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _P),
     "nirgan_instance_norm_max_clusters": (_I, _I, _I, _I, _I, _I, _I, _I),
+    "nirgan_instance_norm_sums": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "nirgan_instance_norm_apply": (_I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                                   _I, _I, _F, _I, _P),
     "nirgan_head_conv": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "nirgan_convt_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _P),
     "nirgan_int8_conv": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P),
     "nirgan_int8_norm": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _P),
+                         _I, _P),
 }
 
 

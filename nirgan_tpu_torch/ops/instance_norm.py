@@ -27,7 +27,18 @@ PyTorch ops (``instance_norm_bwd_bwd``), where the JAX package lets XLA
 differentiate its norm twice.  It is the entry the models call,
 the counterpart of ``nirgan_tpu/ops/norm.py`` (affine-free, stat-free
 everywhere, reference ``model/networks.py:30``).
+
+The split forward serves one shard of an H-sharded tile
+(``parallel/spatial.py``), whose statistics cover every shard:
+``instance_norm_sums`` (``nirgan::instance_norm_sums``) gives this shard's
+Sigma x and Sigma x^2 as exact (hi, lo) pairs, (B, 4, C); the shards'
+sums are gathered, and ``instance_norm_apply`` (``nirgan::instance_norm_apply``)
+adds them in shard order and normalises this shard with the tile's pixel
+count, the ReLU and the skip fused as in kernel B.  On a card both launch
+the streaming regime's kernels; on the CPU ``instance_norm_sums_plain``
+and ``instance_norm_apply_plain`` are the JAX formula over the sums.
 """
+
 
 from __future__ import annotations
 
@@ -39,6 +50,8 @@ from nirgan_tpu_torch.ops import _lib, _registry
 
 NAME = "instance_norm"
 BWD_NAME = "instance_norm_bwd"
+SUMS_NAME = "instance_norm_sums"
+APPLY_NAME = "instance_norm_apply"
 # what a block may use of an SM's shared memory
 MAX_SMEM = 232448
 # the resident kernel's scratch ahead of its slab (SCRATCH_BYTES in the
@@ -224,6 +237,38 @@ def instance_norm_bwd_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
     return dx.to(x.dtype), dg.to(g.dtype)
 
 
+def instance_norm_sums_plain(x: torch.Tensor) -> torch.Tensor:
+    """(B, 4, C): Sigma x and Sigma x^2 over H, W in f32 (f64 for f64 x),
+    then the low parts of the kernel's exact pairs, zero here."""
+    x32 = _wide(x)
+    a, q = x32.sum(dim=(1, 2)), x32.square().sum(dim=(1, 2))
+    zero = torch.zeros_like(a)
+    return torch.stack([a, q, zero, zero], 1)
+
+
+def stats_from_sums(parts: torch.Tensor, count: int, eps: float = 1e-5) -> torch.Tensor:
+    """(B, 2, C) mean and 1 / sqrt(var + eps) from the (B, P, 4, C) sums of
+    P shards, added in shard order, over ``count`` pixels: ``_stats``'s
+    formula, var = E[x^2] - E[x]^2 without a clamp."""
+    total = parts[:, 0]
+    for i in range(1, parts.shape[1]):
+        total = total + parts[:, i]
+    n = torch.full_like(total[:, 0], count)  # a true division on every device
+    mean = (total[:, 0] + total[:, 2]) / n
+    var = (total[:, 1] + total[:, 3]) / n - mean.square()
+    return torch.stack([mean, torch.reciprocal(torch.sqrt(var + eps))], 1)
+
+
+def instance_norm_apply_plain(x: torch.Tensor, parts: torch.Tensor, count: int,
+                              eps: float = 1e-5, relu: bool = False,
+                              residual: torch.Tensor | None = None) -> torch.Tensor:
+    """``instance_norm_plain`` with the statistics of ``stats_from_sums``:
+    this shard of a tile normalised with the tile's statistics."""
+    y = _normalized(x, stats_from_sums(parts, count, eps))
+    y = torch.relu(y) if relu else y
+    return residual + y if residual is not None else y
+
+
 def _check(x: torch.Tensor, name: str) -> int:
     req = _lib.require
     req(x.is_cuda, name, "x must be a CUDA tensor")
@@ -333,6 +378,60 @@ def instance_norm_bwd_cuda(x: torch.Tensor, g: torch.Tensor,
 instance_norm_bwd_cuda.launches = 0
 
 
+def instance_norm_sums_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch the split forward's sums (``nirgan_instance_norm_sums``) on
+    contiguous NHWC bf16 or f32, C a multiple of 8: (B, 4, C) f32 exact
+    pairs, the arguments and result of ``instance_norm_sums_plain``."""
+    code = _check(x, SUMS_NAME)
+    b, h, w, c = x.shape
+    plan = streaming_plan(b, h * w, c, x.element_size())
+    part = _scratch(x, plan)
+    sums = torch.empty((b, 4, c), device=x.device, dtype=torch.float32)
+    _lib.require(_lib.aligned(x), SUMS_NAME, "x must be 16-byte aligned")
+    err = _lib.library().nirgan_instance_norm_sums(
+        x.device.index, code, x.data_ptr(), part.data_ptr(), sums.data_ptr(), b,
+        h * w, c, plan.group, plan.slabs, _lib.stream_of(x))
+    _lib.check(err, SUMS_NAME)
+    instance_norm_sums_cuda.launches += 1
+    return sums
+
+
+instance_norm_sums_cuda.launches = 0
+
+
+def instance_norm_apply_cuda(x: torch.Tensor, parts: torch.Tensor, count: int,
+                             eps: float = 1e-5, relu: bool = False,
+                             residual: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the split forward's elementwise pass
+    (``nirgan_instance_norm_apply``): the arguments and result of
+    ``instance_norm_apply_plain``, ``parts`` the (B, P, 4, C) f32 sums of
+    the P shards on the card."""
+    req = _lib.require
+    code = _check(x, APPLY_NAME)
+    b, h, w, c = x.shape
+    req(parts.is_cuda and parts.dtype == torch.float32 and parts.dim() == 4
+        and tuple(parts.shape[::2]) == (b, 4) and parts.shape[3] == c
+        and parts.is_contiguous(), APPLY_NAME,
+        f"parts must be a contiguous ({b}, P, 4, {c}) f32 CUDA tensor")
+    req(count > 0, APPLY_NAME, f"count must be positive, got {count}")
+    if residual is not None:
+        _like(x, residual, "residual", APPLY_NAME)
+    plan = streaming_plan(b, h * w, c, x.element_size())
+    y = torch.empty_like(x)
+    req(_lib.aligned(x, y, *([] if residual is None else [residual])), APPLY_NAME,
+        "tensors must be 16-byte aligned")
+    err = _lib.library().nirgan_instance_norm_apply(
+        x.device.index, code, x.data_ptr(), _ptr(residual), parts.data_ptr(),
+        parts.shape[1], y.data_ptr(), b, h * w, c, plan.group, plan.slabs, int(count),
+        float(eps), int(relu), _lib.stream_of(x))
+    _lib.check(err, APPLY_NAME)
+    instance_norm_apply_cuda.launches += 1
+    return y
+
+
+instance_norm_apply_cuda.launches = 0
+
+
 def max_active_clusters(x: torch.Tensor, plan: Plan, backward: bool) -> int:
     """How many clusters of a resident ``plan`` the card holds at once
     (``cudaOccupancyMaxActiveClusters``): the H100's GPCs are uneven, so
@@ -401,6 +500,51 @@ _registry.define("instance_norm_bwd(Tensor x, Tensor g, Tensor stats, bool relu)
                  _routed_bwd, _fake_bwd, _backward_bwd, _setup_bwd)
 _registry.define("instance_norm(Tensor x, Tensor? residual, float eps, bool relu) "
                  "-> (Tensor, Tensor)", _routed, _fake, _backward, _setup)
+
+
+def _routed_sums(x):
+    """``nirgan::instance_norm_sums``'s CPU and CUDA implementation."""
+    return (instance_norm_sums_cuda if _lib.route(x, SUMS_NAME)
+            else instance_norm_sums_plain)(x)
+
+
+def _fake_sums(x):
+    _lib.route(x, SUMS_NAME)
+    dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
+    return x.new_empty((x.shape[0], 4, x.shape[-1]), dtype=dtype)
+
+
+def _routed_apply(x, parts, residual, count, eps, relu):
+    """``nirgan::instance_norm_apply``'s CPU and CUDA implementation."""
+    fn = instance_norm_apply_cuda if _lib.route(x, APPLY_NAME) else instance_norm_apply_plain
+    return fn(x, parts, count, eps, relu, residual)
+
+
+def _fake_apply(x, parts, residual, count, eps, relu):
+    _lib.route(x, APPLY_NAME)
+    return x.new_empty(x.shape)
+
+
+_registry.define("instance_norm_sums(Tensor x) -> Tensor", _routed_sums, _fake_sums)
+_registry.define("instance_norm_apply(Tensor x, Tensor parts, Tensor? residual, int count, "
+                 "float eps, bool relu) -> Tensor", _routed_apply, _fake_apply)
+
+
+def instance_norm_sums(x: torch.Tensor) -> torch.Tensor:
+    """This shard's sums for the split forward, (B, 4, C) f32: kernel B's
+    sums on a card, ``instance_norm_sums_plain`` on the CPU.  Serving
+    only: no gradient."""
+    return torch.ops.nirgan.instance_norm_sums(x)
+
+
+def instance_norm_apply(x: torch.Tensor, parts: torch.Tensor, count: int,
+                        eps: float = 1e-5, relu: bool = False,
+                        residual: torch.Tensor | None = None) -> torch.Tensor:
+    """This shard normalised with the statistics of the (B, P, 4, C) sums
+    of all P shards over ``count`` pixels, ReLU and skip as in
+    ``instance_norm``: kernel B's elementwise pass on a card,
+    ``instance_norm_apply_plain`` on the CPU.  Serving only."""
+    return torch.ops.nirgan.instance_norm_apply(x, parts, residual, count, eps, relu)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5, relu: bool = False,

@@ -23,9 +23,11 @@ w8)`` (``nirgan_tpu/ops/int8_trunk.py:103-108``) and the conv of
 ``int8_d1_forward`` (``:130-136``), XLA convolutions with an int32 result,
 not Pallas kernels: the 3x3 conv of int8 NHWC x8 with its border gathered
 in the kernel (the trunk's reflect, replicate or zero border at stride 1;
-d1's zero border at stride 2), exact s8 x s8 -> s32 sums on the tensor
-cores, and in the epilogue the accumulator rounded to bf16 and Sigma a,
-Sigma a^2 per (image, channel) in f32 of the unrounded one.  At the serving
+d1's zero border at stride 2; none, ``"valid"``, on one shard's slab of an
+H-sharded tile), exact s8 x s8 -> s32 sums on the tensor cores, and in the
+epilogue the accumulator rounded to bf16 and Sigma a, Sigma a^2 per (image,
+channel) of the unrounded one, exact sums kept in f64 (kernel E rounds them
+to f32 as it reads them; a shard's are first added to the others').  At the serving
 trunk's shape (4, 133^2, 256) it is 83.5 G int8 operations against 55 MB
 moved: bound by the tensor cores, 0.042 ms at the H100's 1,979 TOPS; d1 at
 (4, 266^2, 128) -> (4, 133^2, 256) is 41.7 G operations against 72 MB,
@@ -78,9 +80,11 @@ CONV_NAME = "int8_conv"
 NORM_NAME = "int8_norm"
 IN_EPS = 1e-5  # torch InstanceNorm2d's default, as ops/instance_norm.py
 CALIB_ROWS = 16  # the rows of a batch that calibrate (build_trunk_q)
-# kernel D's gathers (igemm::Gather): the trunk's border at stride 1, and
-# the zero border at stride 2
-GATHERS = {("reflect", 1): 0, ("replicate", 1): 3, ("zero", 1): 4, ("zero", 2): 2}
+# kernel D's gathers (igemm::Gather): the trunk's border at stride 1, the
+# zero border at stride 2, and no border ("valid": a slab that carries its
+# own, one shard's rows with its halo) at stride 1 and 2
+GATHERS = {("reflect", 1): 0, ("replicate", 1): 3, ("zero", 1): 4, ("zero", 2): 2,
+           ("valid", 1): 1, ("valid", 2): 5}
 PADS = {"reflect": reflect_pad2d, "replicate": replicate_pad2d, "zero": zero_pad2d}
 
 
@@ -180,9 +184,12 @@ def calibrate_trunk(netG, x_padded: torch.Tensor,
 
 
 # ---------------------------------------------------------------- kernel D
-def out_side(n: int, stride: int) -> int:
+def out_side(n: int, stride: int, border: str = "reflect") -> int:
     """The output side of kernel D's 3x3 conv over a side of n: n at stride
-    1, (n - 1) // 2 + 1 at stride 2 (k3 s2 p1)."""
+    1, (n - 1) // 2 + 1 at stride 2 (k3 s2 p1); without a border
+    (``"valid"``) n - 2 and (n - 3) // 2 + 1."""
+    if border == "valid":
+        return n - 2 if stride == 1 else (n - 3) // 2 + 1
     return n if stride == 1 else (n - 1) // 2 + 1
 
 
@@ -191,21 +198,25 @@ def conv_i8_plain(x8: torch.Tensor, w8: torch.Tensor, border: str = "reflect",
     """The int32 accumulator of the 3x3 conv of int8 NHWC x8 with a
     (Cout, Cin, 3, 3) int8 weight: at stride 1 with the trunk's ``border``
     (``_conv_i8`` on ``_pad2d``'s input), at stride 2 with the zero border
-    (``int8_d1_forward``'s conv); float64 sums of integers, exact."""
-    xp = PADS[border](x8.double(), 1)
+    (``int8_d1_forward``'s conv), or without a border (``"valid"``) at
+    either stride; float64 sums of integers, exact."""
+    xp = x8.double() if border == "valid" else PADS[border](x8.double(), 1)
     acc = F.conv2d(xp.permute(0, 3, 1, 2), w8.double(), stride=stride)
     return acc.permute(0, 2, 3, 1).to(torch.int32)
 
 
 def conv_moments_plain(x8: torch.Tensor, w8: torch.Tensor, border: str = "reflect",
                        stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
-    """``_conv_moments``: (the accumulator rounded to bf16, NHWC; its f32
-    moments (B, 2, Cout): Sigma a and Sigma a^2 over the pixels of each image,
-    of the accumulator in f32 before the bf16 rounding), the conv of
-    ``conv_i8_plain``."""
-    a32 = conv_i8_plain(x8, w8, border, stride).float()
-    moments = torch.stack([a32.sum(dim=(1, 2)), a32.square().sum(dim=(1, 2))], 1)
-    return a32.to(torch.bfloat16), moments
+    """``_conv_moments``: (the accumulator rounded to bf16, NHWC; its f64
+    moments (B, 2, Cout): Sigma a and Sigma a^2 over the pixels of each
+    image, of the accumulator before the bf16 rounding), the conv of
+    ``conv_i8_plain``.  The moments are exact (for sums under 2^53) as kernel
+    D's are, so that one shard of an H-sharded tile can add its own to the
+    other shards'; kernel E rounds them to f32 (JAX sums in f32)."""
+    acc = conv_i8_plain(x8, w8, border, stride)
+    a = acc.double()
+    moments = torch.stack([a.sum(dim=(1, 2)), a.square().sum(dim=(1, 2))], 1)
+    return acc.float().to(torch.bfloat16), moments
 
 
 def kernel_weight(w8: torch.Tensor) -> torch.Tensor:
@@ -266,12 +277,12 @@ def _launch(x8: torch.Tensor, w8: torch.Tensor, packed: bool,
         f"w8 must be int8 (Cout, {ci}, 3, 3), got {w8.dtype} {tuple(w8.shape)}")
     req(takes_conv(ci, co), CONV_NAME,
         f"channels {ci}->{co}: the kernel needs Cin % 32 == 0 and Cout % 8 == 0")
-    least = 2 if border == "reflect" else 1
+    least = {"reflect": 2, "valid": 3}.get(border, 1)
     req(h >= least and w >= least and b > 0, CONV_NAME,
         f"the {border} border needs H, W >= {least}")
     req(b * h * w * max(ci, co) < 2 ** 31, CONV_NAME, "tensor too large")
     wk = laid_out(w8, x8.device, torch.int8, pack_weight if packed else kernel_weight)
-    ho, wo = out_side(h, stride), out_side(w, stride)
+    ho, wo = out_side(h, stride, border), out_side(w, stride, border)
     if packed:
         tiles = -(-b * ho * wo // tile_rows(co))
         scratch = (tiles, 2, 2, co)
@@ -279,8 +290,8 @@ def _launch(x8: torch.Tensor, w8: torch.Tensor, packed: bool,
         tiles = conv_tiles(ho * wo)
         scratch = (b, tiles, 2, co)
     hb = torch.empty((b, ho, wo, co), device=x8.device, dtype=torch.bfloat16)
-    part = torch.empty(scratch, device=x8.device, dtype=torch.float32)
-    moments = torch.empty((b, 2, co), device=x8.device, dtype=torch.float32)
+    part = torch.empty(scratch, device=x8.device, dtype=torch.float64)
+    moments = torch.empty((b, 2, co), device=x8.device, dtype=torch.float64)
     req(_lib.aligned(x8, wk, hb), CONV_NAME, "tensors must be 16-byte aligned")
     err = _lib.library().nirgan_int8_conv(
         x8.device.index, x8.data_ptr(), wk.data_ptr(), hb.data_ptr(),
@@ -296,7 +307,7 @@ def conv_moments_cuda(x8: torch.Tensor, w8: torch.Tensor, border: str = "reflect
     kernel where ``takes_wgmma`` (counted in output pixels): the arguments
     and results of ``conv_moments_plain``."""
     _lib.require(x8.dim() == 4, CONV_NAME, "x8 must be (B, H, W, C)")
-    hw = out_side(x8.shape[1], stride) * out_side(x8.shape[2], stride)
+    hw = out_side(x8.shape[1], stride, border) * out_side(x8.shape[2], stride, border)
     out = _launch(x8, w8, takes_wgmma(x8.shape[3], w8.shape[0], hw), border, stride)
     conv_moments_cuda.launches += 1
     key = (border, stride)
@@ -318,9 +329,9 @@ def _fake_conv(x8, w8, border, stride):
     _lib.route(x8, CONV_NAME)
     b, h, w, _ = x8.shape
     co = w8.shape[0]
-    return (x8.new_empty((b, out_side(h, stride), out_side(w, stride), co),
+    return (x8.new_empty((b, out_side(h, stride, border), out_side(w, stride, border), co),
                          dtype=torch.bfloat16),
-            x8.new_empty((b, 2, co), dtype=torch.float32))
+            x8.new_empty((b, 2, co), dtype=torch.float64))
 
 
 _registry.define("int8_conv_moments(Tensor x8, Tensor w8, str border, int stride) "
@@ -336,12 +347,16 @@ def conv_moments(x8: torch.Tensor, w8: torch.Tensor, border: str = "reflect",
 
 # ---------------------------------------------------------------- kernel E
 def norm_from_moments(hb: torch.Tensor, moments: torch.Tensor,
-                      eps_adj: torch.Tensor) -> torch.Tensor:
+                      eps_adj: torch.Tensor, count: Optional[int] = None) -> torch.Tensor:
     """``_norm_from_moments``: (hb - mean) * rsqrt(var + eps') in f32, with
-    mean and var of each (image, channel) from the moments over H W."""
+    mean and var of each (image, channel) from the moments (D's f64, rounded
+    to f32 first, as kernel E reads them) over ``count`` pixels: H W by
+    default, the tile's where hb is one shard of an H-sharded tile and the
+    moments are the tile's."""
+    moments = moments.float()
     # a true division, as JAX's and kernel E's: torch divides a CUDA tensor
     # by a Python number through its reciprocal
-    n = torch.full_like(moments[:, 0], hb.shape[1] * hb.shape[2])
+    n = torch.full_like(moments[:, 0], count or hb.shape[1] * hb.shape[2])
     mean = moments[:, 0] / n
     var = moments[:, 1] / n - mean.square()
     rstd = torch.rsqrt(var + eps_adj)
@@ -354,29 +369,30 @@ def quantize_plain(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 def norm_relu_quant_plain(hb: torch.Tensor, moments: torch.Tensor,
-                          eps_adj: torch.Tensor, s_mid: torch.Tensor) -> torch.Tensor:
+                          eps_adj: torch.Tensor, s_mid: torch.Tensor,
+                          count: Optional[int] = None) -> torch.Tensor:
     """Mode 1, after conv1: ``q8(relu(norm) / s_mid)``, the norm kept in f32
     up to the division."""
-    return q8(torch.relu(norm_from_moments(hb, moments, eps_adj)) / s_mid)
+    return q8(torch.relu(norm_from_moments(hb, moments, eps_adj, count)) / s_mid)
 
 
 def norm_skip_quant_plain(hb: torch.Tensor, moments: torch.Tensor,
                           eps_adj: torch.Tensor, x: torch.Tensor,
-                          s_next: Optional[torch.Tensor]):
+                          s_next: Optional[torch.Tensor], count: Optional[int] = None):
     """Mode 2, after conv2: the stream ``x + norm.to(x.dtype)`` in x's dtype,
     and, where a next block exists (``s_next``), its quantised input
     ``q8(stream.f32 / s_next)``, else None."""
-    out = x + norm_from_moments(hb, moments, eps_adj).to(x.dtype)
+    out = x + norm_from_moments(hb, moments, eps_adj, count).to(x.dtype)
     return out, (quantize_plain(out, s_next) if s_next is not None else None)
 
 
 def norm_relu_stream_quant_plain(hb: torch.Tensor, moments: torch.Tensor,
                                  eps_adj: torch.Tensor, s: torch.Tensor,
-                                 dtype: torch.dtype):
+                                 dtype: torch.dtype, count: Optional[int] = None):
     """Mode 3, after stage 2's d1 conv: the stream ``relu(norm).to(dtype)``
     (``int8_d1_forward(...).astype(compute_dtype)``) and the trunk's first
     input ``q8(stream.f32 / s)``, quantised from the rounded stream."""
-    out = torch.relu(norm_from_moments(hb, moments, eps_adj)).to(dtype)
+    out = torch.relu(norm_from_moments(hb, moments, eps_adj, count)).to(dtype)
     return out, quantize_plain(out, s)
 
 
@@ -384,31 +400,33 @@ def norm_quant_plain(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
                      moments: Optional[torch.Tensor] = None,
                      eps_adj: Optional[torch.Tensor] = None,
                      x: Optional[torch.Tensor] = None,
-                     dtype: Optional[torch.dtype] = None):
+                     dtype: Optional[torch.dtype] = None,
+                     count: Optional[int] = None):
     """Kernel E's plain version under the kernel wrapper's signature: mode 0
     ``quantize_plain``, 1 ``norm_relu_quant_plain``, 2
     ``norm_skip_quant_plain``, 3 ``norm_relu_stream_quant_plain``."""
     if mode == 0:
         return quantize_plain(src, s)
     if mode == 1:
-        return norm_relu_quant_plain(src, moments, eps_adj, s)
+        return norm_relu_quant_plain(src, moments, eps_adj, s, count)
     if mode == 3:
-        return norm_relu_stream_quant_plain(src, moments, eps_adj, s, dtype)
-    return norm_skip_quant_plain(src, moments, eps_adj, x, s)
+        return norm_relu_stream_quant_plain(src, moments, eps_adj, s, dtype, count)
+    return norm_skip_quant_plain(src, moments, eps_adj, x, s, count)
 
 
 def norm_quant_cuda(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
                     moments: Optional[torch.Tensor] = None,
                     eps_adj: Optional[torch.Tensor] = None,
                     x: Optional[torch.Tensor] = None,
-                    dtype: Optional[torch.dtype] = None):
+                    dtype: Optional[torch.dtype] = None,
+                    count: Optional[int] = None):
     """Launch kernel E in ``mode`` (0 to 3) on a card.  ``src``: the
     stream (mode 0, bf16 or f32) or the staged bf16 accumulator (modes 1 to
     3), contiguous NHWC; ``s``: the (C,) scale the quantised output is
     divided by (None in mode 2 after the last block); ``moments`` (B, 2, C)
     and ``eps_adj`` (C,) f32 in modes 1 to 3; ``x`` the stream the skip
-    adds to, in mode 2; ``dtype`` the stream's (bf16 or f32) in mode 3.
-    Returns the int8 output (mode 0, 1) or (stream, int8 or None) (modes 2,
+    adds to, in mode 2; ``dtype`` the stream's (bf16 or f32) in mode 3;
+    ``count`` the pixels the moments sum over (H W by default).  Returns the int8 output (mode 0, 1) or (stream, int8 or None) (modes 2,
     3)."""
     req = _lib.require
     req(mode in (0, 1, 2, 3), NORM_NAME, f"mode must be 0 to 3, got {mode}")
@@ -421,10 +439,10 @@ def norm_quant_cuda(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
         code = _lib.dtype_code(src, NORM_NAME)
     else:
         req(src.dtype == torch.bfloat16, NORM_NAME, "the staged accumulator is bf16")
-        req(moments is not None and moments.dtype == torch.float32
+        req(moments is not None and moments.dtype == torch.float64
             and tuple(moments.shape) == (b, 2, c) and moments.is_contiguous()
             and eps_adj is not None and tuple(eps_adj.shape) == (c,), NORM_NAME,
-            f"moments must be ({b}, 2, {c}) f32 and eps_adj ({c},)")
+            f"moments must be D's ({b}, 2, {c}) f64 and eps_adj ({c},)")
         code = 1
     if mode == 2:
         req(x is not None and x.shape == src.shape and x.is_contiguous(),
@@ -452,7 +470,8 @@ def norm_quant_cuda(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
 
     err = _lib.library().nirgan_int8_norm(
         src.device.index, mode, code, src.data_ptr(), ptr(moments), ptr(eps32),
-        ptr(s32), ptr(x), ptr(out), ptr(q), b, h * w, c, _lib.stream_of(src))
+        ptr(s32), ptr(x), ptr(out), ptr(q), b, h * w, c, int(count or h * w),
+        _lib.stream_of(src))
     _lib.check(err, NORM_NAME)
     norm_quant_cuda.launches += 1
     norm_quant_cuda.by_mode[mode] = norm_quant_cuda.by_mode.get(mode, 0) + 1
@@ -463,15 +482,15 @@ norm_quant_cuda.launches = 0
 norm_quant_cuda.by_mode = {}  # the launches by mode
 
 
-def _routed_norm(mode, src, s, moments, eps_adj, x, dtype):
+def _routed_norm(mode, src, s, moments, eps_adj, x, dtype, count=None):
     """``nirgan::int8_norm_quant``'s CPU and CUDA implementation: (stream,
     int8) in every mode, the stream None in modes 0 and 1."""
     fwd = norm_quant_cuda if _lib.route(src, NORM_NAME) else norm_quant_plain
-    out = fwd(mode, src, s, moments, eps_adj, x, dtype)
+    out = fwd(mode, src, s, moments, eps_adj, x, dtype, count)
     return out if mode in (2, 3) else (None, out)
 
 
-def _fake_norm(mode, src, s, moments, eps_adj, x, dtype):
+def _fake_norm(mode, src, s, moments, eps_adj, x, dtype, count=None):
     _lib.route(src, NORM_NAME)
     q = src.new_empty(src.shape, dtype=torch.int8) if s is not None else None
     if mode == 2:
@@ -482,7 +501,8 @@ def _fake_norm(mode, src, s, moments, eps_adj, x, dtype):
 
 
 _registry.define("int8_norm_quant(int mode, Tensor src, Tensor? s, Tensor? moments, "
-                 "Tensor? eps_adj, Tensor? x, ScalarType? dtype) -> (Tensor?, Tensor?)",
+                 "Tensor? eps_adj, Tensor? x, ScalarType? dtype, int? count=None) "
+                 "-> (Tensor?, Tensor?)",
                  _routed_norm, _fake_norm)
 
 
@@ -490,45 +510,68 @@ def norm_quant(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
                moments: Optional[torch.Tensor] = None,
                eps_adj: Optional[torch.Tensor] = None,
                x: Optional[torch.Tensor] = None,
-               dtype: Optional[torch.dtype] = None):
+               dtype: Optional[torch.dtype] = None,
+               count: Optional[int] = None):
     """Kernel E on a card, its plain version on the CPU (the arguments and
     results of ``norm_quant_cuda``)."""
-    out, q = torch.ops.nirgan.int8_norm_quant(mode, src, s, moments, eps_adj, x, dtype)
+    out, q = torch.ops.nirgan.int8_norm_quant(mode, src, s, moments, eps_adj, x, dtype,
+                                              count)
     return (out, q) if mode in (2, 3) else q
 
 
 # ------------------------------------------------------------------ trunk
 def int8_d1_forward(x: torch.Tensor, qd1: dict, s_next: torch.Tensor,
-                    dtype: Optional[torch.dtype] = None) -> tuple:
+                    dtype: Optional[torch.dtype] = None, shard=None,
+                    count: Optional[int] = None) -> tuple:
     """Stage 2 (``int8_d1_forward``): the d1 downsample conv (3x3, stride
     2, zero border, 2 ngf -> 4 ngf) with its affine-free norm and ReLU in
     accumulator units.  x (B, H, W, 2 ngf) is the ReLU'd stream after
     ``nd0``; returns (the stream (B, (H - 1) // 2 + 1, ..., 4 ngf) in
     ``dtype``, x's by default, and its quantisation by ``s_next``, the
     trunk's first input).  Three launches: E (mode 0) quantises x by
-    ``qd1["s_in"]``, D convolves at stride 2, E (mode 3) ends it."""
+    ``qd1["s_in"]``, D convolves at stride 2, E (mode 3) ends it.  On one
+    shard of an H-sharded tile (``shard``, ``parallel/spatial.Shard``) D
+    runs VALID at stride 2 on the shard's slab, the moments are the tile's
+    (the shards' exact sums added in shard order) and E divides by the
+    tile's ``count`` pixels."""
     x = x.contiguous()
     x8 = norm_quant(0, x, qd1["s_in"])
-    hb, m = conv_moments(x8, qd1["w"], "zero", 2)
-    return norm_quant(3, hb, s_next, m, qd1["eps"], dtype=dtype or x.dtype)
+    if shard is None:
+        hb, m = conv_moments(x8, qd1["w"], "zero", 2)
+    else:
+        hb, m = conv_moments(shard.down_slab(x8), qd1["w"], "valid", 2)
+        m = shard.add(m)
+    return norm_quant(3, hb, s_next, m, qd1["eps"], dtype=dtype or x.dtype, count=count)
 
 
 def int8_trunk_forward(x: torch.Tensor, pack: dict, padding_type: str = "reflect",
-                       x8: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       x8: Optional[torch.Tensor] = None, shard=None,
+                       count: Optional[int] = None) -> torch.Tensor:
     """The residual trunk in int8 (``int8_trunk_forward``): x (B, H, W, C)
     the float stream after ``nd1`` (or stage 2's d1), each conv with the
     trunk's ``padding_type`` border; returns the stream after the last
     block, in x's dtype.  A forward is one launch of E to quantise the input
     (none where ``x8``, that quantisation, is given), then per block D, E
-    (mode 1), D, E (mode 2): 2n launches of D, 2n + 1 of E."""
+    (mode 1), D, E (mode 2): 2n launches of D, 2n + 1 of E.  On one shard
+    of an H-sharded tile (``shard``) each D runs VALID on the shard's slab
+    (one halo row each side, the border at the tile's edges and columns),
+    the moments are the tile's (the shards' exact sums added) and E divides
+    by its ``count`` pixels."""
     n_blocks = len(pack["w1"])
     x = x.contiguous()
     if x8 is None:
         x8 = norm_quant(0, x, pack["s_in"][0])
+
+    def conv(v8, w8):
+        if shard is None:
+            return conv_moments(v8, w8, padding_type)
+        hb, m = conv_moments(shard.slab(v8, 1, 1, padding_type, 1), w8, "valid")
+        return hb, shard.add(m)
+
     for i in range(n_blocks):
-        hb, m = conv_moments(x8, pack["w1"][i], padding_type)
-        h8 = norm_quant(1, hb, pack["s_mid"][i], m, pack["eps1"][i])
-        hb, m = conv_moments(h8, pack["w2"][i], padding_type)
+        hb, m = conv(x8, pack["w1"][i])
+        h8 = norm_quant(1, hb, pack["s_mid"][i], m, pack["eps1"][i], count=count)
+        hb, m = conv(h8, pack["w2"][i])
         s_next = pack["s_in"][i + 1] if i + 1 < n_blocks else None
-        x, x8 = norm_quant(2, hb, s_next, m, pack["eps2"][i], x)
+        x, x8 = norm_quant(2, hb, s_next, m, pack["eps2"][i], x, count=count)
     return x

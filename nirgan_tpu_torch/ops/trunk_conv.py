@@ -162,10 +162,12 @@ def trunk_conv_cuda(x: torch.Tensor, weight: torch.Tensor,
         b, hi, wi, ci, ho, wo, co, pad, int(packed), _lib.stream_of(x))
     _lib.check(err, NAME)
     trunk_conv_cuda.launches += 1
+    trunk_conv_cuda.by_pad[pad] = trunk_conv_cuda.by_pad.get(pad, 0) + 1
     return y
 
 
 trunk_conv_cuda.launches = 0
+trunk_conv_cuda.by_pad = {}  # the launches by pad mode (1 reflect, 0 VALID)
 
 
 def trunk_conv_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,

@@ -1,6 +1,10 @@
-"""Data parallelism over ``torch.distributed`` (``parallel/mesh.py``),
-counterpart of ``nirgan_tpu/parallel``.  The H-sharded single tile
-(``nirgan_tpu/parallel/spatial.py``) is not ported yet."""
+"""Data parallelism over ``torch.distributed`` (``parallel/mesh.py``) and
+the H-sharded single tile (``parallel/spatial.py``: ``predict_large_tile``,
+``predict_tiles_2d`` over a (data, spatial) ``Grid``), counterparts of
+``nirgan_tpu/parallel``.  On the CPU the processes join a gloo group
+(``initialize_multihost(init_method=..., backend="gloo", device="cpu")``);
+on cards, one process a card under ``torchrun --nproc-per-node N``
+(``initialize_multihost()``, NCCL)."""
 
 from nirgan_tpu_torch.parallel.mesh import (
     Mesh,

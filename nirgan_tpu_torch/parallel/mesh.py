@@ -335,24 +335,26 @@ def all_gather(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     return _AllGather.apply(x, mesh.rank, mesh.world_size)
 
 
-def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> list:
+def all_gather_rows(x: torch.Tensor, mesh: Mesh, group=None) -> list:
     """Every process's ``x`` (rows, ...), whose row counts may differ, on
     every process: [x of rank 0, x of rank 1, ...], each padded to the
     longest for the collective and cut back.  NCCL moves them on the card,
-    gloo on the host."""
+    gloo on the host.  ``group``: a process group of ``mesh``'s world (its
+    ranks in order), the whole world by default."""
     if not mesh.distributed:
         return [x]
+    n = dist.get_world_size(group)
     on = x.device if mesh.backend == "nccl" else torch.device("cpu")
     rows = torch.tensor([x.shape[0]], dtype=torch.int64, device=on)
-    counts = [torch.empty_like(rows) for _ in range(mesh.world_size)]
-    dist.all_gather(counts, rows)
+    counts = [torch.empty_like(rows) for _ in range(n)]
+    dist.all_gather(counts, rows, group=group)
     counts = [int(c.item()) for c in counts]
     buf = torch.zeros((max(max(counts), 1),) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=on)
     buf[:x.shape[0]] = x.to(on)
-    parts = [torch.empty_like(buf) for _ in range(mesh.world_size)]
-    dist.all_gather(parts, buf)
-    return [p[:n] for p, n in zip(parts, counts)]
+    parts = [torch.empty_like(buf) for _ in range(n)]
+    dist.all_gather(parts, buf, group=group)
+    return [p[:k] for p, k in zip(parts, counts)]
 
 
 def broadcast_object(obj, mesh: Mesh):

@@ -92,7 +92,9 @@ def test_gather_codes_match_the_kernel_header():
     assert port_int8.GATHERS == {("reflect", 1): codes["CONV_REFLECT"],
                                  ("replicate", 1): codes["CONV_REPLICATE"],
                                  ("zero", 1): codes["CONV_ZERO"],
-                                 ("zero", 2): codes["STRIDE2_ZERO"]}
+                                 ("zero", 2): codes["STRIDE2_ZERO"],
+                                 ("valid", 1): codes["CONV_VALID"],
+                                 ("valid", 2): codes["STRIDE2_VALID"]}
 
 
 # ------------------------------------------------------- kernel E, plain

@@ -70,6 +70,8 @@ def _cases():
     eps = torch.from_numpy((1e-5 / (1.0 + rng.random(16)) ** 2).astype(np.float32))
     s = torch.from_numpy((rng.random(16) * 0.05 + 0.01).astype(np.float32))
     stream = _t(rng, 2, 7, 6, 16)
+    parts = torch.stack([in_mod.instance_norm_sums_plain(xn[:, :2]),
+                         in_mod.instance_norm_sums_plain(xn[:, 2:])], 1)
     ops = torch.ops.nirgan
     return {
         "trunk_conv pad 1": (ops.trunk_conv, (x, w, b, 1), trunk_mod.trunk_conv_plain(x, w, b, 1)),
@@ -90,6 +92,23 @@ def _cases():
                               int8_mod.conv_moments_plain(x8, w8)),
         "int8_conv_moments s2": (ops.int8_conv_moments, (x8, w8, "zero", 2),
                                  int8_mod.conv_moments_plain(x8, w8, "zero", 2)),
+        "instance_norm_sums": (ops.instance_norm_sums, (xn,), in_mod.instance_norm_sums_plain(xn)),
+        "instance_norm_apply": (ops.instance_norm_apply, (xn[:, :2], parts, None, 30, 1e-5, True),
+                                in_mod.instance_norm_apply_plain(xn[:, :2], parts, 30, relu=True)),
+        "instance_norm_apply skip": (ops.instance_norm_apply,
+                                     (xn[:, 2:], parts, r[:, 2:], 30, 1e-5, False),
+                                     in_mod.instance_norm_apply_plain(xn[:, 2:], parts, 30,
+                                                                      residual=r[:, 2:])),
+        "int8_conv_moments valid": (ops.int8_conv_moments, (x8, w8, "valid", 1),
+                                    int8_mod.conv_moments_plain(x8, w8, "valid", 1)),
+        "int8_conv_moments valid s2": (ops.int8_conv_moments, (x8, w8, "valid", 2),
+                                       int8_mod.conv_moments_plain(x8, w8, "valid", 2)),
+        "int8_norm_quant 3 count": (ops.int8_norm_quant, (3, hb, s, m, eps, None, torch.float32,
+                                                          84),
+                                    int8_mod.norm_relu_stream_quant_plain(hb, m, eps, s,
+                                                                          torch.float32, 84)),
+        "int8_norm_quant 1 count": (ops.int8_norm_quant, (1, hb, s, m, eps, None, None, 84),
+                                    (None, int8_mod.norm_relu_quant_plain(hb, m, eps, s, 84))),
         "int8_norm_quant 0": (ops.int8_norm_quant, (0, stream, s, None, None, None, None),
                               (None, int8_mod.quantize_plain(stream, s))),
         "int8_norm_quant 1": (ops.int8_norm_quant, (1, hb, s, m, eps, None, None),
@@ -117,11 +136,13 @@ def _equal(a, b):
 
 def test_every_kernel_is_an_operator():
     """The registry defines one operator a kernel entry point (A, B, B4, C,
-    B5, D, E) and the transposed conv whose gradient B5 is; every case
-    below exercises each."""
+    B5, D, E, and B's split forward for the H-sharded tile) and the
+    transposed conv whose gradient B5 is; every case below exercises
+    each."""
     assert sorted(_registry.OPERATORS) == sorted(
         ["trunk_conv", "instance_norm", "instance_norm_bwd", "head_conv", "convt_k3s2",
-         "convt_k3s2_bwd", "int8_conv_moments", "int8_norm_quant"])
+         "convt_k3s2_bwd", "int8_conv_moments", "int8_norm_quant", "instance_norm_sums",
+         "instance_norm_apply"])
     assert {name.split()[0] for name in CASES} == set(_registry.OPERATORS)
 
 
