@@ -188,7 +188,12 @@ never prints the final ``"ok": true`` line:
    trunk and stage 2 (JAX's bounds), each rank's wrapper calls, peak
    memory and forward ms; f32 with TF32 off in three trunks (<= 1e-4),
    also under ``torch.distributed.run`` over NCCL at world size 1; the
-   (2, 2) grid over four processes (>= 40 dB).
+   (2, 2) grid over four processes (>= 40 dB).  The same for ``unet_256``
+   at full width: the 2048^2 tile over two processes in bf16 (>= 40 dB;
+   B's split forward for all 13 norms) and with pix2pix's batch norm, f32
+   512^2 over four (<= 1e-4; the innermost block on the gathered map, B's
+   one call) and under torchrun, the (2, 2) grid; B's split forward at the
+   U-Net's shard shapes over two and four shards.
 6. launches: one call of the instance norm at each timed shape under
    ``torch.profiler``: one kernel where the plan is resident, two where it
    streams.  Then the 10980^2 scene's window loop under the profiler: its
@@ -258,7 +263,9 @@ wrapper calls a rank beside one process's); the H-sharded tile's entry
 points (``instance_norm_sums``, ``instance_norm_apply``,
 ``int8_conv_valid``, ``int8_conv_stride2_valid``, ``int8_norm_count``)
 are kernel entries of their own with their calls in a rank's sharded
-forward.  The
+forward; B's three entries' ``spatial_unet`` their calls in a rank's
+sharded unet_256 forward (over two and over four), the split entries'
+``unet_shapes`` their times at the U-Net's shard shapes.  The
 last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -5354,6 +5361,15 @@ SPATIAL_TRUNKS = ("reflect", "replicate", "zero")
 # every norm, C once
 SPATIAL_FORWARD = {"trunk_conv_pad0": 18, "trunk_conv_pad1": 0, "instance_norm": 0,
                    "instance_norm_sums": 23, "instance_norm_apply": 23, "head_conv": 1}
+# wrapper calls a rank makes in one sharded unet_256 forward (13 instance
+# norms): sharded down to level 8 (2048^2 over two ranks, 512^2 in a grid
+# row of two, one process), every norm B's split forward; to level 7 (512^2
+# over four ranks), the innermost block's norm B's one call on the gathered
+# map; the batch-norm U-Net none of B's
+UNET_SPATIAL_NORMS = ("instance_norm", "instance_norm_sums", "instance_norm_apply")
+UNET_SPATIAL_LEVEL8 = {"instance_norm": 0, "instance_norm_sums": 13, "instance_norm_apply": 13}
+UNET_SPATIAL_LEVEL7 = {"instance_norm": 1, "instance_norm_sums": 12, "instance_norm_apply": 12}
+UNET_SPATIAL_BATCH = {"instance_norm": 0, "instance_norm_sums": 0, "instance_norm_apply": 0}
 SPATIAL_RANK = r"""
 import sys
 sys.path.insert(0, sys.argv[1])
@@ -5377,6 +5393,16 @@ def spatial_task(dtype: str = "bfloat16", trunk: str = "reflect"):
     return task
 
 
+def spatial_unet_task(dtype: str = "bfloat16", norm: str = "instance"):
+    """``unet_config``'s task (unet_256, ngf 64, unpadded) with ``norm`` in
+    ``dtype``, seeded (a batch norm serves in eval mode)."""
+    from nirgan_tpu_torch.tasks import Px2PxTask
+
+    cfg = unet_config(norm=norm)
+    cfg.tpu.compute_dtype = dtype
+    return Px2PxTask(cfg, device=DEVICE, seed=SEED)
+
+
 def spatial_tile(side: int, batch: int = 1, seed: int = SEED) -> np.ndarray:
     """A seeded (batch, 3, side, side) reflectance tile."""
     return np.random.default_rng(seed).random((batch, 3, side, side), dtype=np.float32) * 0.3
@@ -5396,18 +5422,48 @@ def spatial_counts() -> dict:
     return out
 
 
+def sharded_counts(fn) -> tuple:
+    """``fn()`` and the wrapper calls it made."""
+    reset_counts()
+    out = fn()
+    sync()
+    return out, spatial_counts()
+
+
+def timed_sharded_forward(task, rgb: np.ndarray, mesh) -> dict:
+    """``predict_large_tile`` of the (1, 3, S, S) tile over ``mesh``: the
+    prediction, this rank's wrapper calls and peak device memory, its rows
+    and its forward's ms (CUDA events, this rank's rows in, its rows out)."""
+    from nirgan_tpu_torch.parallel.spatial import (
+        predict_large_tile,
+        shard_ranges,
+        spatial_predict_fn,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    pred, launches = sharded_counts(lambda: predict_large_tile(task, rgb, mesh))
+    peak = torch.cuda.max_memory_allocated()
+    fn = spatial_predict_fn(task, mesh)
+    side = rgb.shape[2]
+    p = task.pad_amount
+    x = torch.from_numpy(np.pad(rgb.transpose(0, 2, 3, 1), ((0, 0), (p, p), (p, p), (0, 0)),
+                                mode="reflect"))
+    lo, hi = shard_ranges(task, x.shape[1], mesh.world_size)[mesh.rank]
+    rows = x[:, lo:hi].to(mesh.device)
+    ms = time_ms(lambda: fn(rows, side), iters=3, warmup=1)
+    return {"pred": pred, "launches": launches, "peak": peak, "ms": ms, "rows": (lo, hi)}
+
+
 def spatial_rank(folder: str, init_file: str, rank: str, world: str, part: str) -> None:
     """One process of ``phase_spatial`` on the one card: ``part`` "two"
-    runs (a)-(c) as one of two ranks over gloo, "grid" (d) as one of four,
-    "nccl" (c) alone under torchrun over NCCL.  Its results go to
-    ``{part}{rank}.pt`` in ``folder``."""
+    runs (e), (g) and (a)-(c) as one of two ranks over gloo, "grid" (d),
+    (h) and (f) as one of four, "nccl" (c) and (f) alone under torchrun over
+    NCCL.  Its results go to ``{part}{rank}.pt`` in ``folder``."""
     from nirgan_tpu_torch.parallel import create_mesh, initialize_multihost
     from nirgan_tpu_torch.parallel.spatial import (
         create_grid,
         predict_large_tile,
         predict_tiles_2d,
-        row_ranges,
-        spatial_predict_fn,
     )
 
     os.chdir(ROOT)
@@ -5419,30 +5475,29 @@ def spatial_rank(folder: str, init_file: str, rank: str, world: str, part: str) 
                              device=f"{DEVICE}:0", backend="gloo", timeout_s=600)
     mesh = create_mesh(f"{DEVICE}:0")
     out = {"backend": mesh.backend, "world": mesh.world_size}
+    rgb32 = spatial_tile(SPATIAL_F32_SIDE, 1, SEED + 1)
     if part == "grid":
         grid = create_grid(mesh, *SPATIAL_GRID)
         batch = spatial_tile(SPATIAL_F32_SIDE, SPATIAL_GRID_BATCH, SEED + 2)
-        reset_counts()
-        out["grid"] = predict_tiles_2d(spatial_task(), batch, grid)
-        out["launches"] = spatial_counts()
+        out["grid"], out["launches"] = sharded_counts(
+            lambda: predict_tiles_2d(spatial_task(), batch, grid))
+        pred, launches = sharded_counts(
+            lambda: predict_tiles_2d(spatial_unet_task(), batch, grid))
+        out["h"] = {"pred": pred, "launches": launches}
+    if part in ("grid", "nccl"):
+        with cudnn_tf32(False):
+            pred, launches = sharded_counts(
+                lambda: predict_large_tile(spatial_unet_task("float32"), rgb32, mesh))
+        out["f"] = {"pred": pred, "launches": launches}
     if part == "two":
-        task = spatial_task()
         rgb = spatial_tile(SPATIAL_SIDE)
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        pred = predict_large_tile(task, rgb, mesh)
-        sync()
-        launches = spatial_counts()
-        peak = torch.cuda.max_memory_allocated()
-        fn = spatial_predict_fn(task, mesh)
-        p = task.pad_amount
-        x = torch.from_numpy(np.pad(rgb.transpose(0, 2, 3, 1), ((0, 0), (p, p), (p, p), (0, 0)),
-                                    mode="reflect"))
-        lo, hi = row_ranges(x.shape[1], mesh.world_size)[mesh.rank]
-        rows = x[:, lo:hi].to(mesh.device)
-        ms = time_ms(lambda: fn(rows, SPATIAL_SIDE), iters=3, warmup=1)
-        out["a"] = {"pred": pred, "launches": launches, "peak": peak, "ms": ms,
-                    "rows": (lo, hi)}
+        # the U-Nets first, so that only their weights and tile are on the
+        # card when the peak is read
+        for key, norm in (("e", "instance"), ("g", "batch")):
+            out[key] = timed_sharded_forward(spatial_unet_task(norm=norm), rgb, mesh)
+            torch.cuda.empty_cache()
+        task = spatial_task()
+        out["a"] = timed_sharded_forward(task, rgb, mesh)
         for name in ("int8", "stage2"):
             pack = torch.load(os.path.join(folder, f"{name}.pt"), map_location=DEVICE)
             reset_counts()
@@ -5450,23 +5505,26 @@ def spatial_rank(folder: str, init_file: str, rank: str, world: str, part: str) 
                          "launches": spatial_counts()}
             sync()
     if part in ("two", "nccl"):
-        rgb = spatial_tile(SPATIAL_F32_SIDE, 1, SEED + 1)
         with cudnn_tf32(False):
-            out["f32"] = {trunk: predict_large_tile(spatial_task("float32", trunk), rgb, mesh)
+            out["f32"] = {trunk: predict_large_tile(spatial_task("float32", trunk), rgb32, mesh)
                           for trunk in SPATIAL_TRUNKS}
     torch.save(out, os.path.join(folder, f"{part}{rank}.pt"))
 
 
-def check_split_norm(g: torch.Generator, shape: tuple) -> dict:
+def check_split_norm(g: torch.Generator, shape: tuple, cuts: list | None = None,
+                     relu: bool = True, timed: bool = True) -> dict:
     """B's split forward against its plain version on a map of ``shape``
-    (B, H, W, C) cut into the two shards of (a) (``row_ranges``): each
-    shard's sums (the exact pairs added, against f32 sums in another order:
-    within 1e-5 of sqrt(n Sigma x^2), as D's moments), and each shard's
-    elementwise pass on the gathered sums, with the ReLU and with the skip,
-    f32 within 1e-5 and bf16 within ``check_norm``'s bound of the plain
-    version on the same sums, and against kernel B's one call on the whole
-    map.  Times the sums and the ReLU'd pass at shard 0's shape beside
-    their plain versions, the bound and, for the pass, ``F.batch_norm``."""
+    (B, H, W, C) cut into the rows ``cuts`` (by default the two shards of
+    (a), ``row_ranges``): each shard's sums (the exact pairs added, against
+    f32 sums in another order: within 1e-5 of sqrt(n Sigma x^2), as D's
+    moments), and each shard's elementwise pass on the gathered sums of
+    every shard, with the ReLU and with the skip (``relu`` False: with
+    neither, as the U-Net's norms), f32 within 1e-5 and bf16 within
+    ``check_norm``'s bound of the plain version on the same sums, and
+    against kernel B's one call on the whole map.  With ``timed``, times
+    the sums and the pass (ReLU'd where ``relu``) at shard 0's shape beside
+    their plain versions, the bound and, for the pass, ``F.batch_norm``;
+    else returns the largest errors only."""
     import torch.nn.functional as F
 
     from nirgan_tpu_torch.ops.instance_norm import (
@@ -5483,7 +5541,8 @@ def check_split_norm(g: torch.Generator, shape: tuple) -> dict:
     b, h, w, c = shape
     x = torch.randn(shape, device=dev, generator=g) * 2.0 + 0.5
     res = torch.randn(shape, device=dev, generator=g)
-    cuts = row_ranges(h, 2)
+    cuts = cuts or row_ranges(h, 2)
+    modes = ((True, False), (False, True)) if relu else ((False, False),)
     worst = {"sums": 0.0, "apply": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         xd, rd = x.to(dtype), res.to(dtype)
@@ -5499,35 +5558,37 @@ def check_split_norm(g: torch.Generator, shape: tuple) -> dict:
             if not (e1 <= 1e-5 and e2 <= 1e-5):
                 raise AssertionError(f"instance_norm_sums {dtype} {tuple(p.shape)}: {e1}, {e2}")
         parts = torch.stack(sums, 1)
-        whole = instance_norm_cuda(xd, relu=True)
+        whole = instance_norm_cuda(xd, relu=relu)
         for i, (lo, hi) in enumerate(cuts):
-            for relu, skip in ((True, False), (False, True)):
+            for fused, skip in modes:
                 r = rd[:, lo:hi].contiguous() if skip else None
-                got = instance_norm_apply_cuda(pieces[i], parts, h * w, relu=relu,
+                got = instance_norm_apply_cuda(pieces[i], parts, h * w, relu=fused,
                                                residual=r).float()
-                ref = instance_norm_apply_plain(pieces[i], parts, h * w, relu=relu,
+                ref = instance_norm_apply_plain(pieces[i], parts, h * w, relu=fused,
                                                 residual=r).float()
                 err = (got - ref).abs()
                 if dtype == torch.float32:
                     ok, bound = bool((err <= 1e-5).all()), "abs 1e-5"
                 else:
-                    y = instance_norm_apply_plain(pieces[i], parts, h * w, relu=relu).float()
+                    y = instance_norm_apply_plain(pieces[i], parts, h * w, relu=fused).float()
                     lim = 2 ** -6 * (y.abs() + 1) + (2 ** -7 * ref.abs() if skip else 0)
                     ok, bound = bool((err <= lim).all()), "2^-6 (|y| + 1)"
                     worst["apply"] = max(worst["apply"], float(err.max()))
-                log("spatial", f"instance_norm_apply {dtype} shard {i} "
-                    f"{tuple(pieces[i].shape)} relu={relu} skip={skip}: max|err| "
+                log("spatial", f"instance_norm_apply {dtype} shard {i} of {len(cuts)} "
+                    f"{tuple(pieces[i].shape)} relu={fused} skip={skip}: max|err| "
                     f"{float(err.max()):.3e} against the plain version (bound {bound})")
                 if not ok:
                     raise AssertionError(f"instance_norm_apply {dtype} shard {i}: "
                                          f"{float(err.max())}")
             # against kernel B's one call on the whole map
-            split = instance_norm_apply_cuda(pieces[i], parts, h * w, relu=True).float()
+            split = instance_norm_apply_cuda(pieces[i], parts, h * w, relu=relu).float()
             one = whole[:, lo:hi].float()
             lim = 2 ** -6 * (one.abs() + 1) if dtype == torch.bfloat16 else 1e-5
             if not bool(((split - one).abs() <= lim).all()):
                 raise AssertionError(f"split vs one call {dtype} shard {i}: "
                                      f"{float((split - one).abs().max())}")
+    if not timed:
+        return worst
     xb = x.bfloat16()[:, cuts[0][0]:cuts[0][1]].contiguous()
     parts = torch.stack([instance_norm_sums_cuda(xb), instance_norm_sums_cuda(xb)], 1)
     sums_ms, sums_plain = compare_ms(lambda: instance_norm_sums_cuda(xb),
@@ -5540,29 +5601,31 @@ def check_split_norm(g: torch.Generator, shape: tuple) -> dict:
     total = parts[:, 0] + parts[:, 1]
     mean = (total[0, 0] + total[0, 2]) / count
     var = (total[0, 1] + total[0, 3]) / count - mean.square()
-    lib_y = torch.relu(F.batch_norm(xb.permute(0, 3, 1, 2), mean, var, training=False,
-                                    eps=1e-5)).permute(0, 2, 3, 1).float()
-    ref_y = instance_norm_apply_plain(xb, parts, count, relu=True).float()
+    lib_y = F.batch_norm(xb.permute(0, 3, 1, 2), mean, var, training=False,
+                         eps=1e-5).permute(0, 2, 3, 1).float()
+    lib_y = torch.relu(lib_y) if relu else lib_y
+    ref_y = instance_norm_apply_plain(xb, parts, count, relu=relu).float()
     lib_err = float((lib_y - ref_y).abs().max())
     if not bool(((lib_y - ref_y).abs() <= 2 ** -6 * (ref_y.abs() + 1)).all()):
         raise AssertionError(f"F.batch_norm as the apply's stand-in: {lib_err}")
     del lib_y, ref_y
     apply_ms, apply_plain, apply_lib = compare_ms(
-        lambda: instance_norm_apply_cuda(xb, parts, count, relu=True),
-        lambda: instance_norm_apply_plain(xb, parts, count, relu=True),
+        lambda: instance_norm_apply_cuda(xb, parts, count, relu=relu),
+        lambda: instance_norm_apply_plain(xb, parts, count, relu=relu),
         lambda: F.batch_norm(xb.permute(0, 3, 1, 2), mean, var, training=False, eps=1e-5),
         iters=10, run_ahead=True)
     sums_least = least_time(0, nbytes(xb) + 16 * b * c)
     apply_least = least_time(0, 2 * nbytes(xb) + nbytes(parts))
     log("spatial", f"split norm bf16 at shard 0's {tuple(xb.shape)}: sums {sums_ms:.4f} ms "
         f"({sums_least[0] / sums_ms * 100:.0f}% of the bound {sums_least[0]:.4f} ms), plain "
-        f"{sums_plain:.4f} ms; apply (ReLU) {apply_ms:.4f} ms ({apply_least[0] / apply_ms * 100:.0f}"
+        f"{sums_plain:.4f} ms; apply (relu={relu}) {apply_ms:.4f} ms ({apply_least[0] / apply_ms * 100:.0f}"
         f"% of the bound {apply_least[0]:.4f} ms), plain {apply_plain:.4f} ms, F.batch_norm "
-        f"(eval, no ReLU; max |err| {lib_err:.3e} with the ReLU) {apply_lib:.4f} ms; max "
+        f"(eval, no ReLU; max |err| {lib_err:.3e} with relu={relu}) {apply_lib:.4f} ms; max "
         f"errs {worst}")
     note = "no single PyTorch call computes this part of the norm: library_ms null"
     lib_note = ("library_ms: F.batch_norm in eval mode on the NCHW view with the tile's "
-                "mean and variance (B = 1), without the ReLU")
+                "mean and variance (B = 1), without the ReLU"
+                + ("" if relu else "; the apply timed without it too, as the U-Net"))
     return {"instance_norm_sums": (worst["sums"], (tuple(xb.shape), sums_ms, sums_plain, None,
                                                    sums_least, dict(note=note))),
             "instance_norm_apply": (worst["apply"], (tuple(xb.shape), apply_ms, apply_plain,
@@ -5664,11 +5727,48 @@ def spatial_kernel_checks(g: torch.Generator) -> None:
            "int8_norm_count": ("int8_norm.cu", "nirgan_tpu/ops/int8_trunk.py:94")}
     for name, (e, t) in split.items():
         RESULTS[name] = entry(name, src[name][0], src[name][1], e, t)
+    check_split_norm_unet(g)
     for name, t in timed.items():
         RESULTS[name] = entry(name, src[name][0], src[name][1], err, t)
     RESULTS["int8_norm_count"] = entry("int8_norm_count", *src["int8_norm_count"], e_err,
                                        e_times)
     torch.cuda.synchronize()
+
+
+# the sharded unet_256's norm maps (B, H, W, C), whole: 2048^2 at level 1
+# (the last upnorm, 1024^2 x 64) and level 2 (the first downnorm, 512^2 x
+# 128), the largest a rank of (e) splits, and level 7 (16^2 x 512), its
+# smallest; then (f)'s smallest, 512^2 at level 6 (8^2 x 512, two rows a
+# shard of four)
+UNET_SPLIT_SHAPES = ((1, 1024, 1024, 64), (1, 512, 512, 128), (1, 16, 16, 512))
+UNET_SPLIT_FOUR = (1, 8, 8, 512)
+
+
+def check_split_norm_unet(g: torch.Generator) -> None:
+    """B's split forward at the sharded U-Net's norm shapes, without the
+    ReLU and the skip (the U-Net fuses neither): over two shards, timed at
+    shard 0's shape, and over four (the apply given four shards' pairs),
+    and at (f)'s smallest over four.  The times go under ``unet_shapes`` of
+    the two entries, the errors into their ``max_abs_err``."""
+    from nirgan_tpu_torch.parallel.spatial import row_ranges
+
+    timed = {"instance_norm_sums": [], "instance_norm_apply": []}
+    worst = {"sums": 0.0, "apply": 0.0}
+    for shape in UNET_SPLIT_SHAPES:
+        for name, (e, t) in check_split_norm(g, shape, row_ranges(shape[1], 2, 1, 1),
+                                             relu=False).items():
+            timed[name].append(times(*t))
+            worst[name.split("_")[-1]] = max(worst[name.split("_")[-1]], e)
+    for shape in UNET_SPLIT_SHAPES + (UNET_SPLIT_FOUR,):
+        four = check_split_norm(g, shape, row_ranges(shape[1], 4, 1, 1), relu=False,
+                                timed=False)
+        worst = {k: max(v, four[k]) for k, v in worst.items()}
+    for name, entries in timed.items():
+        RESULTS[name]["unet_shapes"] = entries
+        key = name.split("_")[-1]
+        RESULTS[name]["max_abs_err"] = max(RESULTS[name]["max_abs_err"], worst[key])
+    log("spatial", f"B's split forward at the U-Net's shard shapes, over two and four "
+        f"shards: max errs {worst}")
 
 
 def phase_spatial(tmp: str) -> dict:
@@ -5692,11 +5792,26 @@ def phase_spatial(tmp: str) -> dict:
         one process under ``torch.distributed.run`` over NCCL (world size 1,
         its collectives run) within the same bound;
     (d) the (2, 2) grid, four ranks over gloo, batch 2 of 512^2 in bf16,
-        against one process, >= 40 dB.
+        against one process, >= 40 dB;
+    (e) ``unet_256`` (ngf 64, instance norm, unpadded) in bf16 on (a)'s
+        2048^2 tile over two ranks (sharded to level 8: nothing gathered)
+        against one process, >= 40 dB, bit for bit or not; each rank's
+        wrapper calls (B's sums and apply 13 each, B's one call 0, no
+        library route), peak device memory and forward ms beside one
+        process's;
+    (f) the U-Net in f32 with TF32 off on (c)'s 512^2 tile over four ranks
+        (sharded to level 7: the innermost block on the gathered 4^2 map,
+        B's one call once a rank) within max |d| <= 1e-4 of one process;
+        then the one process under ``torch.distributed.run`` over NCCL;
+    (g) pix2pix's batch-norm U-Net (eval mode), bf16, (e)'s tile over two
+        ranks, >= 40 dB;
+    (h) the U-Net on (d)'s (2, 2) grid and batch, >= 40 dB.
 
-    The times are a baseline only: processes sharing one card over gloo,
-    whose collectives go through the host, are not a measurement of spatial
-    parallelism across cards."""
+    The grid's four ranks run first, then the two ranks, so that no rank's
+    forward is timed beside another spawn's.  The times are a baseline
+    only: processes sharing one card over gloo, whose collectives go
+    through the host, are not a measurement of spatial parallelism across
+    cards."""
     from nirgan_tpu_torch.parallel.spatial import row_ranges
 
     folder = os.path.join(tmp, "spatial")
@@ -5713,14 +5828,17 @@ def phase_spatial(tmp: str) -> dict:
     def nchw(y):
         return y.float().permute(0, 3, 1, 2).cpu().numpy()
 
-    # the one process's references
+    # the one process's references; a peak counts from what the process
+    # held before the task and the tile (earlier phases leave tensors
+    # behind), as a rank's counts from its start
+    base = torch.cuda.memory_allocated()
     task = spatial_task()
     x = nhwc(spatial_tile(SPATIAL_SIDE))
     with torch.inference_mode():
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         one = nchw(task.g_apply(x))
-        one_peak = torch.cuda.max_memory_allocated()
+        one_peak = torch.cuda.max_memory_allocated() - base
         one_ms = time_ms(lambda: task.g_apply(x), iters=3, warmup=1)
         packs = {"int8": task.build_trunk_q(x), "stage2": task.build_trunk_q(x, stage2=True)}
         one8 = {k: nchw(task.g_apply(x, trunk_q=p)) for k, p in packs.items()}
@@ -5733,17 +5851,35 @@ def phase_spatial(tmp: str) -> dict:
     batch = spatial_tile(SPATIAL_F32_SIDE, SPATIAL_GRID_BATCH, SEED + 2)
     with torch.inference_mode():
         one_grid = nchw(task.g_apply(nhwc(batch)))
-    del task, x, packs
+    del task, packs
+    torch.cuda.empty_cache()
+    # (e)-(h)'s one process
+    unet = {}
+    del x
+    base = torch.cuda.memory_allocated()
+    task = spatial_unet_task()
+    x = nhwc(spatial_tile(SPATIAL_SIDE))
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        unet["e"] = nchw(task.g_apply(x))
+        unet["e_peak"] = torch.cuda.max_memory_allocated() - base
+        unet["e_ms"] = time_ms(lambda: task.g_apply(x), iters=3, warmup=1)
+        unet["h"] = nchw(task.g_apply(nhwc(batch)))
+        unet["g"] = nchw(spatial_unet_task(norm="batch").g_apply(x))
+    with cudnn_tf32(False), torch.inference_mode():
+        unet["f"] = nchw(spatial_unet_task("float32").g_apply(nhwc(rgb32)))
+    del task, x
     torch.cuda.empty_cache()
 
-    # (a)-(c) on two ranks and (d) on four, together
+    # (d), (h) and (f) on four ranks, then (e), (g) and (a)-(c) on two
     def ranks(part, n):
         return [[sys.executable, "-c", SPATIAL_RANK, ROOT, folder,
                  os.path.join(folder, f"rendezvous_{part}"), str(r), str(n), part]
                 for r in range(n)]
 
     t1 = time.perf_counter()
-    run_processes(ranks("two", 2) + ranks("grid", 4), 600, "the spatial ranks")
+    run_processes(ranks("grid", 4), 600, "the spatial grid's ranks")
+    run_processes(ranks("two", 2), 600, "the spatial ranks")
     ranks_s = time.perf_counter() - t1
     rank_file = os.path.join(folder, "rank.py")
     with open(rank_file, "w") as f:
@@ -5820,8 +5956,10 @@ def phase_spatial(tmp: str) -> dict:
         f"rank {grid[0]['launches']}")
     if not (db_g >= 40.0 and equal_g and pred_g.shape == one_grid.shape):
         raise AssertionError(f"(d) spatial grid: {db_g}, {equal_g}")
+    unet_out = check_spatial_unet(unet, two, grid, nccl, same, apart)
     log("spatial", f"kernel checks {kernels_s:.1f} s, the ranks {ranks_s:.1f} s, torchrun "
         f"{nccl_s:.1f} s, the phase {time.perf_counter() - t0:.1f} s")
+
     def finite(v):  # JSON has no infinity: bit for bit reads null
         return v if math.isfinite(v) else None
 
@@ -5830,7 +5968,74 @@ def phase_spatial(tmp: str) -> dict:
             "grid_db": finite(db_g), "grid_max_abs": err_g,
             "peak_bytes": [r["a"]["peak"] for r in two], "one_peak_bytes": one_peak,
             "ms": [r["a"]["ms"] for r in two], "one_ms": one_ms,
-            "launches": launches[0], "int8_launches": l8, "stage2_launches": l2}
+            "launches": launches[0], "int8_launches": l8, "stage2_launches": l2,
+            "unet": {k: finite(v) if k.endswith("db") else v for k, v in unet_out.items()}}
+
+
+def unet_norm_calls(got: dict) -> dict:
+    return {k: got[k] for k in UNET_SPATIAL_NORMS}
+
+
+def check_spatial_unet(one: dict, two: list, grid: list, nccl: dict, same, apart) -> dict:
+    """(e)-(h) of ``phase_spatial``: the ranks' results against the one
+    process's (``one``), each rank's wrapper calls; the numbers for the
+    JSON line."""
+    # (e)
+    equal, pred = same("e", two)
+    err, db = apart(pred, one["e"])
+    launches = [r["e"]["launches"] for r in two]
+    log("spatial", f"(e) unet_256 bf16 {SPATIAL_SIDE}^2 tile, two ranks over gloo (rows "
+        f"{[r['e']['rows'] for r in two]}) vs one process: {db:.2f} dB (bound 40), max|d| "
+        f"{err:.3e}, bit for bit {bool(np.array_equal(pred, one['e']))}; equal on both ranks "
+        f"{equal}; wrapper calls a rank {launches}; peak device memory a rank "
+        f"{[r['e']['peak'] for r in two]} B, one process {one['e_peak']} B; forward ms a "
+        f"rank (CUDA events) {[round(r['e']['ms'], 3) for r in two]}, one process "
+        f"{one['e_ms']:.3f}")
+    if not (pred.shape == (1, 1, SPATIAL_SIDE, SPATIAL_SIDE) and np.isfinite(pred).all()
+            and db >= 40.0 and equal):
+        raise AssertionError(f"(e) spatial unet bf16: {pred.shape}, {db}, {equal}")
+    for got in launches:
+        if unet_norm_calls(got) != UNET_SPATIAL_LEVEL8 or got["library"]:
+            raise AssertionError(f"(e) a rank's wrapper calls {got}, want "
+                                 f"{UNET_SPATIAL_LEVEL8} and no library route")
+    # (f)
+    f32 = {}
+    for tag, results, want in (("four ranks", grid, UNET_SPATIAL_LEVEL7),
+                               ("torchrun nccl", [nccl], UNET_SPATIAL_LEVEL8)):
+        eq, got = same("f", results)
+        f32[tag] = float(np.abs(got - one["f"]).max())
+        calls = [unet_norm_calls(r["f"]["launches"]) for r in results]
+        if not (eq and f32[tag] <= 1e-4 and all(c == want for c in calls)
+                and not any(r["f"]["launches"]["library"] for r in results)):
+            raise AssertionError(f"(f) unet f32 {tag}: {f32[tag]}, {eq}, {calls}")
+    log("spatial", f"(f) unet_256 f32 {SPATIAL_F32_SIDE}^2, TF32 off, max|d| vs one process "
+        f"(bound 1e-4): {f32}; B a rank of four {unet_norm_calls(grid[0]['f']['launches'])}")
+    # (g)
+    equal_g, pred_g = same("g", two)
+    err_g, db_g = apart(pred_g, one["g"])
+    calls_g = [unet_norm_calls(r["g"]["launches"]) for r in two]
+    log("spatial", f"(g) batch-norm unet_256 bf16 {SPATIAL_SIDE}^2, two ranks vs one "
+        f"process: {db_g:.2f} dB (bound 40), max|d| {err_g:.3e}; equal on both ranks "
+        f"{equal_g}; forward ms a rank {[round(r['g']['ms'], 3) for r in two]}")
+    if not (db_g >= 40.0 and equal_g and all(c == UNET_SPATIAL_BATCH for c in calls_g)):
+        raise AssertionError(f"(g) spatial batch-norm unet: {db_g}, {equal_g}, {calls_g}")
+    # (h)
+    equal_h, pred_h = same("h", grid)
+    err_h, db_h = apart(pred_h, one["h"])
+    calls_h = [unet_norm_calls(r["h"]["launches"]) for r in grid]
+    log("spatial", f"(h) unet_256 on the ({SPATIAL_GRID[0]}, {SPATIAL_GRID[1]}) grid, batch "
+        f"{SPATIAL_GRID_BATCH} of {SPATIAL_F32_SIDE}^2 bf16 vs one process: {db_h:.2f} dB "
+        f"(bound 40), max|d| {err_h:.3e}; equal on every rank {equal_h}; B a rank {calls_h}")
+    if not (db_h >= 40.0 and equal_h and pred_h.shape == one["h"].shape
+            and all(c == UNET_SPATIAL_LEVEL8 for c in calls_h)):
+        raise AssertionError(f"(h) spatial unet grid: {db_h}, {equal_h}, {calls_h}")
+    return {"db": db, "max_abs": err, "bit_for_bit": bool(np.array_equal(pred, one["e"])),
+            "peak_bytes": [r["e"]["peak"] for r in two], "one_peak_bytes": one["e_peak"],
+            "ms": [r["e"]["ms"] for r in two], "one_ms": one["e_ms"],
+            "launches": launches[0], "four_rank_launches": grid[0]["f"]["launches"],
+            "f32_max_abs": f32, "batch_norm_db": db_g, "batch_norm_max_abs": err_g,
+            "batch_norm_ms": [r["g"]["ms"] for r in two], "grid_db": db_h,
+            "grid_max_abs": err_h}
 
 
 def alone_native() -> None:
@@ -6018,6 +6223,12 @@ def main() -> None:
     for kernel in entries:
         if kernel["name"] in ("trunk_conv_pad0", "head_conv"):
             kernel["spatial"] = {"per_rank_forward": sl[kernel["name"]]}
+        if kernel["name"] in UNET_SPATIAL_NORMS:
+            # the sharded unet_256: a rank of (e) (2048^2 over two) and of
+            # (f) (512^2 over four, the innermost block gathered)
+            kernel["spatial_unet"] = {
+                "per_rank_forward": spatial["unet"]["launches"][kernel["name"]],
+                "per_rank_forward_four": spatial["unet"]["four_rank_launches"][kernel["name"]]}
     # B and B4 under gradient_penalty; the bf16-parameter step; the
     # exported serving programs' launches a forward
     for kernel in entries:

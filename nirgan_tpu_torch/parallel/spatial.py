@@ -26,10 +26,22 @@ and those collectives are written out in the generator's serving forward
     whole tile's and kernel E rounds them as it would those (a shard's int8
     values are the one process's); kernel E takes the tile's pixel count.
 
-Every boundary between two shards lies on a multiple of 4 network-input
-rows (``row_ranges``), so both stride-2 stages start every shard on an even
-row: a k3 s2 p1 conv then needs one row above a shard and none below, and
-the k3 s2 transposed convs one row below and none above.
+For the ResNet every boundary between two shards lies on a multiple of 4
+network-input rows (``row_ranges``), so both stride-2 stages start every
+shard on an even row: a k3 s2 p1 conv then needs one row above a shard and
+none below, and the k3 s2 transposed convs one row below and none above.
+
+A U-Net (``UnetGenerator.forward_rows``) halves the tile ``num_downs``
+times.  Its level-l map has H / 2^l rows, and its k4 s2 p1 conv from level
+l needs every boundary on an even row of level l; so the boundaries lie on
+multiples of 2^k network-input rows, k the deepest level (at most
+``num_downs``) at which each shard still holds a row (``unet_depth``):
+128^2 over 4 shards gives k = 5, 512^2 over 4 with unet_256 k = 7, 2048^2
+over 2 k = 8 = ``num_downs``.  Down to level k every layer runs on the
+shard's slab: the k4 s2 p1 conv and transposed conv each need one row above
+and one below (``Shard.down4_slab``, ``Shard.up4_slab``).  The level-k map
+is gathered whole to every shard (``Shard.whole``), the blocks under it
+run there alike, and each shard carries on up with its own rows.
 
 ``predict_large_tile`` serves one tile H-sharded over the processes of the
 group (one process per card: ``torchrun --nproc-per-node N``; on the CPU
@@ -37,11 +49,10 @@ processes over gloo), ``predict_tiles_2d`` a batch over a ``Grid`` of
 (n_data, n_spatial) processes, B over the data axis and H over the spatial
 axis.  Both return the whole prediction on every process.  A world without
 a process group is one shard: the slabs and the split norm still run, with
-no collective.  The resnet generators are covered (every ``padding_type``,
-the instance norm, the batch norm in eval mode and no norm, the float and
-the int8 trunk and stage 2); the U-Nets, which downsample a tile to fewer
-rows than a shard holds, raise ``NotImplementedError`` (ROADMAP
-A11-spatial-unet).
+no collective.  Every generator of the factory is covered: the resnets
+(every ``padding_type``, the float and the int8 trunk and stage 2) and the
+U-Nets (unpadded tiles, ``Data.padding: false``), each with the instance
+norm, the batch norm in eval mode or no norm.
 """
 
 from __future__ import annotations
@@ -58,8 +69,8 @@ from nirgan_tpu_torch.ops.pad import reflect_pad2d
 from nirgan_tpu_torch.parallel.mesh import Mesh, all_gather_rows
 
 __all__ = ["Grid", "Shard", "assemble", "create_grid", "edge_rows", "pad_cols",
-           "predict_large_tile", "predict_tiles_2d", "row_ranges",
-           "spatial_predict_fn", "spatial_predict_fn_2d"]
+           "predict_large_tile", "predict_tiles_2d", "row_ranges", "shard_ranges",
+           "spatial_predict_fn", "spatial_predict_fn_2d", "unet_depth"]
 
 BORDERS = ("reflect", "replicate", "zero")
 # the fewest network-input rows a shard may hold: the trunk's reflect border
@@ -68,18 +79,42 @@ MIN_ROWS = 8
 
 
 # ------------------------------------------------------------ row ranges
-def row_ranges(n_rows: int, n: int) -> list[tuple[int, int]]:
+def row_ranges(n_rows: int, n: int, unit: int = 4,
+               min_rows: int = MIN_ROWS) -> list[tuple[int, int]]:
     """The rows [lo, hi) of each of n shards of ``n_rows`` network-input
-    rows: every boundary on a multiple of 4, the ranges as equal as that
-    allows, the larger ones first (2068 rows over 2: 1036 and 1032).
-    Raises ValueError where a shard would hold fewer than ``MIN_ROWS``."""
-    units = n_rows // 4
-    cuts = [0] + [4 * (-(-k * units // n)) for k in range(1, n)] + [n_rows]
+    rows: every boundary on a multiple of ``unit`` (the ResNet's two
+    halvings: 4), the ranges as equal as that allows, the larger ones first
+    (2068 rows over 2: 1036 and 1032).  Raises ValueError where a shard
+    would hold fewer than ``min_rows``."""
+    units = n_rows // unit
+    cuts = [0] + [unit * (-(-k * units // n)) for k in range(1, n)] + [n_rows]
     ranges = list(zip(cuts[:-1], cuts[1:]))
-    if min(hi - lo for lo, hi in ranges) < MIN_ROWS:
+    if min(hi - lo for lo, hi in ranges) < min_rows:
         raise ValueError(f"{n} shards of {n_rows} rows leave a shard fewer than "
-                         f"{MIN_ROWS} rows")
+                         f"{min_rows} rows")
     return ranges
+
+
+def unet_depth(n_rows: int, n: int, num_downs: int) -> int:
+    """The deepest level k <= ``num_downs`` to which a U-Net's tile of
+    ``n_rows`` rows stays sharded over n shards: the level-k map, of
+    n_rows / 2^k rows, still gives each shard at least one.  Raises
+    ValueError where no level does (fewer rows than shards)."""
+    for k in range(num_downs, -1, -1):
+        if n_rows % (1 << k) == 0 and n_rows >> k >= n:
+            return k
+    raise ValueError(f"{n} shards of {n_rows} rows leave a shard no row")
+
+
+def shard_ranges(task, n_rows: int, n: int) -> list[tuple[int, int]]:
+    """``row_ranges`` for the task's generator: the ResNet's unit of 4 rows
+    and ``MIN_ROWS``; for a U-Net a unit of 2^k rows (``unet_depth``) and
+    one unit at least, a row at level k."""
+    downs = getattr(task.netG, "num_downs", None)
+    if downs is None:
+        return row_ranges(n_rows, n)
+    unit = 1 << unet_depth(n_rows, n, downs)
+    return row_ranges(n_rows, n, unit, unit)
 
 
 # ---------------------------------------------------------------- borders
@@ -196,6 +231,39 @@ class Shard:
         2h rows of the slab's conv are this shard's."""
         return self.rows(x, 0, 1, "zero")
 
+    def down4_slab(self, x: torch.Tensor) -> torch.Tensor:
+        """The slab of a k4 s2 p1 conv (zero border): one row above, one
+        below and a column on both sides.  Output row o reads input rows
+        2o - 1 ... 2o + 2, so a shard of an even count of rows [lo, hi),
+        lo even, reads rows lo - 1 ... hi: the VALID stride-2 conv of the
+        slab gives the rows [lo / 2, hi / 2) of the whole map's conv."""
+        if x.shape[1] % 2:
+            raise ValueError(f"shard {self.index} has an odd {x.shape[1]} rows")
+        return pad_cols(self.rows(x, 1, 1, "zero"), 1, "zero")
+
+    def up4_slab(self, x: torch.Tensor) -> torch.Tensor:
+        """The slab of a k4 s2 p1 transposed conv: one row above and one
+        below (zero at the tile's edges).  Output row o reads input rows
+        (o + 1 - k) / 2, k in 0..3, so this shard's output rows [2 lo,
+        2 hi) read rows lo - 1 ... hi, all in the slab.  Slab row s is row
+        lo - 1 + s, and the slab's transposed conv with its padding of 1
+        puts 2 s - 1 + k = o - 2 lo + 2: of its 2 h + 4 rows, rows
+        [2, 2 h + 2) are this shard's; the two at each end belong to the
+        neighbours (at the tile's edges they read the zero rows and no
+        whole-map row)."""
+        return self.rows(x, 1, 1, "zero")
+
+    def whole(self, x: torch.Tensor, level: int) -> torch.Tensor:
+        """The whole map of which x holds this shard's rows at ``level``
+        (the shard's network-input rows / 2^level): every shard's rows in
+        shard order, from one ``all_gather`` of the rows padded to the
+        longest shard's and cut back."""
+        counts = [(hi - lo) >> level for lo, hi in self.ranges]
+        short = max(counts) - x.shape[1]
+        if short:
+            x = torch.cat([x, x.new_zeros((x.shape[0], short) + tuple(x.shape[2:]))], 1)
+        return torch.cat([p[:, :c] for p, c in zip(self.gather(x), counts)], 1)
+
     def add(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of every shard's t in shard order (the same on every
         shard)."""
@@ -253,20 +321,11 @@ def create_grid(mesh: Mesh, n_data: int, n_spatial: int) -> Grid:
 
 
 # ---------------------------------------------------------------- serving
-def _check_generator(task) -> None:
-    from nirgan_tpu_torch.models.generator import ResnetGenerator
-
-    if not isinstance(task.netG, ResnetGenerator):
-        raise NotImplementedError(
-            f"spatial sharding of {task.opt.netG} is not ported (A11-spatial-unet): "
-            "a U-Net downsamples a tile to fewer rows than a shard holds")
-
-
 def _predict_fn(task, index: int, n: int, group, distributed: bool) -> Callable:
     """The callable of shard ``index`` of n in ``group``: the counterpart of
     the jitted function of ``spatial_predict_fn``."""
-    _check_generator(task)
     p = task.pad_amount
+    unet = getattr(task.netG, "num_downs", None) is not None
 
     @torch.inference_mode()
     def fn(x_rows: torch.Tensor, tile_rows: int, trunk_q: Optional[dict] = None):
@@ -275,15 +334,19 @@ def _predict_fn(task, index: int, n: int, group, distributed: bool) -> Callable:
         reflect pad p), on this process's device -> this shard's rows of
         the (B, H', W, 1) f32 prediction after ``g_apply``'s crop."""
         task.netG.train(False)
-        shard = Shard(row_ranges(tile_rows + 2 * p, n), index, group, distributed)
+        shard = Shard(shard_ranges(task, tile_rows + 2 * p, n), index, group, distributed)
         if x_rows.shape[1] != shard.hi - shard.lo:
             raise ValueError(f"shard {index} holds rows [{shard.lo}, {shard.hi}), "
                              f"got {x_rows.shape[1]}")
         pred = task.netG.forward_rows(x_rows.to(task.compute_dtype), shard, trunk_q)
-        # the network's output rows of this shard start at its first input
-        # row (two halvings, rounded up, then two doublings); g_apply's crop
-        # keeps [p, out - p)
-        out_rows = 4 * (((shard.total_rows + 1) // 2 + 1) // 2)
+        if unet:
+            # a U-Net's output rows are its input rows: the shard's [lo, hi)
+            out_rows = shard.total_rows
+        else:
+            # the network's output rows of this shard start at its first
+            # input row (two halvings, rounded up, then two doublings)
+            out_rows = 4 * (((shard.total_rows + 1) // 2 + 1) // 2)
+        # g_apply's crop keeps [p, out - p)
         lo = max(p - shard.lo, 0)
         hi = min(out_rows - p, shard.lo + pred.shape[1]) - shard.lo
         w = pred.shape[2]
@@ -314,6 +377,13 @@ def _network_input(task, rgb: np.ndarray, batch: slice) -> torch.Tensor:
     return reflect_pad2d(x, task.pad_amount) if task.use_padding else x
 
 
+def _check_sides(task, rgb: np.ndarray) -> None:
+    """A U-Net's side check (``check_unet_side``) on both sides of the NCHW
+    tile, before any collective."""
+    for side in rgb.shape[2:]:
+        task.check_unet_side(side)
+
+
 def _gather_rows(pred: torch.Tensor, mesh: Mesh, group) -> torch.Tensor:
     """(B, h, W, 1) rows of every shard of ``group`` -> (B, H, W, 1)."""
     if not mesh.distributed:
@@ -324,8 +394,9 @@ def _gather_rows(pred: torch.Tensor, mesh: Mesh, group) -> torch.Tensor:
 
 def predict_tiles_2d(task, rgb_nchw, grid: Grid, trunk_q: Optional[dict] = None) -> np.ndarray:
     """Serve a (B, 3, H, W) batch sharded B x H over ``grid``: B must divide
-    by the grid's data size and H by 4 x its spatial size.  Returns the
-    (B, 1, H, W) f32 prediction on every process."""
+    by the grid's data size and H by 4 x its spatial size (and, for a
+    U-Net, H and W by 2^num_downs).  Returns the (B, 1, H, W) f32
+    prediction on every process."""
     nb, nh = grid.n_data, grid.n_spatial
     rgb = np.asarray(rgb_nchw, np.float32)
     b, _, h, _ = rgb.shape
@@ -334,10 +405,11 @@ def predict_tiles_2d(task, rgb_nchw, grid: Grid, trunk_q: Optional[dict] = None)
     if h % (4 * nh) != 0:
         raise ValueError(f"H={h} must be a multiple of {4 * nh} "
                          f"(4 × the grid's spatial size {nh})")
+    _check_sides(task, rgb)
     fn = spatial_predict_fn_2d(task, grid)
     per = b // nb
     x = _network_input(task, rgb, slice(grid.data_index * per, (grid.data_index + 1) * per))
-    lo, hi = row_ranges(x.shape[1], nh)[grid.spatial_index]
+    lo, hi = shard_ranges(task, x.shape[1], nh)[grid.spatial_index]
     pred = fn(x[:, lo:hi].to(grid.mesh.device), h, trunk_q)
     pred = _gather_rows(pred, grid.mesh, grid.spatial_group)
     if grid.mesh.distributed:
@@ -347,16 +419,18 @@ def predict_tiles_2d(task, rgb_nchw, grid: Grid, trunk_q: Optional[dict] = None)
 
 def predict_large_tile(task, rgb_nchw, mesh: Mesh, trunk_q: Optional[dict] = None) -> np.ndarray:
     """Serve a (1, 3, H, W) tile H-sharded over ``mesh``'s processes; H must
-    be a multiple of 4 x the number of processes.  Returns the (1, 1, H, W)
-    f32 prediction on every process."""
+    be a multiple of 4 x the number of processes (and, for a U-Net, H and
+    W of 2^num_downs).  Returns the (1, 1, H, W) f32 prediction on every
+    process."""
     n = mesh.world_size
     rgb = np.asarray(rgb_nchw, np.float32)
     _, _, h, _ = rgb.shape
     if h % (4 * n) != 0:
         raise ValueError(f"H={h} must be a multiple of {4 * n} "
                          f"(4 × the {n} processes) for spatial sharding")
+    _check_sides(task, rgb)
     fn = spatial_predict_fn(task, mesh)
     x = _network_input(task, rgb, slice(None))
-    lo, hi = row_ranges(x.shape[1], n)[mesh.rank]
+    lo, hi = shard_ranges(task, x.shape[1], n)[mesh.rank]
     pred = _gather_rows(fn(x[:, lo:hi].to(mesh.device), h, trunk_q), mesh, None)
     return pred.permute(0, 3, 1, 2).cpu().numpy()

@@ -8,14 +8,19 @@ the module, every multi-process case: the 1-D tile of JAX's test
 (``(1, 3, 128, 64)``) without and with ``Data.padding`` (pad 10: uneven
 shards of 40, 36, 36, 36 rows), the replicate and zero trunks, the int8
 trunk on the port's pack and on JAX's, stage 2, and the (2, 2) grid on a
-batch of 4 of 64^2.  The float cases are held within rtol / atol 2e-5 of
-JAX's ``predict_large_tile`` / ``predict_tiles_2d`` on the 8 CPU devices
-and of the port's one-process ``g_apply``; the int8 cases within JAX's own
-bounds for its sharded int8 trunk (``tests/test_int8_trunk.py``).  In one
-process: the sharded path at a world of one, the halo assembly against the
-whole map's pads, the split norm's and kernel E's plain versions given the
-tile's count (and the fault of the shard's count), kernel D's VALID
-gathers against JAX's formula, the refusals.  The kernels themselves run on
+batch of 4 of 64^2; then ``unet_128`` (ngf 8, f32) on a 128^2 tile with
+the instance norm (sharded down to level 5, levels 5 to 7 gathered and run
+on every rank) and with no norm, and on the (2, 2) grid with a batch of 2
+of 128^2 (level 6 gathered).  The float cases are held within rtol / atol
+2e-5 of JAX's ``predict_large_tile`` / ``predict_tiles_2d`` on the 8 CPU
+devices and of the port's one-process ``g_apply``; the int8 cases within
+JAX's own bounds for its sharded int8 trunk (``tests/test_int8_trunk.py``).
+In one process: the sharded path at a world of one (the ResNet and both
+U-Nets with each norm), the halo assembly against the whole map's pads, the
+k4 s2 slabs against the whole map's conv and transposed conv, the U-Net's
+row ranges, the split norm's and kernel E's plain versions given the tile's
+count (and the fault of the shard's count), kernel D's VALID gathers
+against JAX's formula, the refusals.  The kernels themselves run on
 the card only (``chip_smoke.py --phase spatial``).  This module imports
 jax only inside its tests, so that the ranks, which import it, start
 without it.
@@ -29,7 +34,10 @@ import numpy as np
 import pytest
 import torch
 
+import torch.nn.functional as F
+
 from nirgan_tpu_torch.config import load_config
+from nirgan_tpu_torch.models.layers import Norm
 from nirgan_tpu_torch.ops import instance_norm as in_mod
 from nirgan_tpu_torch.ops import int8_trunk as port_int8
 from nirgan_tpu_torch.ops.pad import reflect_pad2d, replicate_pad2d, zero_pad2d
@@ -44,12 +52,15 @@ from nirgan_tpu_torch.parallel.spatial import (
     predict_large_tile,
     predict_tiles_2d,
     row_ranges,
+    shard_ranges,
+    unet_depth,
 )
 from nirgan_tpu_torch.tasks import Px2PxTask
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 4
 TOL = 2e-5
+UNET_NORMS = ("instance", "none")
 PADS = {"reflect": reflect_pad2d, "replicate": replicate_pad2d, "zero": zero_pad2d}
 
 
@@ -70,6 +81,19 @@ def _task(state_dict, padding: bool = False, trunk: str = "reflect") -> Px2PxTas
     for i in range(task.netG.n_blocks):
         getattr(task.netG, f"r{i}").padding_type = trunk
     return task
+
+
+def _unet_cfg(netG: str = "unet_128", norm: str = "instance"):
+    """The U-Net's config: JAX's spatial test config with ``netG`` and
+    ``norm``, unpadded (a U-Net's side divides by 2^num_downs)."""
+    cfg = _cfg()
+    cfg.base_configs.netG = netG
+    cfg.base_configs.norm = norm
+    return cfg
+
+
+def _unet_task(state_dict, norm: str = "instance") -> Px2PxTask:
+    return Px2PxTask(_unet_cfg("unet_128", norm), device="cpu").bind(state_dict)
 
 
 def _tile(seed: int = 0, shape=(1, 3, 128, 64)) -> np.ndarray:
@@ -109,6 +133,11 @@ def _rank_main(rank: int, init_file: str, inputs_path: str) -> None:
         out[name] = predict_large_tile(task, rgb, mesh, trunk_q=inp[name])
     grid = create_grid(mesh, 2, 2)
     out["grid"] = predict_tiles_2d(task, inp["batch"], grid)
+    for norm in UNET_NORMS:
+        out[f"unet_{norm}"] = predict_large_tile(_unet_task(inp[f"unet_{norm}"], norm),
+                                                 inp["unet_rgb"], mesh)
+    out["unet_grid"] = predict_tiles_2d(_unet_task(inp["unet_instance"]), inp["unet_batch"],
+                                        grid)
     torch.save(out, os.path.join(os.path.dirname(inputs_path), f"rank{rank}.pt"))
 
 
@@ -124,22 +153,37 @@ def world(tmp_path_factory):
     from nirgan_tpu.ops import int8_trunk as jax_int8
     from nirgan_tpu_torch.weights import params_from_jax
 
-    jcfg = jax_load_config(os.path.join(REPO, "configs/config_px2px.yaml"))
-    jcfg.base_configs.ngf = 8
-    jcfg.base_configs.ndf = 8
-    jcfg.Data.padding = False
-    jcfg.tpu.compute_dtype = "float32"
-    jtask = JaxPx2PxTask(jcfg)
-    # G's parameters in the shapes of its init (eager flax would compile
-    # each operation anew), drawn with numpy: N(0, 0.02) weights, as the
-    # normal init, and small biases
-    shapes = jax.eval_shape(lambda: jtask.netG.init(jax.random.PRNGKey(0),
-                                                    jnp.zeros((1, 64, 64, 3))))["params"]
-    rng = np.random.default_rng(0)
-    params = jax.tree_util.tree_map(
-        lambda v: (rng.standard_normal(v.shape) * (0.02 if len(v.shape) > 1 else 0.01))
-        .astype(np.float32), shapes)
+    def jax_task(netG="resnet_9blocks", norm="instance", side=64, seed=0):
+        """The JAX task and G's parameters in the shapes of its init (eager
+        flax would compile each operation anew), drawn with numpy: N(0,
+        0.02) weights, as the normal init, and small biases.  Without a norm
+        the weights are N(0, 2 / fan-in) instead, so that the deepest
+        levels' signal reaches the output above the tolerance (at N(0,
+        0.02) it shrinks about fourfold a layer)."""
+        jcfg = jax_load_config(os.path.join(REPO, "configs/config_px2px.yaml"))
+        jcfg.base_configs.ngf = 8
+        jcfg.base_configs.ndf = 8
+        jcfg.base_configs.netG = netG
+        jcfg.base_configs.norm = norm
+        jcfg.Data.padding = False
+        jcfg.tpu.compute_dtype = "float32"
+        jtask = JaxPx2PxTask(jcfg)
+        shapes = jax.eval_shape(lambda: jtask.netG.init(
+            jax.random.PRNGKey(0), jnp.zeros((1, side, side, 3))))["params"]
+        rng = np.random.default_rng(seed)
+
+        def std(shape):
+            if len(shape) == 1:
+                return 0.01
+            return np.sqrt(2.0 / np.prod(shape[:-1])) if norm == "none" else 0.02
+
+        params = jax.tree_util.tree_map(
+            lambda v: (rng.standard_normal(v.shape) * std(v.shape)).astype(np.float32), shapes)
+        return jtask, params
+
+    jtask, params = jax_task()
     sd = params_from_jax(params)
+    unets = {norm: jax_task("unet_128", norm, 128, 1) for norm in UNET_NORMS}
     rgb = _tile()
     x = rgb.transpose(0, 2, 3, 1)
     task = _task(sd)
@@ -150,7 +194,9 @@ def world(tmp_path_factory):
               "int8": task.build_trunk_q(torch.from_numpy(x)),
               "int8_jax": port_int8.quantize_trunk(task.netG.state_dict(),
                                                    task.netG.n_blocks, jcalib),
-              "stage2": task.build_trunk_q(torch.from_numpy(x), stage2=True)}
+              "stage2": task.build_trunk_q(torch.from_numpy(x), stage2=True),
+              "unet_rgb": _tile(5, (1, 3, 128, 128)), "unet_batch": _tile(6, (2, 3, 128, 128)),
+              **{f"unet_{norm}": params_from_jax(p) for norm, (_, p) in unets.items()}}
     d = tmp_path_factory.mktemp("torch_spatial")
     path = str(d / "inputs.pt")
     torch.save(inputs, path)
@@ -176,7 +222,8 @@ def world(tmp_path_factory):
     if any(p.returncode != 0 for p in procs):
         raise AssertionError("a rank failed:\n" + "\n---\n".join(x[-4000:] for x in logs))
     ranks = [torch.load(str(d / f"rank{r}.pt"), weights_only=False) for r in range(WORLD)]
-    return {"jtask": jtask, "params": params, "qp": qp, "inputs": inputs, "ranks": ranks}
+    return {"jtask": jtask, "params": params, "qp": qp, "inputs": inputs, "ranks": ranks,
+            "unets": unets}
 
 
 def _on_every_rank(world, name) -> np.ndarray:
@@ -292,22 +339,150 @@ def test_2d_grid_matches_jax_and_one_process(world):
                                rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("norm", UNET_NORMS)
+def test_sharded_unet_matches_jax_and_one_process(world, norm):
+    """unet_128 over four ranks on a 128^2 tile (shards of 32 rows, sharded
+    down to level 5: the blocks of levels 5 and 6 run on every rank on the
+    gathered level-5 map), within 2e-5 of JAX's sharded tile on its
+    8-device mesh and of the port's one process, the same on every rank."""
+    from nirgan_tpu.parallel import create_mesh as jax_create_mesh
+    from nirgan_tpu.parallel.spatial import predict_large_tile as jax_predict_large_tile
+
+    got = _on_every_rank(world, f"unet_{norm}")
+    inp = world["inputs"]
+    assert got.shape == (1, 1, 128, 128) and got.dtype == np.float32
+    jtask, params = world["unets"][norm]
+    ref = jax_predict_large_tile(jtask, params, inp["unet_rgb"], jax_create_mesh(("data",)))
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, _one(_unet_task(inp[f"unet_{norm}"], norm),
+                                         inp["unet_rgb"]), rtol=TOL, atol=TOL)
+
+
+def test_unet_2d_grid_matches_jax_and_one_process(world):
+    """unet_128 on the (2, 2) grid, a batch of 2 of 128^2 (two shards of 64
+    rows a sample: level 6 gathered), within 2e-5 of JAX's
+    ``predict_tiles_2d`` on its (2, 4) mesh and of one process."""
+    from nirgan_tpu.parallel import create_mesh as jax_create_mesh
+    from nirgan_tpu.parallel.spatial import predict_tiles_2d as jax_predict_tiles_2d
+
+    inp = world["inputs"]
+    got = _on_every_rank(world, "unet_grid")
+    assert got.shape == (2, 1, 128, 128)
+    jtask, params = world["unets"]["instance"]
+    ref = jax_predict_tiles_2d(jtask, params, inp["unet_batch"],
+                               jax_create_mesh(("data", "spatial"), shape=(2, 4)))
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, _one(_unet_task(inp["unet_instance"]), inp["unet_batch"]),
+                               rtol=TOL, atol=TOL)
+
+
 # ---------------------------------------------------------- one process
 @pytest.fixture(scope="module")
 def weights():
     return Px2PxTask(_cfg(), device="cpu", seed=3).netG.state_dict()
 
 
-@pytest.mark.parametrize("padding,trunk", [(False, "reflect"), (True, "reflect"),
-                                           (True, "zero")])
-def test_world_of_one_matches_forward(weights, padding, trunk):
+def _unet_world_task(netG: str, norm: str) -> Px2PxTask:
+    """A seeded U-Net task; a batch norm's running statistics drawn away
+    from (0, 1), so that eval mode normalises.  Without the instance norm
+    the weights are N(0, 2 / fan-in), so that the deepest levels' signal
+    reaches the output above the tolerance."""
+    task = Px2PxTask(_unet_cfg(netG, norm), device="cpu", seed=3)
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for m in task.netG.modules():
+            if isinstance(m, Norm) and m.norm_type == "batch":
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+            if norm != "instance" and getattr(m, "weight", None) is not None \
+                    and m.weight.dim() == 4:
+                # a k4 s2 transposed conv reads a quarter of its kernel an output
+                fan = m.weight[0].numel() if not m.transposed else m.weight.shape[0] * 4
+                m.weight.normal_(0.0, (2.0 / fan) ** 0.5, generator=gen)
+    return task
+
+
+@pytest.mark.parametrize("netG,padding,trunk,norm", [
+    pytest.param("resnet_9blocks", False, "reflect", "instance", id="False-reflect"),
+    pytest.param("resnet_9blocks", True, "reflect", "instance", id="True-reflect"),
+    pytest.param("resnet_9blocks", True, "zero", "instance", id="True-zero"),
+    *[pytest.param(net, False, None, norm, id=f"{net}-{norm}")
+      for net in ("unet_128", "unet_256") for norm in ("instance", "batch", "none")]])
+def test_world_of_one_matches_forward(weights, netG, padding, trunk, norm):
     """Without a process group the tile is one shard: the slabs (every
     border from the shard itself) and the split norm run, within 2e-5 of
-    ``ResnetGenerator.forward``."""
-    task = _task(weights, padding, trunk)
-    rgb = _tile(4, (2, 3, 64, 48))
+    ``ResnetGenerator.forward`` (with and without the task's pad, reflect
+    and zero trunks) and ``UnetGenerator.forward`` (unet_128 at 128^2,
+    unet_256 at 256^2; the instance norm, the batch norm in eval mode, no
+    norm)."""
+    if netG.startswith("unet"):
+        side = 128 if netG == "unet_128" else 256
+        task, rgb = _unet_world_task(netG, norm), _tile(4, (2, 3, side, side))
+    else:
+        task, rgb = _task(weights, padding, trunk), _tile(4, (2, 3, 64, 48))
     got = predict_large_tile(task, rgb, create_mesh("cpu"))
     np.testing.assert_allclose(got, _one(task, rgb), rtol=TOL, atol=TOL)
+
+
+class _SimShard(Shard):
+    """Shard ``index`` of the ``ranges`` of a whole map ``whole``, its
+    neighbours' edge rows taken from ``whole`` in place of a collective:
+    the one-row halo gather of ``Shard.rows``."""
+
+    def __init__(self, ranges, index, whole):
+        super().__init__(ranges, index, distributed=True)
+        self.map = whole
+
+    def gather(self, t):
+        assert t.shape[1] == 2  # one row below, one above
+        return [torch.cat([self.map[:, lo:lo + 1], self.map[:, hi - 1:hi]], 1)
+                for lo, hi in self.ranges]
+
+
+@pytest.mark.parametrize("op", ["conv", "convt"])
+@pytest.mark.parametrize("ranges", [[(0, 8), (8, 12), (12, 20), (20, 24)],
+                                    [(0, 2), (2, 22), (22, 24)]], ids=["four", "three"])
+def test_k4_slabs_equal_whole_map_convs(op, ranges):
+    """Each uneven shard's k4 s2 p1 slab, its halo from the neighbours and
+    zero rows at the map's edges: the VALID stride-2 conv of
+    ``down4_slab`` gives the shard's rows [lo / 2, hi / 2) of the whole
+    map's ``F.conv2d``; the transposed conv (padding 1) of ``up4_slab``,
+    cropped to rows [2, 2 h + 2), the rows [2 lo, 2 hi) of the whole map's
+    ``F.conv_transpose2d``."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((2, 24, 10, 6)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((5, 6, 4, 4)).astype(np.float32))
+    nchw = x.permute(0, 3, 1, 2)
+    for i, (lo, hi) in enumerate(ranges):
+        shard = _SimShard(ranges, i, x)
+        rows = x[:, lo:hi]
+        if op == "conv":
+            whole = F.conv2d(nchw, w, stride=2, padding=1)[:, :, lo // 2:hi // 2]
+            got = F.conv2d(shard.down4_slab(rows).permute(0, 3, 1, 2), w, stride=2)
+        else:
+            wt = w.transpose(0, 1)  # (Cin 6, Cout 5, 4, 4)
+            whole = F.conv_transpose2d(nchw, wt, stride=2, padding=1)[:, :, 2 * lo:2 * hi]
+            got = F.conv_transpose2d(shard.up4_slab(rows).permute(0, 3, 1, 2), wt,
+                                     stride=2, padding=1)[:, :, 2:2 * (hi - lo) + 2]
+        torch.testing.assert_close(got, whole, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_rows,n,num_downs,k", [(128, 4, 7, 5), (512, 4, 8, 7),
+                                                  (2048, 2, 8, 8), (128, 1, 7, 7)])
+def test_unet_row_ranges(n_rows, n, num_downs, k):
+    """The deepest level k <= num_downs at which every shard holds a row:
+    JAX's 128^2 test tile with unet_128 over 4 shards k = 5, 512^2 with
+    unet_256 over 4 k = 7, 2048^2 over 2 k = 8, one shard ``num_downs``;
+    ``row_ranges`` with a unit of 2^k cuts there, one level deeper it
+    leaves a shard no row."""
+    assert unet_depth(n_rows, n, num_downs) == k
+    ranges = row_ranges(n_rows, n, 1 << k, 1 << k)
+    assert [hi - lo for lo, hi in ranges] == [n_rows // n] * n
+    if k < num_downs:
+        with pytest.raises(ValueError, match="fewer than"):
+            row_ranges(n_rows, n, 2 << k, 2 << k)
+    task = Px2PxTask(_unet_cfg("unet_256" if num_downs == 8 else "unet_128"), device="cpu")
+    assert shard_ranges(task, n_rows, n) == ranges
 
 
 @pytest.mark.parametrize("border", ["reflect", "replicate", "zero"])
@@ -473,8 +648,10 @@ def test_row_ranges():
 
 def test_refusals():
     """JAX's refusals with its messages (H not a multiple of 4 n; B not a
-    multiple of the data size), a U-Net, the inject route without
-    embeddings."""
+    multiple of the data size), a U-Net tile whose H does not divide by
+    2^num_downs (the side check, and the forward's check in
+    ``forward_rows`` before any collective: the shard's group does not
+    exist), the inject route without embeddings."""
     task = _task(Px2PxTask(_cfg(), device="cpu").netG.state_dict())
     eight = Mesh(0, 8, torch.device("cpu"))
     with pytest.raises(ValueError, match="H=100 must be a multiple of 32"):
@@ -484,12 +661,15 @@ def test_refusals():
         predict_tiles_2d(task, np.zeros((3, 3, 64, 64), np.float32), grid)
     with pytest.raises(ValueError, match="H=40 must be a multiple of 16"):
         predict_tiles_2d(task, np.zeros((2, 3, 40, 64), np.float32), grid)
-    cfg = _cfg()
-    cfg.base_configs.netG = "unet_128"
-    with pytest.raises(NotImplementedError, match="A11-spatial-unet"):
-        predict_large_tile(Px2PxTask(cfg, device="cpu"), np.zeros((1, 3, 128, 128),
-                                                                 np.float32),
-                           create_mesh("cpu"))
+    unet = Px2PxTask(_unet_cfg(), device="cpu")
+    with pytest.raises(ValueError, match="divisible by 128, got 96"):
+        predict_large_tile(unet, np.zeros((1, 3, 96, 128), np.float32), eight)
+    shard = Shard(row_ranges(96, 4), 0, distributed=True)
+    with pytest.raises(ValueError, match="divisible by 128, got \\(96, 128\\)"):
+        unet.netG.forward_rows(torch.zeros((1, 24, 128, 3)), shard)
+    whole = Shard([(0, 128), (128, 256)], 0, distributed=True)
+    with pytest.raises(ValueError, match="ResNet generators only"):
+        unet.netG.forward_rows(torch.zeros((1, 128, 128, 3)), whole, trunk_q={})
     cfg = load_config(os.path.join(REPO, "configs/config_px2px_SatCLIP.yaml"))
     cfg.base_configs.ngf, cfg.base_configs.ndf = 8, 8
     cfg.satclip.satclip_path = None
