@@ -95,7 +95,16 @@ never prints the final ``"ok": true`` line:
    ``config_px2px.yaml`` (batch 16 at 256^2), then the flagship
    ``config_px2px_SatCLIP.yaml`` (inject, batch 8 at 256^2) with the CLI's
    default arguments (its ``save_val_df`` sweep at the epoch's end
-   included).  Then the concat route (6 blocks): one forward and
+   included).  Then the S2 datasets' configuration (``phase_train512``,
+   ``config_px2px.yaml`` with ``dataset_type: S2_75k`` on 69 seeded uint16
+   RGBN ``.npy`` tiles of 512^2): every kernel against its plain version
+   at the 532^2 step's shapes (A at (16, 133^2, 256), B and B4 at the six
+   norm shapes, B5 at u1 and u0, C at (16, 538^2, 64); >= 40 dB in bf16),
+   timed beside its bound and library call; one step at batch 16 (launches,
+   gradients, bit for bit again, the plain route's terms), its ms and peak
+   memory; the f32 step card against the CPU at batch 2 of 512^2; the
+   train CLI for one epoch and a validation at 512^2 on the Python loader
+   and on the native reader.  Then the concat route (6 blocks): one forward and
    one step, kernels against the plain route.  One flagship step with the
    SSIM, histogram (EMD) and spectral-index losses on, against the plain
    route, ``emd_loss`` timed; ``config_px2px.yaml`` at ngf 16 / ndf 16,
@@ -107,7 +116,8 @@ never prints the final ``"ok": true`` line:
    the update, bit for bit from the seed, its first step's ms beside the
    f32-parameter config's.
    The model variants, at full width, bf16 over f32 params, seed 0:
-   ``unet_256`` (ngf 64, basic D, instance norm, unpadded): the serving
+   ``unet_256``, then ``unet_128`` (ngf 64, basic D, instance norm,
+   unpadded; B 13 and 11 calls a forward, 22 and 20 a step): the serving
    forward of 4 x 512^2 against the plain route (>= 40 dB), twice bit for
    bit, B's 13 calls; ``predict_step`` in f32 card against CPU (<= 1e-3);
    one step at batch 16 of 256^2 (B and B4 22 calls each, every gradient,
@@ -190,7 +200,10 @@ never prints the final ``"ok": true`` line:
    also under ``torch.distributed.run`` over NCCL at world size 1; the
    (2, 2) grid over four processes (>= 40 dB).  The same for ``unet_256``
    at full width: the 2048^2 tile over two processes in bf16 (>= 40 dB;
-   B's split forward for all 13 norms) and with pix2pix's batch norm, f32
+   B's split forward for all 13 norms; its |d| by row, each layer of each
+   rank against one process's, each layer alone on its own input at
+   2048^2 and 512^2 with the cuDNN kernels of the first that parts, and in
+   f32 <= 1e-4) and with pix2pix's batch norm, f32
    512^2 over four (<= 1e-4; the innermost block on the gathered map, B's
    one call) and under torchrun, the (2, 2) grid; B's split forward at the
    U-Net's shard shapes over two and four shards.
@@ -205,15 +218,17 @@ never prints the final ``"ok": true`` line:
 
 ``python3 chip_smoke.py --profile`` instead prints, after phases 0 and 1,
 the device time of the serving forward (also with the int8 trunk) and of
-the train step by group of kernels under ``torch.profiler``, on the plain and on the inject route,
-the head's backward on its own and the full-width SatCLIP pretrain step
+the train step by group of kernels under ``torch.profiler``, on the plain and on the inject route
+(the plain route's step also at batch 16 of 512^2 tiles, 532^2),
+the head's backward on its own (also at (16, 538^2, 64)) and the full-width SatCLIP pretrain step
 (no checks, no ``ok`` line).
 ``python3 chip_smoke.py --sweep`` instead times the instance norm under
 every launch plan its kernels take at the main path's shapes, beside the
 plan that ``launch_plan`` chooses.
 ``python3 chip_smoke.py --phase NAME [NAME ...]`` runs, after phases 0 and
 1, only the named phases (``ALONE``: int8, train, variants, nonsquare,
-param_dtype, export, native, ddp, spatial), with no JSON lines: a phase's checks read without
+param_dtype, export, native, ddp, spatial, train512, unet), with no JSON
+lines: a phase's checks read without
 what the phases before it leave set.
 ``python3 chip_smoke.py --times DIR`` times, after phases 0 and 1 run on
 the package of the checkout at DIR (a parent commit's, unpacked), kernel B
@@ -242,8 +257,12 @@ replaced (``old_ms``), the two-call library route and ``share`` =
 ``bound_ms / ms``; the trunk conv's
 ``pad0`` entries hold its times on a pre-padded input, and the
 ``trunk_conv_pad0`` entry its calls on the replicate and zero trunks;
-the instance norm's ``unet`` entry its calls in the unet_256 forward and
-step, and ``unet_shapes`` its times at the U-Net's shapes; the instance norm's
+the instance norm's ``unet`` and ``unet_128`` entries its calls in the
+unet_256 and unet_128 forward and step, and ``unet_shapes`` (and
+``unet_128_shapes``) its times at the U-Net's shapes; every kernel's
+``train512_step`` entry its launches in one 532^2 step, and its
+``train512*`` entries its times at that step's shapes (the line's
+``train512`` holds the step's ms, peak and the CLI's rates); the instance norm's
 entries state their launch plan (``regime``, ``cluster``, ``smem_bytes``)
 and the kernels that one call launched on the card under ``torch.profiler``
 (``cuda_launches``), and list every main-path shape under ``shapes``,
@@ -1199,23 +1218,77 @@ def phase_norms(g: torch.Generator) -> None:
         raise AssertionError(f"a kernel under its bound: {fwd_all + bwd_all}")
 
 
+def check_convt(g: torch.Generator, name: str, n: int, hi: int, ci: int, co: int,
+                timed: bool = True) -> tuple:
+    """B5 against its plain version on z (n, hi, hi, ci) and ct (n, 2 hi,
+    2 hi, co), f32 and bf16: errors relative to the largest entry.  f32
+    (TF32 off): sums of 9 Co terms (dx) and of B H W terms (dW) in other
+    orders: dx 1e-5, dW 1e-4.  bf16: both round dx to bf16 after f32 sums,
+    and the plain dW comes back in bf16: 1e-2 each; and dx >= 40 dB.
+    Returns the bf16 dx's max |err| and, if ``timed``, the arguments of
+    ``times`` at this shape (bf16 kernel, plain, library call, bound)."""
+    from nirgan_tpu_torch.ops.convt_bwd import (
+        convt_k3s2_bwd_cuda,
+        convt_k3s2_bwd_plain,
+        launch_plan,
+    )
+
+    dev = torch.device("cuda")
+    z = torch.randn((n, hi, hi, ci), device=dev, generator=g)
+    ct = torch.randn((n, 2 * hi, 2 * hi, co), device=dev, generator=g)
+    w = torch.randn((ci, co, 3, 3), device=dev, generator=g) / math.sqrt(9 * co)
+    for dtype, bx, bw in ((torch.float32, 1e-5, 1e-4),
+                          (torch.bfloat16, 1e-2, 1e-2)):
+        zd, cd = z.to(dtype), ct.to(dtype)
+        rx, rw = convt_k3s2_bwd_plain(cd, zd, w)
+        gx, gw = convt_k3s2_bwd_cuda(cd, zd, w)
+        ex = float((gx.float() - rx.float()).abs().max())
+        ew = float((gw - rw).abs().max())
+        relx = ex / float(rx.float().abs().max())
+        relw = ew / float(rw.abs().max())
+        db = psnr(gx, rx, float(rx.float().max() - rx.float().min()))
+        log("kernels", f"convt_bwd {name} {dtype}: dx max|err| {ex:.3e} "
+            f"relative {relx:.3e} (bound {bx:.0e}), {db:.2f} dB; dW max|err| {ew:.3e} "
+            f"relative {relw:.3e} (bound {bw:.0e})")
+        if not (relx <= bx and relw <= bw and gw.dtype == torch.float32 and db >= 40.0):
+            raise AssertionError(f"convt_bwd {name} {dtype}: {relx}, {relw}, {db} dB")
+        del rx, rw, gx, gw
+    if not timed:
+        return (ex,)
+    zb, cb = z.bfloat16(), ct.bfloat16()
+    del z, ct
+    # the library call: both gradients from cuDNN in one call, on NCHW
+    # views, the weight already in bf16
+    cn, zn, wb = cb.permute(0, 3, 1, 2), zb.permute(0, 3, 1, 2), w.bfloat16()
+    ms, plain_ms, lib_ms = compare_ms(
+        lambda: convt_k3s2_bwd_cuda(cb, zb, w),
+        lambda: convt_k3s2_bwd_plain(cb, zb, w),
+        lambda: torch.ops.aten.convolution_backward(
+            cn, zn, wb, None, [2, 2], [1, 1], [1, 1], True, [1, 1], 1,
+            [True, True, False]), iters=10, run_ahead=True)
+    paced_ms = time_ms(lambda: convt_k3s2_bwd_cuda(cb, zb, w), iters=10)
+    flops = 2 * 2 * n * hi * hi * 9 * ci * co
+    # ct, z and the weight in; dx in bf16 and dW in f32 out
+    least = least_time(flops, nbytes(cb, zb, w) + nbytes(zb) + w.numel() * 4)
+    _, slabs, slab = launch_plan(torch.bfloat16, tuple(zb.shape), tuple(cb.shape),
+                                 tuple(w.shape))
+    log("kernels", f"convt_bwd {name} bf16 dx+dW: kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+        f"aten.convolution_backward {lib_ms:.4f} ms, bound {least[0]:.4f} ms "
+        f"({least[1]}); paced by the host {paced_ms:.4f} ms a call; dW in {slabs} "
+        f"slabs of {slab} pixels")
+    return ex, (f"{name}: z {tuple(zb.shape)}, ct {tuple(cb.shape)}", ms, plain_ms,
+                lib_ms, least, {"dw_slabs": slabs, "slab_pixels": slab})
+
+
 def phase_convt_bwd(g: torch.Generator) -> None:
     """B5 against its plain version at the train step's u1 and u0 (the
     wgmma kernels in bf16), at both train configs' batch sizes (the batch
     sets dx's tile count and dW's split-K slabs), and at a small shape that
     the wgmma kernels do not take (the WMMA kernels)."""
-    from nirgan_tpu_torch.ops.convt_bwd import (
-        convt_k3s2_bwd_cuda,
-        convt_k3s2_bwd_plain,
-    )
-
-    dev = torch.device("cuda")
     nb, n8, s = TRAIN_BATCH, SATCLIP_BATCH, TRAIN_SIDE
     # u1: z (16,138,138,128), ct (16,276,276,64); u0: z (16,69,69,256), ct
-    # (16,138,138,128); errors relative to the largest entry.  f32 (TF32
-    # off): sums of 9 Co terms (dx) and of B H W terms (dW) in other
-    # orders: dx 1e-5, dW 1e-4.  bf16: both round dx to bf16 after f32
-    # sums, and the plain dW comes back in bf16: 1e-2 each
+    # (16,138,138,128)
     worst = 0.0
     timed = {}
     for name, n, hi, ci, co in (("u1", nb, s // 2, 128, 64),
@@ -1223,47 +1296,10 @@ def phase_convt_bwd(g: torch.Generator) -> None:
                                 ("satclip_u1", n8, s // 2, 128, 64),
                                 ("satclip_u0", n8, s // 4, 256, 128),
                                 ("small", 2, 20, 64, 32)):
-        z = torch.randn((n, hi, hi, ci), device=dev, generator=g)
-        ct = torch.randn((n, 2 * hi, 2 * hi, co), device=dev, generator=g)
-        w = torch.randn((ci, co, 3, 3), device=dev, generator=g) / math.sqrt(9 * co)
-        for dtype, bx, bw in ((torch.float32, 1e-5, 1e-4),
-                              (torch.bfloat16, 1e-2, 1e-2)):
-            zd, cd = z.to(dtype), ct.to(dtype)
-            rx, rw = convt_k3s2_bwd_plain(cd, zd, w)
-            gx, gw = convt_k3s2_bwd_cuda(cd, zd, w)
-            ex = float((gx.float() - rx.float()).abs().max())
-            ew = float((gw - rw).abs().max())
-            relx = ex / float(rx.float().abs().max())
-            relw = ew / float(rw.abs().max())
-            log("kernels", f"convt_bwd {name} {dtype}: dx max|err| {ex:.3e} "
-                f"relative {relx:.3e} (bound {bx:.0e}); dW max|err| {ew:.3e} "
-                f"relative {relw:.3e} (bound {bw:.0e})")
-            if not (relx <= bx and relw <= bw and gw.dtype == torch.float32):
-                raise AssertionError(f"convt_bwd {name} {dtype}: {relx}, {relw}")
-            if dtype == torch.bfloat16:
-                worst = max(worst, ex)
-        if name == "small":
-            continue
-        zb, cb = z.bfloat16(), ct.bfloat16()
-        # the library call: both gradients from cuDNN in one call, on NCHW
-        # views, the weight already in bf16
-        cn, zn, wb = cb.permute(0, 3, 1, 2), zb.permute(0, 3, 1, 2), w.bfloat16()
-        ms, plain_ms, lib_ms = compare_ms(
-            lambda: convt_k3s2_bwd_cuda(cb, zb, w),
-            lambda: convt_k3s2_bwd_plain(cb, zb, w),
-            lambda: torch.ops.aten.convolution_backward(
-                cn, zn, wb, None, [2, 2], [1, 1], [1, 1], True, [1, 1], 1,
-                [True, True, False]), iters=10, run_ahead=True)
-        paced_ms = time_ms(lambda: convt_k3s2_bwd_cuda(cb, zb, w), iters=10)
-        flops = 2 * 2 * n * hi * hi * 9 * ci * co
-        # ct, z and the weight in; dx in bf16 and dW in f32 out
-        least = least_time(flops, nbytes(cb, zb, w) + nbytes(zb) + w.numel() * 4)
-        log("kernels", f"convt_bwd {name} bf16 dx+dW: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-            f"aten.convolution_backward {lib_ms:.4f} ms, bound {least[0]:.4f} ms "
-            f"({least[1]}); paced by the host {paced_ms:.4f} ms a call")
-        timed[name] = (f"{name}: z {tuple(z.shape)}, ct {tuple(ct.shape)}", ms,
-                       plain_ms, lib_ms, least)
+        ex, *at = check_convt(g, name, n, hi, ci, co, timed=name != "small")
+        worst = max(worst, ex)
+        if at:
+            timed[name] = at[0]
     RESULTS["convt_bwd"] = entry(
         "convt_bwd", "convt_bwd.cu", "nirgan_tpu/ops/pallas_convt_bwd.py:170",
         worst, timed.pop("u1"), **timed)
@@ -2141,6 +2177,133 @@ def hold_f32_step(what: str, lr: float, ref: dict, got: dict) -> None:
     check_terms(f"{what}, at LR 0", got["terms0"], ref["terms0"], 1e-4, 1e-6)
 
 
+def held_step(name: str, cfg, batch: dict) -> dict:
+    """One fused step of ``cfg`` from the seed on ``batch`` (NCHW host
+    arrays), bf16 on the kernels: launches equal ``STEP_LAUNCHES``, no
+    library route, a finite non-zero gradient on every parameter; the same
+    seeded step again bit for bit (every sum on the path runs in a fixed
+    order); its loss terms within 2% + 1e-3 of the plain route's.  The
+    peak device memory of the kernels' step counts from before its task is
+    built.  Returns the task, its state, the batch on the card, the plain
+    route's task and state, the step's metrics and terms, its launches, its
+    peak bytes and the shape of the generator's input in the step."""
+    from nirgan_tpu_torch.tasks import Px2PxTask
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    task = Px2PxTask(cfg, device="cuda", seed=SEED)
+    state = task.init_state()
+    ex = task.extract_batch(batch)
+    seen = []
+    hook = task.netG.register_forward_pre_hook(lambda m, args: seen.append(args[0].shape))
+    reset_counts()
+    metrics = task.train_step(state, ex)
+    got = loss_terms(metrics)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    hook.remove()
+    per_step = counts()
+    no_library(f"{name}: step")
+    log("train", f"{name}: launches per step {per_step} (want {STEP_LAUNCHES})")
+    if per_step != STEP_LAUNCHES:
+        raise AssertionError(f"launches {per_step} != {STEP_LAUNCHES}")
+    check_gradients(task)
+    again = Px2PxTask(cfg, device="cuda", seed=SEED)
+    repeat = loss_terms(again.train_step(again.init_state(), ex))
+    differ = [f"{tag}.{k}" for tag, a, b in (("G", task.netG, again.netG),
+                                             ("D", task.netD, again.netD))
+              for (k, p), q in zip(a.named_parameters(), b.parameters())
+              if not torch.equal(p.grad, q.grad)]
+    log("train", f"the step again from the same seed: {len(differ)} gradients "
+        f"differ, terms equal: {repeat == got}")
+    if differ or repeat != got:
+        raise AssertionError(f"the step did not repeat: {differ}, {repeat} vs {got}")
+    del again
+    plain = Px2PxTask(cfg, device="cuda", seed=SEED)
+    plain_state = plain.init_state()
+    with plain_route():
+        ref = loss_terms(plain.train_step(plain_state, ex))
+    # bf16 activations on both routes, rounded at other points; the serving
+    # forward measured 47 dB between them; the terms are means over
+    # thousands of logits or pixels: within 2% + 1e-3
+    check_terms(f"{name}: bf16 step 1, kernels vs plain route", got, ref, 2e-2, 1e-3)
+    return {"task": task, "state": state, "ex": ex, "plain": plain,
+            "plain_state": plain_state, "metrics": metrics, "terms": got,
+            "per_step": per_step, "peak": peak, "g_input": tuple(seen[0])}
+
+
+def steps_ms(task, state, batches, n: int = 8) -> float:
+    """ms a step over ``n`` steps (CUDA events, after a warm round):
+    ``batches()`` gives the round's n batches, which the steps take in
+    turn."""
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for _ in ("warm", "timed"):
+        torch.cuda.synchronize()
+        marks[0].record()
+        for b in batches():
+            task.train_step(state, b)
+        marks[1].record()
+        marks[1].synchronize()
+    return marks[0].elapsed_time(marks[1]) / n
+
+
+def run_train_cli(name: str, run: str, argv: list, steps: int, val_steps: list,
+                  n_eval: int, satclip: bool = False) -> tuple[dict, list]:
+    """``python -m nirgan_tpu_torch.train`` (its ``main``) with ``argv``
+    for ``steps`` steps into ``run``: the launches equal ``steps`` steps'
+    and ``n_eval`` validation batches' forwards, no library route; the
+    checkpoints, the scheduler's state and the config written (on the
+    flagship, ``satclip``, also the ``save_val_df`` sweep's files); a row of
+    finite loss terms every step, validation rows at ``val_steps``, one
+    panel a validation.  Returns the launches and the train rows."""
+    from nirgan_tpu_torch.tasks.px2px import LOSS_KEYS
+    from nirgan_tpu_torch.train import cli
+
+    reset_counts()
+    t0 = time.perf_counter()
+    final = cli.main(argv + ["--logdir", run, "--max-steps", str(steps)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = counts()
+    no_library(f"{name}: CLI")
+    want = {k: steps * STEP_LAUNCHES[k] + n_eval * EVAL_LAUNCHES[k] for k in STEP_LAUNCHES}
+    log("train", f"CLI {' '.join(argv)}: {final.step} steps in {dt:.2f} s (set-up "
+        f"included); launches {launches} (want {want})")
+    if final.step != steps or launches != want:
+        raise AssertionError(f"CLI run: step {final.step}, launches {launches}")
+    missing = [f for f in ("last.pt", "best.pt", "sched_state_last.json",
+                           "sched_state_best.json", "config.yaml")
+               + (("validation_metrics.csv",
+                   "validation_metrics_ablation_satclip_True_e1.geojson") * satclip)
+               if not os.path.isfile(os.path.join(run, f))]
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    train = [r for r in rows if "model_loss/generator_total_loss" in r]
+    val = [r for r in rows if "val/L1" in r]
+    keys = list(LOSS_KEYS) + (["scale_param"] if satclip else [])
+    finite = all(math.isfinite(r[k]) for r in train for k in keys)
+    log("train", f"CLI: train rows at steps {[r['step'] for r in train]}, val "
+        f"rows at {[r['step'] for r in val]}; generator_total_loss "
+        f"{train[0]['model_loss/generator_total_loss']:.4f} -> "
+        f"{train[-1]['model_loss/generator_total_loss']:.4f}; val/L1 "
+        f"{[round(r['val/L1'], 5) for r in val]}; images/s (host clock, steps "
+        f"2-{steps}) {[round(r['perf/images_per_sec'], 1) for r in train[1:]]}"
+        + (f"; scale_param {[round(r['scale_param'], 5) for r in train]}"
+           if satclip else ""))
+    # the validation panels, drawn with PIL where matplotlib is not installed
+    images = sorted(f for f in os.listdir(os.path.join(run, "images"))
+                    if f.startswith("Images_Val_NIR_")) if os.path.isdir(
+        os.path.join(run, "images")) else []
+    log("train", f"CLI: validation panels {images}")
+    if (missing or not finite or [r["step"] for r in val] != val_steps
+            or len(train) != steps or len(images) != len(val_steps)):
+        raise AssertionError(f"CLI run: missing {missing}, finite {finite}, "
+                             f"val steps {[r['step'] for r in val]}, panels {images}")
+    return launches, train
+
+
 def phase_train(tmp: str, satclip: bool = False) -> tuple[dict, dict]:
     """The training path of ``config_px2px.yaml`` or (``satclip``) of the
     flagship ``config_px2px_SatCLIP.yaml``, whose CLI run takes the CLI's
@@ -2160,49 +2323,28 @@ def phase_train(tmp: str, satclip: bool = False) -> tuple[dict, dict]:
     batch = first_batch(cfg)
     if batch["rgb"].shape != (n_batch, 3, TRAIN_TILE, TRAIN_TILE):
         raise AssertionError(f"train batch {batch['rgb'].shape}")
-    task = Px2PxTask(cfg, device="cuda", seed=SEED)
-    plain = Px2PxTask(cfg, device="cuda", seed=SEED)
-    state, plain_state = task.init_state(), plain.init_state()
-    ex = task.extract_batch(batch)
+
+    held = held_step(name, cfg, batch)
+    task, state, ex = held["task"], held["state"], held["ex"]
+    plain, plain_state, got = held["plain"], held["plain_state"], held["terms"]
+    per_step = held["per_step"]
     if satclip and tuple(ex["embeds"].shape) != (n_batch, 256):
         raise AssertionError(f"embeds {tuple(ex['embeds'].shape)}")
-    reset_counts()
-    metrics = task.train_step(state, ex)
-    got = loss_terms(metrics)
-    torch.cuda.synchronize()
-    per_step = counts()
-    no_library(f"{name}: step")
-    log("train", f"{name}: launches per step {per_step} (want {STEP_LAUNCHES})")
-    if per_step != STEP_LAUNCHES:
-        raise AssertionError(f"launches {per_step} != {STEP_LAUNCHES}")
-    check_gradients(task)
     if satclip:
         # the learnable scale moved off its init by Adam's first step
-        scale = float(metrics["scale_param"])
+        scale = float(held["metrics"]["scale_param"])
         log("train", f"scale_param after the step: {scale:.6f} (init "
             f"{float(cfg.satclip.scaling_param_init)})")
         if not (math.isfinite(scale) and scale != float(cfg.satclip.scaling_param_init)):
             raise AssertionError(f"scale_param did not move: {scale}")
-    # the same seeded step again: every sum on the path runs in a fixed
-    # order, so terms and gradients repeat bit for bit
-    again = Px2PxTask(cfg, device="cuda", seed=SEED)
-    repeat = loss_terms(again.train_step(again.init_state(), ex))
-    differ = [f"{tag}.{k}" for tag, a, b in (("G", task.netG, again.netG),
-                                             ("D", task.netD, again.netD))
-              for (k, p), q in zip(a.named_parameters(), b.parameters())
-              if not torch.equal(p.grad, q.grad)]
-    log("train", f"the step again from the same seed: {len(differ)} gradients "
-        f"differ, terms equal: {repeat == got}")
-    if differ or repeat != got:
-        raise AssertionError(f"the step did not repeat: {differ}, {repeat} vs {got}")
     # the batch through DeviceFeed, prepared in line (depth 0) and on its
     # producer thread (depth 1): the same step bit for bit
     for depth in (0, 1):
         fed = Px2PxTask(cfg, device="cuda", seed=SEED)
         fed_batch = next(iter(DeviceFeed([batch], fed.extract_batch, depth=depth)))
         fed_terms = loss_terms(fed.train_step(fed.init_state(), fed_batch))
-        differ = [f"{tag}.{k}" for tag, a, b in (("G", fed.netG, again.netG),
-                                                 ("D", fed.netD, again.netD))
+        differ = [f"{tag}.{k}" for tag, a, b in (("G", fed.netG, task.netG),
+                                                 ("D", fed.netD, task.netD))
                   for (k, p), q in zip(a.named_parameters(), b.parameters())
                   if not torch.equal(p.grad, q.grad)]
         log("train", f"the step fed through DeviceFeed(depth={depth}): "
@@ -2212,13 +2354,6 @@ def phase_train(tmp: str, satclip: bool = False) -> tuple[dict, dict]:
             raise AssertionError(f"the fed step (depth {depth}) is not the inline "
                                  f"step: {differ}, {fed_terms} vs {got}")
         del fed, fed_batch
-    del again
-    with plain_route():
-        ref = loss_terms(plain.train_step(plain_state, ex))
-    # bf16 activations on both routes, rounded at other points; the serving
-    # forward measured 47 dB between them; the terms are means over
-    # thousands of logits or pixels: within 2% + 1e-3
-    check_terms(f"{name}: bf16 step 1, kernels vs plain route", got, ref, 2e-2, 1e-3)
 
     def plain_step():
         with plain_route():
@@ -2238,33 +2373,17 @@ def phase_train(tmp: str, satclip: bool = False) -> tuple[dict, dict]:
     log("train", f"{name}: extract_batch + step{', embeddings made ahead' * satclip}: "
         f"{fed_ms:.3f} ms ({n_batch / fed_ms * 1e3:.2f} images/s)")
 
-    def steps_ms(mode, n: int = 8) -> float:
-        """ms a step over ``n`` steps (CUDA events, after a warm round):
-        "bare" on the batch already on the card, "inline" with
-        ``extract_batch`` before each step, or fed through DeviceFeed at
-        the depth ``mode``."""
-        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        for _ in ("warm", "timed"):
-            torch.cuda.synchronize()
-            marks[0].record()
-            if mode == "bare":
-                for _ in range(n):
-                    task.train_step(state, ex)
-            elif mode == "inline":
-                for _ in range(n):
-                    task.train_step(state, task.extract_batch(ready))
-            else:
-                for b in DeviceFeed([ready] * n, task.extract_batch, depth=mode):
-                    task.train_step(state, b)
-            marks[1].record()
-            marks[1].synchronize()
-        return marks[0].elapsed_time(marks[1]) / n
-
-    # the host's pace moves a step by several ms from one round to the
-    # next: the four ways in turns, three rounds, the median of each
-    modes = ("bare", "inline", 0, 1)
-    rounds = [[steps_ms(mode) for mode in modes] for _ in range(3)]
-    fed = dict(zip(modes, np.median(np.asarray(rounds), axis=0)))
+    # 8 steps "bare" on the batch already on the card, "inline" with
+    # ``extract_batch`` before each step, or fed through DeviceFeed at the
+    # depth 0 or 1; the host's pace moves a step by several ms from one
+    # round to the next: the four ways in turns, three rounds, the median of
+    # each
+    ways = {"bare": lambda: [ex] * 8,
+            "inline": lambda: (task.extract_batch(ready) for _ in range(8)),
+            0: lambda: DeviceFeed([ready] * 8, task.extract_batch, depth=0),
+            1: lambda: DeviceFeed([ready] * 8, task.extract_batch, depth=1)}
+    rounds = [[steps_ms(task, state, way) for way in ways.values()] for _ in range(3)]
+    fed = dict(zip(ways, np.median(np.asarray(rounds), axis=0)))
     log("train", f"{name}: 8 steps each way, three rounds in turns, medians (CUDA "
         f"events): bare {fed['bare']:.3f} ms, extract_batch in line "
         f"{fed['inline']:.3f}, DeviceFeed depth 0 {fed[0]:.3f}, depth 1 "
@@ -2279,7 +2398,7 @@ def phase_train(tmp: str, satclip: bool = False) -> tuple[dict, dict]:
             f"{inline_ms:.3f} ms ({n_batch / inline_ms * 1e3:.2f} images/s); the "
             f"tower alone {(time.perf_counter() - t0) * 100:.3f} ms a batch of "
             f"{n_batch} (host clock)")
-    del task, plain, state, plain_state, ex
+    del task, plain, state, plain_state, ex, held
     torch.cuda.empty_cache()
 
     # --- an f32 step on the card (TF32 off) vs the same seeded step on the
@@ -2302,46 +2421,7 @@ def phase_train(tmp: str, satclip: bool = False) -> tuple[dict, dict]:
     argv = ["--log-every", "1"] if satclip else ["--config", CONFIG, "--device",
                                                  "cuda", "--log-every", "1"]
     val_steps, n_eval = ([8], 1 + 1) if satclip else ([4, 8], 2)
-    reset_counts()
-    t0 = time.perf_counter()
-    final = cli.main(argv + ["--logdir", run, "--max-steps", "8"])
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = counts()
-    no_library(f"{name}: CLI")
-    want = {k: 8 * STEP_LAUNCHES[k] + n_eval * EVAL_LAUNCHES[k] for k in STEP_LAUNCHES}
-    log("train", f"CLI {' '.join(argv)}: {final.step} steps in {dt:.2f} s (set-up "
-        f"included); launches {launches} (want {want})")
-    if final.step != 8 or launches != want:
-        raise AssertionError(f"CLI run: step {final.step}, launches {launches}")
-    missing = [f for f in ("last.pt", "best.pt", "sched_state_last.json",
-                           "sched_state_best.json", "config.yaml")
-               + (("validation_metrics.csv",
-                   "validation_metrics_ablation_satclip_True_e1.geojson") * satclip)
-               if not os.path.isfile(os.path.join(run, f))]
-    with open(os.path.join(run, "metrics.jsonl")) as f:
-        rows = [json.loads(line) for line in f]
-    train = [r for r in rows if "model_loss/generator_total_loss" in r]
-    val = [r for r in rows if "val/L1" in r]
-    keys = list(got) + (["scale_param"] if satclip else [])
-    finite = all(math.isfinite(r[k]) for r in train for k in keys)
-    log("train", f"CLI: train rows at steps {[r['step'] for r in train]}, val "
-        f"rows at {[r['step'] for r in val]}; generator_total_loss "
-        f"{train[0]['model_loss/generator_total_loss']:.4f} -> "
-        f"{train[-1]['model_loss/generator_total_loss']:.4f}; val/L1 "
-        f"{[round(r['val/L1'], 5) for r in val]}; images/s (host clock, steps "
-        f"2-8) {[round(r['perf/images_per_sec'], 1) for r in train[1:]]}"
-        + (f"; scale_param {[round(r['scale_param'], 5) for r in train]}"
-           if satclip else ""))
-    # the validation panels, drawn with PIL where matplotlib is not installed
-    images = sorted(f for f in os.listdir(os.path.join(run, "images"))
-                    if f.startswith("Images_Val_NIR_")) if os.path.isdir(
-        os.path.join(run, "images")) else []
-    log("train", f"CLI: validation panels {images}")
-    if (missing or not finite or [r["step"] for r in val] != val_steps
-            or len(train) != 8 or len(images) != len(val_steps)):
-        raise AssertionError(f"CLI run: missing {missing}, finite {finite}, "
-                             f"val steps {[r['step'] for r in val]}, panels {images}")
+    launches, _ = run_train_cli(name, run, argv, 8, val_steps, n_eval, satclip)
     resumed = cli.main(argv + ["--resume", run, "--max-steps", "10"])
     with open(os.path.join(run, "metrics.jsonl")) as f:
         val = [json.loads(line)["step"] for line in f if "val/L1" in line]
@@ -2349,6 +2429,245 @@ def phase_train(tmp: str, satclip: bool = False) -> tuple[dict, dict]:
     if resumed.step != 10 or val != val_steps + [10]:
         raise AssertionError(f"resume: step {resumed.step}, val rows {val}")
     return launches, per_step
+
+
+# ------------------------------------------------- training on 512^2 tiles
+# config_px2px.yaml's S2_75k_settings and S2_100k_settings: the reference's
+# Sentinel-2 datasets, 512^2 tiles reflect-padded to 532^2, batch 16
+T512_TILE = 512
+T512_SIDE = T512_TILE + 2 * PAD  # 532
+# seeded uint16 RGBN tiles: the loader holds out every 17th of 69 for
+# validation, which leaves 64 (four batches of 16, one epoch) and 5 (one
+# batch at val_batch_size 5)
+T512_TILES = 69
+T512_F32_BATCH = 2  # the f32 step's batch, card against the CPU
+T512_STEPS = 4  # the train CLI's steps: one epoch, one validation
+T512_TIMED = 8  # steps a round of the step's timing
+
+
+def write_s2_tiles(folder: str, n: int = T512_TILES) -> None:
+    """``n`` seeded uint16 DN (4, 512, 512) RGBN ``.npy`` tiles, the layout
+    that ``NpzFolderDataset`` and the native reader read."""
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(SEED)
+    for i in range(n):
+        np.save(os.path.join(folder, f"s2_{i:03d}.npy"),
+                rng.integers(0, 10000, (4, T512_TILE, T512_TILE), dtype=np.uint16))
+
+
+def s2_config(folder: str, **data):
+    """``config_px2px.yaml`` in memory with ``dataset_type: S2_75k``, its
+    ``base_path`` the folder of ``write_s2_tiles``, and the ``Data`` values
+    given."""
+    from nirgan_tpu_torch.config import load_config
+
+    cfg = load_config(CONFIG)
+    cfg.Data.dataset_type = "S2_75k"
+    cfg.Data.S2_75k_settings.base_path = folder
+    for key, value in data.items():
+        cfg.Data[key] = value
+    return cfg
+
+
+def s2_norm_shapes() -> list:
+    """The instance norm's shapes in the 532^2 step at batch 16, with the
+    fused ReLU the step gives each and whether a skip is fused there: G at
+    532^2 (c0, u1), 266^2 (d0, u0) and 133^2 (d1 and the blocks' norm1;
+    the blocks' norm2 with the skip); the PatchGAN on 512^2 at 128^2,
+    64^2 and 63^2 (C = 512), whose LeakyReLU is not fused."""
+    n, s, t = TRAIN_BATCH, T512_SIDE, T512_TILE
+    return [((n, s, s, 64), True, False), ((n, s // 2, s // 2, 128), True, False),
+            ((n, s // 4, s // 4, 256), True, True), ((n, t // 4, t // 4, 128), False, False),
+            ((n, t // 8, t // 8, 256), False, False),
+            ((n, t // 8 - 1, t // 8 - 1, 512), False, False)]
+
+
+def bf16_db(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """PSNR of a bf16 result against its plain version over the plain
+    version's range."""
+    r = ref.float()
+    return psnr(got, ref, float(r.max() - r.min()))
+
+
+def train512_kernels(g: torch.Generator) -> dict:
+    """Every kernel of the 532^2 step against its plain version at the
+    step's shapes, f32 and bf16 by the helpers' bounds, bf16 also >= 40 dB,
+    each timed beside its plain version, its library call and its bound: A
+    at (16, 133^2, 256), both pad modes; B and B4 at the six norm shapes
+    (``s2_norm_shapes``) with the ReLU and the skip fused and not, and at
+    532^2 without the ReLU beside the library calls; B5 at u1 (z (16,
+    266^2, 128), ct (16, 532^2, 64)) and u0 (z (16, 133^2, 256), ct (16,
+    266^2, 128)); C at (16, 538^2, 64).  The entries go under
+    ``train512`` in the kernels' JSON entries."""
+    from nirgan_tpu_torch.ops.head_conv import head_conv_cuda, head_conv_plain
+    from nirgan_tpu_torch.ops.instance_norm import (
+        instance_norm_bwd_cuda,
+        instance_norm_bwd_plain,
+        instance_norm_cuda,
+        instance_norm_plain,
+    )
+    from nirgan_tpu_torch.ops.trunk_conv import trunk_conv_cuda, trunk_conv_plain
+
+    dev = torch.device("cuda")
+    n, s = TRAIN_BATCH, T512_SIDE
+    out, dbs = {}, {}
+    # A, and its dB on a fresh input at the shape
+    shape = (n, s // 4, s // 4, 256)
+    err, *a_times, a_valid = check_trunk(g, shape)
+    xb = torch.randn(shape, device=dev, generator=g).bfloat16()
+    w = torch.randn((256, 256, 3, 3), device=dev, generator=g) / 48.0
+    dbs["trunk_conv"] = bf16_db(trunk_conv_cuda(xb, w), trunk_conv_plain(xb, w))
+    out["trunk_conv"] = {"err": err, "train512": times(shape, *a_times),
+                         "pad0_train512": times(*a_valid)}
+    # C
+    shape = (n, s + 6, s + 6, 64)
+    err, *c_times = check_head(g, shape)
+    xb = torch.randn(shape, device=dev, generator=g).bfloat16()
+    w = torch.randn((1, 64, 7, 7), device=dev, generator=g) / 56.0
+    b = torch.full((1,), 0.1, device=dev)
+    dbs["head_conv"] = bf16_db(head_conv_cuda(xb, w, b), head_conv_plain(xb, w, b))
+    out["head_conv"] = {"err": err, "train512": times(shape, *c_times)}
+    del xb, w
+    # B5 at u1 and u0
+    u1 = check_convt(g, "train512_u1", n, s // 2, 128, 64)
+    u0 = check_convt(g, "train512_u0", n, s // 4, 256, 128)
+    out["convt_bwd"] = {"err": max(u1[0], u0[0]), "train512_u1": times(*u1[1]),
+                        "train512_u0": times(*u0[1])}
+    # B and B4
+    fwd, bwd, worst, worst_bwd = [], [], 0.0, 0.0
+    for shape, relu, skip in s2_norm_shapes():
+        x = torch.randn(shape, device=dev, generator=g) * 3.0 + 1.5
+        r = torch.randn(shape, device=dev, generator=g) if skip else None
+        dy = torch.randn(shape, device=dev, generator=g)
+        for fused_relu in (False, True):
+            for residual in (None, r) if skip else (None,):
+                worst = max(worst, check_norm(x, fused_relu, residual))
+            worst_bwd = max(worst_bwd, check_norm_bwd(x, dy, fused_relu))
+        del r
+        xb, gb = x.bfloat16(), dy.bfloat16()
+        del x, dy
+        y, stats = instance_norm_cuda(xb, relu=relu, return_stats=True)
+        db = bf16_db(y, instance_norm_plain(xb, relu=relu))
+        db_bwd = bf16_db(instance_norm_bwd_cuda(xb, gb, stats, relu),
+                         instance_norm_bwd_plain(xb, gb, stats, relu))
+        del y, stats
+        log("train512", f"instance_norm {shape} relu={relu}: bf16 kernels vs plain "
+            f"{db:.2f} dB forward, {db_bwd:.2f} dB backward (bound 40)")
+        dbs[f"instance_norm {shape}"], dbs[f"instance_norm_bwd {shape}"] = db, db_bwd
+        fwd.append(times(shape, *norm_times(xb, relu)))
+        bwd.append(times(shape, *bwd_times(xb, gb, relu)))
+        if skip:
+            fwd.append(times(shape, *norm_times(xb, False, skip=True)))
+        if shape[1] == s:
+            # G's 532^2 norm without the ReLU too, beside the library calls,
+            # which fuse no ReLU
+            fwd.append(times(shape, *norm_times(xb, False)))
+            bwd.append(times(shape, *bwd_times(xb, gb, False)))
+        del xb, gb
+        torch.cuda.empty_cache()
+    out["instance_norm"] = {"err": worst, "train512_shapes": fwd}
+    out["instance_norm_bwd"] = {"err": worst_bwd, "train512_shapes": bwd}
+    log("train512", f"bf16 kernels vs plain at the 532^2 step's shapes, dB: "
+        f"{ {k: round(v, 2) for k, v in dbs.items()} }")
+    shares = [e["bound_ms"] / e["ms"] for e in fwd + bwd]
+    if min(dbs.values()) < 40.0 or max(shares) > 1.0:
+        raise AssertionError(f"train512 kernels: {dbs}, shares {shares}")
+    return out
+
+
+def phase_train512(tmp: str) -> dict:
+    """Training on 512^2 tiles, the S2 datasets' configuration
+    (``S2_75k_settings``, ``config_px2px.yaml:39-48``; batch 16, reflect-
+    padded to 532^2, bf16 over f32 params): seeded uint16 RGBN ``.npy``
+    tiles in a folder, ``config_px2px.yaml`` in memory with
+    ``dataset_type: S2_75k`` pointed at it.  Every kernel against its plain
+    version at the step's shapes (``train512_kernels``); the batch
+    (16, 3, 512^2) and the generator's input in the step 532^2; one fused
+    step at batch 16 (``held_step``: launches, gradients, bit for bit again,
+    the plain route's terms), its peak device memory from before its task,
+    its ms by CUDA events (the median of three rounds of ``T512_TIMED`` steps,
+    and one of the plain route); the f32 step card against the CPU at batch
+    ``T512_F32_BATCH`` of 512^2 (``check_f32_step``, TF32 off); the train CLI
+    for one epoch of ``T512_STEPS`` steps and a validation at
+    ``val_batch_size`` 5 of 512^2, fed by the Python loader and by the
+    native reader (``Data.native_loader``): launches, files, rows, panels,
+    ``perf/step_ms`` and ``perf/images_per_sec``.  Returns the numbers for
+    the JSON line."""
+    from nirgan_tpu_torch.config import save_config
+
+    folder = os.path.join(tmp, "s2_75k")
+    t0 = time.perf_counter()
+    write_s2_tiles(folder)
+    cfg = s2_config(folder)
+    name = f"{os.path.basename(CONFIG)} S2_75k {T512_TILE}^2"
+    log("train512", f"{T512_TILES} seeded uint16 (4, {T512_TILE}, {T512_TILE}) tiles written "
+        f"in {time.perf_counter() - t0:.1f} s; {name} (configs/config_px2px.yaml:39-48), batch "
+        f"{cfg.Data.train_batch_size}, padding {cfg.Data.padding_amount}")
+    t0 = time.perf_counter()
+    with cudnn_tf32(False):
+        kernels = train512_kernels(torch.Generator(device="cuda").manual_seed(SEED))
+    kernels_s = time.perf_counter() - t0
+
+    # --- one fused step at batch 16, kernels vs plain route
+    t0 = time.perf_counter()
+    batch = first_batch(cfg)
+    held = held_step(name, cfg, batch)
+    task, state, ex = held["task"], held["state"], held["ex"]
+    log("train512", f"batch {batch['rgb'].shape} {batch['rgb'].dtype}, the generator's "
+        f"input in the step {held['g_input']}; peak device memory of the step "
+        f"{held['peak']} B from before its task")
+    if (batch["rgb"].shape != (TRAIN_BATCH, 3, T512_TILE, T512_TILE)
+            or held["g_input"] != (TRAIN_BATCH, T512_SIDE, T512_SIDE, 3)):
+        raise AssertionError(f"512^2 batch {batch['rgb'].shape}, input {held['g_input']}")
+    plain, plain_state = held["plain"], held["plain_state"]
+    rounds = [steps_ms(task, state, lambda: [ex] * T512_TIMED, T512_TIMED) for _ in range(3)]
+    ms = float(np.median(rounds))
+
+    def plain_step():
+        with plain_route():
+            plain.train_step(plain_state, ex)
+
+    plain_ms = time_ms(plain_step, iters=3, warmup=1)
+    log("train512", f"bf16 fused step, batch {TRAIN_BATCH} at {T512_SIDE}^2 (CUDA events): "
+        f"median of three rounds of {T512_TIMED} {ms:.3f} ms ({TRAIN_BATCH / ms * 1e3:.2f} "
+        f"images/s; rounds {[round(r, 3) for r in rounds]}), plain route {plain_ms:.3f} ms")
+    step_s = time.perf_counter() - t0
+    per_step, peak = held["per_step"], held["peak"]
+    del task, state, ex, plain, plain_state, held
+    torch.cuda.empty_cache()
+
+    # --- the f32 step, card against the CPU, at batch 2 of 512^2
+    t0 = time.perf_counter()
+    small = s2_config(folder, train_batch_size=T512_F32_BATCH)
+    small.tpu.compute_dtype = "float32"
+    check_f32_step(f"{name} batch {T512_F32_BATCH}", small)
+    f32_s = time.perf_counter() - t0
+
+    # --- the train CLI for one epoch and its validation, on both readers
+    t0 = time.perf_counter()
+    cli_out = {}
+    for route, native in (("python", False), ("native", True)):
+        path = os.path.join(tmp, f"s2_{route}.yaml")
+        save_config(s2_config(folder, native_loader=native), path)
+        _, rows = run_train_cli(f"{name}, {route} loader", os.path.join(tmp, f"run512_{route}"),
+                                ["--config", path, "--device", "cuda", "--log-every", "1"],
+                                T512_STEPS, [T512_STEPS], 1)
+        cli_out[route] = {k: [r[k] for r in rows[1:]]
+                          for k in ("perf/step_ms", "perf/images_per_sec")}
+        log("train512", f"CLI on the {route} loader: perf/step_ms "
+            f"{[round(v, 2) for v in cli_out[route]['perf/step_ms']]}, perf/images_per_sec "
+            f"{[round(v, 2) for v in cli_out[route]['perf/images_per_sec']]} (steps 2-"
+            f"{T512_STEPS}, the host's clock)")
+    cli_s = time.perf_counter() - t0
+    log("train512", f"kernels {kernels_s:.1f} s, the step {step_s:.1f} s, the f32 step "
+        f"{f32_s:.1f} s, the CLI runs {cli_s:.1f} s")
+    for name_, got in kernels.items():
+        if name_ in RESULTS:
+            RESULTS[name_].update({k: v for k, v in got.items() if k != "err"})
+            RESULTS[name_]["max_abs_err"] = max(RESULTS[name_]["max_abs_err"], got["err"])
+    return {"step_ms": ms, "step_ms_rounds": rounds, "plain_step_ms": plain_ms,
+            "peak_bytes": peak, "per_step": per_step, "cli": cli_out,
+            "batch": TRAIN_BATCH, "side": T512_SIDE}
 
 
 def phase_concat() -> None:
@@ -2987,6 +3306,11 @@ UNET_FORWARD = {"trunk_conv": 0, "instance_norm": 13, "instance_norm_bwd": 0,
                 "head_conv": 0, "convt_bwd": 0}
 UNET_STEP = {"trunk_conv": 0, "instance_norm": 22, "instance_norm_bwd": 22,
              "head_conv": 0, "convt_bwd": 0}
+# and of unet_128's (one level fewer: 5 norms down, 6 up; G's 11 and D's 9
+# in the step)
+UNET128_FORWARD = {**UNET_FORWARD, "instance_norm": 11}
+UNET128_STEP = {**UNET_STEP, "instance_norm": 20, "instance_norm_bwd": 20}
+UNET_CALLS = {"unet_256": (UNET_FORWARD, UNET_STEP), "unet_128": (UNET128_FORWARD, UNET128_STEP)}
 # the kernels' wrapper calls on the new paths, for the kernels line
 VARIANTS: dict = {}
 
@@ -3005,13 +3329,13 @@ def unet_config(**overrides):
     return cfg
 
 
-def unet_norm_shapes() -> list:
-    """The seven shapes of the unet_256 step's instance norms at batch 16 of
-    256^2: 128^2 x 64 (the last way up) down to 2^2 x 512 (the innermost)."""
+def unet_norm_shapes(netg: str = "unet_256") -> list:
+    """The shapes of the U-Net step's instance norms at batch 16 of 256^2,
+    one a level from 1 to num_downs - 1: 128^2 x 64 (the last way up) down
+    to 2^2 x 512 (unet_256's innermost; unet_128's is 4^2 x 512)."""
     n, s = TRAIN_BATCH, TRAIN_TILE
-    return [(n, s // 2, s // 2, 64), (n, s // 4, s // 4, 128), (n, s // 8, s // 8, 256),
-            (n, s // 16, s // 16, 512), (n, s // 32, s // 32, 512),
-            (n, s // 64, s // 64, 512), (n, s // 128, s // 128, 512)]
+    return [(n, s >> level, s >> level, 64 * min(1 << (level - 1), 8))
+            for level in range(1, {"unet_256": 8, "unet_128": 7}[netg])]
 
 
 def check_tiny_slab_plans(g: torch.Generator) -> None:
@@ -3056,10 +3380,11 @@ def check_tiny_slab_plans(g: torch.Generator) -> None:
 
 
 def phase_unet_norms(g: torch.Generator) -> None:
-    """B and B4 against their plain versions at the U-Net's seven norm
+    """B and B4 against their plain versions at unet_256's seven norm
     shapes, without the ReLU (the U-Net fuses none), f32 and bf16, each timed
     with its bound and its library call; the entries go under
-    ``unet_shapes``."""
+    ``unet_shapes``, and those of unet_128's six (unet_256's first six) under
+    ``unet_128_shapes``."""
     dev = torch.device("cuda")
     fwd_all, bwd_all, worst, worst_bwd = [], [], 0.0, 0.0
     for shape in unet_norm_shapes():
@@ -3075,6 +3400,9 @@ def phase_unet_norms(g: torch.Generator) -> None:
     check_tiny_slab_plans(g)
     RESULTS["instance_norm"]["unet_shapes"] = fwd_all
     RESULTS["instance_norm_bwd"]["unet_shapes"] = bwd_all
+    unet128 = [str(shape) for shape in unet_norm_shapes("unet_128")]
+    for name, entries in (("instance_norm", fwd_all), ("instance_norm_bwd", bwd_all)):
+        RESULTS[name]["unet_128_shapes"] = [e for e in entries if e["shape"] in unet128]
     for name, err in (("instance_norm", worst), ("instance_norm_bwd", worst_bwd)):
         RESULTS[name]["max_abs_err"] = max(RESULTS[name]["max_abs_err"], err)
     shares = [e["bound_ms"] / e["ms"] for e in fwd_all + bwd_all]
@@ -3118,11 +3446,11 @@ def check_repeat(what: str, cfg, ex: dict, got: dict, seen: dict, netg=None) -> 
                              f"{repeat} vs {got}")
 
 
-def phase_unet() -> dict:
-    """``unet_256`` at full width (ngf 64, ndf 64, basic D, instance norm,
-    bf16 over f32 params): the serving forward of 4 x 512^2 on the kernels
-    against the plain route (>= 40 dB), bit for bit twice, B's 13 calls,
-    timed; ``predict_step`` in f32 on the card (TF32 off) against the CPU on
+def phase_unet(netg: str = "unet_256") -> dict:
+    """The U-Net ``netg`` (``unet_256`` or ``unet_128``) at full width (ngf
+    64, ndf 64, basic D, instance norm, bf16 over f32 params): the serving
+    forward of 4 x 512^2 on the kernels against the plain route (>= 40 dB),
+    bit for bit twice, B's calls (13; 11), timed; ``predict_step`` in f32 on the card (TF32 off) against the CPU on
     2 x 256^2 (<= 1e-3); one fused step at batch 16 of 256^2 (launches,
     every gradient, within 2% + 1e-3 of the plain route, bit for bit from
     the same seed), timed.  Returns the wrapper calls of the forward and
@@ -3132,7 +3460,8 @@ def phase_unet() -> dict:
 
     dev = torch.device("cuda")
     seeded = torch.Generator().manual_seed(SEED)
-    G = define_G(3, 1, 64, "unet_256", "instance", compute_dtype=torch.bfloat16,
+    want_forward, want_step = UNET_CALLS[netg]
+    G = define_G(3, 1, 64, netg, "instance", compute_dtype=torch.bfloat16,
                  generator=seeded).to(dev).eval()
     x = (torch.rand((BATCH, UNET_TILE, UNET_TILE, 3),
                     generator=torch.Generator().manual_seed(1)) * 0.3).to(dev)
@@ -3141,52 +3470,53 @@ def phase_unet() -> dict:
         y = G(x)
         torch.cuda.synchronize()
         per_forward = counts()
-        no_library("unet forward")
+        no_library(f"{netg} forward")
         again = G(x)
         with plain_route():
             y_plain = G(x)
         db = psnr(y, y_plain, 2.0)
-        log("unet", f"forward of {tuple(x.shape)}: launches {per_forward} (want "
-            f"{UNET_FORWARD}); kernels vs plain route PSNR {db:.2f} dB (bound 40), "
+        log("unet", f"{netg} forward of {tuple(x.shape)}: launches {per_forward} (want "
+            f"{want_forward}); kernels vs plain route PSNR {db:.2f} dB (bound 40), "
             f"max|err| {float((y.float() - y_plain.float()).abs().max()):.3e}; "
             f"again bit for bit: {torch.equal(y, again)}")
-        if (per_forward != UNET_FORWARD or tuple(y.shape) != (BATCH, UNET_TILE, UNET_TILE, 1)
+        if (per_forward != want_forward or tuple(y.shape) != (BATCH, UNET_TILE, UNET_TILE, 1)
                 or not bool(torch.isfinite(y).all()) or not db >= 40.0
                 or not torch.equal(y, again)):
-            raise AssertionError(f"unet forward: {per_forward}, {db} dB")
+            raise AssertionError(f"{netg} forward: {per_forward}, {db} dB")
 
         def plain_forward():
             with plain_route():
                 return G(x)
 
         ms, plain_ms = compare_ms(lambda: G(x), plain_forward, iters=10)
-        log("unet", f"bf16 forward of {BATCH} x {UNET_TILE}^2: kernels {ms:.3f} ms "
+        log("unet", f"{netg} bf16 forward of {BATCH} x {UNET_TILE}^2: kernels {ms:.3f} ms "
             f"({BATCH / ms * 1e3:.2f} tiles/s), plain {plain_ms:.3f} ms")
     del G, x, y, again, y_plain
 
     # f32 on the card (kernels, TF32 off) against the same seeded task on
     # the CPU (plain versions)
-    cfg = unet_config()
+    cfg = unet_config(netG=netg)
     cfg.tpu.compute_dtype = "float32"
     rgb = np.random.default_rng(2).random((2, 3, TRAIN_TILE, TRAIN_TILE),
                                           dtype=np.float32) * 0.3
     reset_counts()
-    got = Px2PxTask(cfg, device="cuda", seed=SEED).predict_step(rgb)
+    with cudnn_tf32(False):  # set here, not inherited from an earlier phase
+        got = Px2PxTask(cfg, device="cuda", seed=SEED).predict_step(rgb)
     on_card = counts()
     ref = Px2PxTask(cfg, device="cpu", seed=SEED).predict_step(rgb)
     err = float(np.abs(got - ref).max())
-    log("unet", f"predict_step f32 {rgb.shape}, card vs CPU: max|err| {err:.3e} "
+    log("unet", f"{netg} predict_step f32 {rgb.shape}, card vs CPU: max|err| {err:.3e} "
         f"(bound 1e-03), launches {on_card}")
     if got.shape != (2, 1, TRAIN_TILE, TRAIN_TILE) or not err <= 1e-3 \
-            or on_card != UNET_FORWARD:
-        raise AssertionError(f"unet predict_step card vs CPU: {got.shape}, {err}, "
+            or on_card != want_forward:
+        raise AssertionError(f"{netg} predict_step card vs CPU: {got.shape}, {err}, "
                              f"{on_card}")
 
     # --- one fused step at batch 16 of 256^2, kernels vs plain route
-    cfg = unet_config()
+    cfg = unet_config(netG=netg)
     batch = first_batch(cfg)
     if batch["rgb"].shape != (TRAIN_BATCH, 3, TRAIN_TILE, TRAIN_TILE):
-        raise AssertionError(f"unet train batch {batch['rgb'].shape}")
+        raise AssertionError(f"{netg} train batch {batch['rgb'].shape}")
     task = Px2PxTask(cfg, device="cuda", seed=SEED)
     plain = Px2PxTask(cfg, device="cuda", seed=SEED)
     state, plain_state = task.init_state(), plain.init_state()
@@ -3195,22 +3525,22 @@ def phase_unet() -> dict:
     got = loss_terms(task.train_step(state, ex))
     torch.cuda.synchronize()
     per_step = counts()
-    no_library("unet step")
-    log("unet", f"launches per step {per_step} (want {UNET_STEP})")
-    if per_step != UNET_STEP:
-        raise AssertionError(f"unet step launches {per_step} != {UNET_STEP}")
+    no_library(f"{netg} step")
+    log("unet", f"{netg} launches per step {per_step} (want {want_step})")
+    if per_step != want_step:
+        raise AssertionError(f"{netg} step launches {per_step} != {want_step}")
     check_gradients(task)
-    check_repeat("unet", cfg, ex, got, grads_and_stats(task))
+    check_repeat(netg, cfg, ex, got, grads_and_stats(task))
     with plain_route():
         ref = loss_terms(plain.train_step(plain_state, ex))
-    check_terms("unet_256: bf16 step 1, kernels vs plain route", got, ref, 2e-2, 1e-3)
+    check_terms(f"{netg}: bf16 step 1, kernels vs plain route", got, ref, 2e-2, 1e-3)
 
     def plain_step():
         with plain_route():
             plain.train_step(plain_state, ex)
 
     ms, plain_ms = compare_ms(lambda: task.train_step(state, ex), plain_step, iters=5)
-    log("unet", f"bf16 fused step, batch {TRAIN_BATCH} at {TRAIN_TILE}^2: kernels "
+    log("unet", f"{netg} bf16 fused step, batch {TRAIN_BATCH} at {TRAIN_TILE}^2: kernels "
         f"{ms:.3f} ms ({TRAIN_BATCH / ms * 1e3:.2f} images/s), plain {plain_ms:.3f} ms")
     return {"per_forward": per_forward, "per_step": per_step}
 
@@ -4297,7 +4627,8 @@ def phase_profile() -> None:
     """Where the time goes (``python3 chip_smoke.py --profile``): the
     serving forward (bf16, and with the int8 trunk calibrated on its batch)
     and the fused train step of the full-width configs under
-    ``torch.profiler``, the plain route (``config_px2px.yaml``), the SatCLIP
+    ``torch.profiler``, the plain route (``config_px2px.yaml``, also its
+    step on 512^2 tiles at 532^2), the SatCLIP
     inject route (``config_px2px_SatCLIP.yaml``), the ``unet_256`` forward
     and step and the pix2pix (batch-norm U-Net) step, on the kernels and on
     the plain versions; and the head's backward, which is PyTorch's
@@ -4364,10 +4695,21 @@ def phase_profile() -> None:
         with torch.inference_mode():
             G_unet(x_unet)
 
+    def s2_stepper():
+        # config_px2px.yaml's step on a batch of 16 512^2 tiles (S2_75k's
+        # size), made in memory: the generator at 532^2
+        task = Px2PxTask(load_config(CONFIG), device="cuda", seed=SEED)
+        state = task.init_state()
+        rng = np.random.default_rng(SEED)
+        tiles = rng.integers(0, 10000, (TRAIN_BATCH, 4, T512_TILE, T512_TILE)).astype(np.float32)
+        ex = task.extract_batch({"rgb": tiles[:, :3] / 1e4, "nir": tiles[:, 3:] / 1e4})
+        return lambda: task.train_step(state, ex)
+
     step, step_inject = stepper(CONFIG), stepper(SATCLIP_CONFIG)
     runs = (("serving forward", forward, 10),
             ("serving forward, int8 trunk", forward_int8, 10),
             ("train step, batch 16", step, 5),
+            (f"train step, batch 16 of {T512_TILE}^2 tiles ({T512_SIDE}^2)", s2_stepper(), 3),
             ("serving forward, inject", forward_inject, 10),
             ("train step, inject, batch 8", step_inject, 5),
             ("unet_256 serving forward, 4 x 512^2", forward_unet, 10),
@@ -4389,8 +4731,9 @@ def phase_profile() -> None:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     w = torch.randn((1, 64, 7, 7), device=dev, generator=g) / 56.0
     b = torch.full((1,), 0.1, device=dev)
-    for n in (TRAIN_BATCH, SATCLIP_BATCH):
-        xh = torch.randn((n, TRAIN_SIDE + 6, TRAIN_SIDE + 6, 64), device=dev,
+    for n, side in ((TRAIN_BATCH, TRAIN_SIDE), (SATCLIP_BATCH, TRAIN_SIDE),
+                    (TRAIN_BATCH, T512_SIDE)):
+        xh = torch.randn((n, side + 6, side + 6, 64), device=dev,
                          generator=g).bfloat16()
         y = head_conv_cuda(xh, w, b)
         ct = torch.randn(y.shape, device=dev, generator=g).bfloat16()
@@ -5456,7 +5799,8 @@ def timed_sharded_forward(task, rgb: np.ndarray, mesh) -> dict:
 
 def spatial_rank(folder: str, init_file: str, rank: str, world: str, part: str) -> None:
     """One process of ``phase_spatial`` on the one card: ``part`` "two"
-    runs (e), (g) and (a)-(c) as one of two ranks over gloo, "grid" (d),
+    runs (e) (also layer by layer and in f32), (g) and (a)-(c) as one of
+    two ranks over gloo, and on rank 0 ``layers_alone`` last, "grid" (d),
     (h) and (f) as one of four, "nccl" (c) and (f) alone under torchrun over
     NCCL.  Its results go to ``{part}{rank}.pt`` in ``folder``."""
     from nirgan_tpu_torch.parallel import create_mesh, initialize_multihost
@@ -5496,6 +5840,12 @@ def spatial_rank(folder: str, init_file: str, rank: str, world: str, part: str) 
         for key, norm in (("e", "instance"), ("g", "batch")):
             out[key] = timed_sharded_forward(spatial_unet_task(norm=norm), rgb, mesh)
             torch.cuda.empty_cache()
+        # (e) layer by layer against the whole tile's forward in this
+        # process, then in f32
+        out["e"]["layers"] = layer_parts(spatial_unet_task(), rgb, mesh)
+        with cudnn_tf32(False):
+            out["e32"] = predict_large_tile(spatial_unet_task("float32"), rgb, mesh)
+        torch.cuda.empty_cache()
         task = spatial_task()
         out["a"] = timed_sharded_forward(task, rgb, mesh)
         for name in ("int8", "stage2"):
@@ -5508,6 +5858,15 @@ def spatial_rank(folder: str, init_file: str, rank: str, world: str, part: str) 
         with cudnn_tf32(False):
             out["f32"] = {trunk: predict_large_tile(spatial_task("float32", trunk), rgb32, mesh)
                           for trunk in SPATIAL_TRUNKS}
+    if part == "two" and rank == 0:
+        # each layer of (e) and of (h)'s first sample alone, after every
+        # collective: it attaches the profiler, which this process then
+        # keeps
+        task = spatial_unet_task()
+        first = spatial_tile(SPATIAL_F32_SIDE, SPATIAL_GRID_BATCH, SEED + 2)[:1]
+        out["alone"] = {side: layers_alone(task, torch.from_numpy(np.ascontiguousarray(
+            t.transpose(0, 2, 3, 1))).to(DEVICE)) for side, t in
+            ((SPATIAL_SIDE, rgb), (SPATIAL_F32_SIDE, first))}
     torch.save(out, os.path.join(folder, f"{part}{rank}.pt"))
 
 
@@ -5771,6 +6130,188 @@ def check_split_norm_unet(g: torch.Generator) -> None:
         f"shards: max errs {worst}")
 
 
+# --------------------------------------- (e) layer by layer, and by row
+@contextlib.contextmanager
+def recorded_layers(net, sharded: bool):
+    """The output of every k4 s2 conv, transposed conv and norm of the
+    U-Net ``net`` while the block runs, as (name, output) in the order
+    they run: ``forward``'s through module hooks; ``forward_rows``'s
+    (``sharded``) through its conv and norm calls, each transposed conv's
+    slab cropped to the shard's rows as ``forward_rows`` crops it."""
+    from nirgan_tpu_torch.models import unet
+    from nirgan_tpu_torch.models.layers import Norm, TorchConv, TorchConvTranspose
+
+    names = {m: n for n, m in net.named_modules()}
+    weights = {id(m.weight): n for m, n in names.items() if isinstance(m, TorchConv)}
+    out = []
+
+    def hook(m, args, y):
+        if not sharded:
+            out.append((names[m], y))
+        elif isinstance(m, TorchConvTranspose):
+            out.append((names[m], y[:, 2:y.shape[1] - 2]))
+
+    handles = [m.register_forward_hook(hook) for m in names
+               if isinstance(m, (TorchConv, TorchConvTranspose, Norm))]
+    conv2d, norm_rows = unet.conv2d, unet._norm_rows
+
+    def conv(x, w, b=None, stride=1, padding=0):
+        y = conv2d(x, w, b, stride, padding)
+        out.append((weights[id(w)], y))
+        return y
+
+    def norm(n, x, shard, count, relu=False, residual=None):
+        y = norm_rows(n, x, shard, count, relu, residual)
+        out.append((names[n], y))
+        return y
+
+    try:
+        with mock.patch.object(unet, "conv2d", conv), \
+                mock.patch.object(unet, "_norm_rows", norm):
+            yield out
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def parted(name: str, got: torch.Tensor, ref: torch.Tensor, row0: int) -> dict:
+    """How a layer's rows ``got`` differ from ``ref`` (the same rows of the
+    whole map's, which start at its row ``row0``): elements apart, max |d|
+    and the first and last row of the map that differ."""
+    d = (got.float() - ref.float()).abs()
+    rows = torch.nonzero(d.amax(dim=(0, 2, 3))).flatten()
+    return {"layer": name, "rows": [row0, row0 + got.shape[1]], "n_diff": int((d > 0).sum()),
+            "max_abs": float(d.max()),
+            "diff_rows": [row0 + int(rows[0]), row0 + int(rows[-1])] if len(rows) else None}
+
+
+def layer_parts(task, rgb: np.ndarray, mesh) -> list:
+    """(e) on this rank layer by layer: the sharded forward's output of
+    every conv, transposed conv and norm against the same rows of the
+    whole tile's forward in this process (no collective), in the order
+    they run (``parted``)."""
+    from nirgan_tpu_torch.parallel.spatial import predict_large_tile, shard_ranges
+
+    with recorded_layers(task.netG, True) as mine:
+        predict_large_tile(task, rgb, mesh)
+    lo, _ = shard_ranges(task, rgb.shape[2], mesh.world_size)[mesh.rank]
+    x = torch.from_numpy(np.ascontiguousarray(rgb.transpose(0, 2, 3, 1))).to(DEVICE)
+    with recorded_layers(task.netG, False) as whole, torch.inference_mode():
+        task.g_apply(x)
+    if [n for n, _ in mine] != [n for n, _ in whole]:
+        raise AssertionError(f"(e) layers: {[n for n, _ in mine]} vs {[n for n, _ in whole]}")
+    out = []
+    for (name, got), (_, ref) in zip(mine, whole):
+        row0 = lo * ref.shape[1] // rgb.shape[2]
+        out.append(parted(name, got, ref[:, row0:row0 + got.shape[1]], row0))
+    return out
+
+
+def cuda_kernels(fn) -> list:
+    """The names of the kernels one call of ``fn`` runs on the card
+    (``torch.profiler``)."""
+    table, _ = profiled(lambda: (fn(), torch.cuda.synchronize()))
+    return sorted(ev.key for ev in table if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and not ev.is_user_annotation and ev.device_time_total)
+
+
+def layers_alone(task, x: torch.Tensor, n: int = 2) -> list:
+    """Every k4 s2 conv, transposed conv and instance norm of the U-Net,
+    each on the input the whole map's forward gives it, against the same
+    op as ``forward_rows`` runs it for each of ``n`` shards on that input:
+    the conv on the shard's slab (one row of the neighbours or of zeros
+    each side, a zero column each side; VALID at stride 2), the transposed
+    conv on its slab cropped to rows [2, 2h + 2), B's split forward with
+    every shard's sums.  So a layer that parts here parts on its own
+    input, not by what an earlier layer handed on.  Per layer and shard
+    ``parted``; for a conv or transposed conv that parts, the cuDNN kernels
+    that ran for the whole map and for the shard's slab."""
+    from nirgan_tpu_torch.models.layers import Norm, TorchConv, TorchConvTranspose
+    from nirgan_tpu_torch.ops.conv import conv2d
+    from nirgan_tpu_torch.ops.instance_norm import instance_norm_apply, instance_norm_sums
+    from nirgan_tpu_torch.parallel.spatial import assemble, pad_cols, row_ranges, unet_depth
+
+    names = {m: name for name, m in task.netG.named_modules()}
+    side = x.shape[1]
+    k = unet_depth(side, n, task.netG.num_downs)
+    cuts = row_ranges(side, n, 1 << k, 1 << k)
+    out = []
+
+    def hook(m, args, y):
+        # the shard's rows of the op's input map, at its level
+        h = args[0]
+        scale = h.shape[1] / side
+        if isinstance(m, Norm):
+            def split(i):
+                a, b = int(cuts[i][0] * scale), int(cuts[i][1] * scale)
+                return a, b, h[:, a:b].contiguous()
+            pieces = [split(i) for i in range(n)]
+            sums = torch.stack([instance_norm_sums(p) for _, _, p in pieces], 1)
+            count = y.shape[1] * y.shape[2]
+            for a, b, p in pieces:
+                out.append(parted(names[m], instance_norm_apply(p, sums, count, 1e-5),
+                                  y[:, a:b], a))
+            return
+        # the whole map between a zero row above and one below
+        rows = assemble(h, None, None, 1, 1, "zero", True, True)
+        for i, (lo, hi) in enumerate(cuts):
+            a, b = int(lo * scale), int(hi * scale)
+            slab = rows[:, a:b + 2]  # rows a - 1 ... b of the map
+            if isinstance(m, TorchConv):
+                def shard_op(slab=slab):
+                    return conv2d(pad_cols(slab, 1, "zero"), m.weight, m.bias, stride=2)
+                got, row0 = shard_op(), a // 2
+            else:
+                def shard_op(slab=slab):
+                    return m.forward(slab)[:, 2:2 * (b - a) + 2]
+                got, row0 = shard_op(), 2 * a
+            entry = parted(names[m], got, y[:, row0:row0 + got.shape[1]], row0)
+            if entry["n_diff"] and not any(e.get("kernels") for e in out):
+                # the first op that parts: the kernels cuDNN ran for each shape
+                entry["kernels"] = {"whole": cuda_kernels(lambda: m.forward(h)),
+                                    "shard": cuda_kernels(shard_op)}
+            out.append(entry)
+
+    handles = [m.register_forward_hook(hook) for m in names
+               if isinstance(m, (TorchConv, TorchConvTranspose))
+               or (isinstance(m, Norm) and m.norm_type == "instance")]
+    try:
+        with torch.inference_mode():
+            task.g_apply(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return out
+
+
+def summarise_parts(what: str, parts: list) -> dict:
+    """Logs the layers of ``parts`` that part, and returns the count, the
+    first that parts and the largest max |d|."""
+    apart = [p for p in parts if p["n_diff"]]
+    log("spatial", f"{what}: {len(apart)} of {len(parts)} layer results part; the first "
+        f"{apart[0] if apart else None}")
+    for p in apart[:12]:
+        log("spatial", f"    {p['layer']} rows {p['rows']}: {p['n_diff']} elements apart, "
+            f"max|d| {p['max_abs']:.3e}, rows {p['diff_rows']}")
+    return {"layers": len(parts), "parted": len(apart),
+            "first": apart[0] if apart else None,
+            "max_abs": max((p["max_abs"] for p in parts), default=0.0)}
+
+
+def rows_apart(pred: np.ndarray, ref: np.ndarray, boundary: int) -> dict:
+    """(e)'s |d| against one process row by row over the output's rows: how
+    many rows differ, how many of them lie within 16 rows of the shards'
+    boundary, the largest |d| in each band of 128 rows, and the rows
+    differing at a multiple of 2^l for l = 1 ... 8."""
+    d = np.abs(pred - ref)[0, 0].max(axis=1)
+    rows = np.flatnonzero(d)
+    bands = [float(d[i:i + 128].max()) for i in range(0, len(d), 128)]
+    return {"rows": int(len(d)), "rows_apart": int(len(rows)),
+            "near_boundary": int(np.sum(np.abs(rows - boundary) <= 16)),
+            "band_max": bands,
+            "on_multiples": {1 << l: int(np.sum(rows % (1 << l) == 0)) for l in range(1, 9)}}
+
+
 def phase_spatial(tmp: str) -> dict:
     """The H-sharded tile (``nirgan_tpu_torch/parallel/spatial.py``) on the
     one card, processes sharing it over gloo:
@@ -5798,7 +6339,11 @@ def phase_spatial(tmp: str) -> dict:
         against one process, >= 40 dB, bit for bit or not; each rank's
         wrapper calls (B's sums and apply 13 each, B's one call 0, no
         library route), peak device memory and forward ms beside one
-        process's;
+        process's; where it parts: its |d| by output row, each conv,
+        transposed conv and norm of each rank against the same rows of the
+        whole tile's forward, each of those layers alone on its own input
+        (``layers_alone``, also on (h)'s first 512^2 sample); and (e) in f32
+        with TF32 off within max |d| <= 1e-4 of one process;
     (f) the U-Net in f32 with TF32 off on (c)'s 512^2 tile over four ranks
         (sharded to level 7: the innermost block on the gathered 4^2 map,
         B's one call once a rank) within max |d| <= 1e-4 of one process;
@@ -5868,6 +6413,7 @@ def phase_spatial(tmp: str) -> dict:
         unet["g"] = nchw(spatial_unet_task(norm="batch").g_apply(x))
     with cudnn_tf32(False), torch.inference_mode():
         unet["f"] = nchw(spatial_unet_task("float32").g_apply(nhwc(rgb32)))
+        unet["e32"] = nchw(spatial_unet_task("float32").g_apply(x))
     del task, x
     torch.cuda.empty_cache()
 
@@ -5998,6 +6544,25 @@ def check_spatial_unet(one: dict, two: list, grid: list, nccl: dict, same, apart
         if unet_norm_calls(got) != UNET_SPATIAL_LEVEL8 or got["library"]:
             raise AssertionError(f"(e) a rank's wrapper calls {got}, want "
                                  f"{UNET_SPATIAL_LEVEL8} and no library route")
+    # where (e) parts from one process: by row, layer by layer on each rank,
+    # each layer alone on its own input (2048^2, and 512^2 where (h) is bit
+    # for bit), and in f32
+    by_row = rows_apart(pred, one["e"], SPATIAL_SIDE // 2)
+    log("spatial", f"(e) |d| by output row: {by_row['rows_apart']} of {by_row['rows']} rows "
+        f"apart, {by_row['near_boundary']} of them within 16 rows of the boundary (row "
+        f"{SPATIAL_SIDE // 2}); rows apart on multiples of 2^l {by_row['on_multiples']}; "
+        f"max|d| by band of 128 rows {[f'{v:.1e}' for v in by_row['band_max']]}")
+    chained = [summarise_parts(f"(e) rank {r}, each layer against the same rows of the "
+                               "whole tile's forward", rk["e"]["layers"])
+               for r, rk in enumerate(two)]
+    alone = {side: summarise_parts(f"each layer alone on its own input, {side}^2 over two "
+                                   "shards", parts) for side, parts in two[0]["alone"].items()}
+    equal32, pred32 = same("e32", two, None)
+    err32 = float(np.abs(pred32 - one["e32"]).max())
+    log("spatial", f"(e) in f32, TF32 off, two ranks vs one process: max|d| {err32:.3e} "
+        f"(bound 1e-4); equal on both ranks {equal32}")
+    if not (equal32 and err32 <= 1e-4 and pred32.shape == one["e32"].shape):
+        raise AssertionError(f"(e) f32: {err32}, {equal32}")
     # (f)
     f32 = {}
     for tag, results, want in (("four ranks", grid, UNET_SPATIAL_LEVEL7),
@@ -6035,7 +6600,8 @@ def check_spatial_unet(one: dict, two: list, grid: list, nccl: dict, same, apart
             "launches": launches[0], "four_rank_launches": grid[0]["f"]["launches"],
             "f32_max_abs": f32, "batch_norm_db": db_g, "batch_norm_max_abs": err_g,
             "batch_norm_ms": [r["g"]["ms"] for r in two], "grid_db": db_h,
-            "grid_max_abs": err_h}
+            "grid_max_abs": err_h, "by_row": by_row, "layers": chained, "alone": alone,
+            "f32_2048_max_abs": err32}
 
 
 def alone_native() -> None:
@@ -6067,6 +6633,16 @@ def alone_train() -> None:
 # ``python3 chip_smoke.py --phase NAME ...``: after the device and build
 # phases, only the named phases, in order (no JSON lines): a phase's checks
 # read alone, without what the phases before it leave set
+def alone_train512() -> None:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase_train512(tmp)
+
+
+def alone_unet() -> None:
+    for netg in UNET_CALLS:
+        phase_unet(netg)
+
+
 def alone_export() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         phase_export(tmp)
@@ -6080,7 +6656,7 @@ def alone_spatial() -> None:
 ALONE = {"int8": alone_int8, "train": alone_train, "variants": phase_variants,
          "nonsquare": phase_nonsquare, "param_dtype": phase_param_dtype,
          "export": alone_export, "native": alone_native, "ddp": alone_ddp,
-         "spatial": alone_spatial}
+         "spatial": alone_spatial, "train512": alone_train512, "unet": alone_unet}
 
 
 def main() -> None:
@@ -6125,12 +6701,14 @@ def main() -> None:
         int8_serving = phase_serving(tmp, CONFIG, "serving, int8", quant="int8")
         launches, per_step = phase_train(tmp)
         sat_launches, sat_step = phase_train(tmp, satclip=True)
+        train512 = phase_train512(tmp)
     phase_aux_step()
     phase_ngf16()
     phase_concat()
     phase_nonsquare()
     bf16_params = phase_param_dtype()
     unet = phase_unet()
+    unet128 = phase_unet("unet_128")
     phase_pix2pix()
     pad0 = phase_variants()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -6171,6 +6749,10 @@ def main() -> None:
             kernel["unet"] = {"launches": unet["per_step"][name],
                               "per_forward": unet["per_forward"][name],
                               "per_step": unet["per_step"][name]}
+            kernel["unet_128"] = {"per_forward": unet128["per_forward"][name],
+                                  "per_step": unet128["per_step"][name]}
+        # one fused step of the 512^2 training configuration
+        kernel["train512_step"] = {"per_step": train512["per_step"][name]}
     # A's VALID mode (conv3x3_pallas): the replicate and zero trunks, a
     # serving forward and a step each
     a = RESULTS["trunk_conv"]
@@ -6245,6 +6827,7 @@ def main() -> None:
                                        if k != "launches"} for tag, _, _ in EXPORTS},
                       "host_us": exports["host_us"], "native": native, "ddp": ddp,
                       "spatial": spatial,
+                      "train512": {k: v for k, v in train512.items() if k != "per_step"},
                       "bf16_params": {k: v for k, v in bf16_params.items()
                                       if k != "per_step"}}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

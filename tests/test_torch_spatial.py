@@ -11,7 +11,8 @@ trunk on the port's pack and on JAX's, stage 2, and the (2, 2) grid on a
 batch of 4 of 64^2; then ``unet_128`` (ngf 8, f32) on a 128^2 tile with
 the instance norm (sharded down to level 5, levels 5 to 7 gathered and run
 on every rank) and with no norm, and on the (2, 2) grid with a batch of 2
-of 128^2 (level 6 gathered).  The float cases are held within rtol / atol
+of 128^2 (level 6 gathered) and of 256^2 (sharded to level 7 =
+``num_downs``, nothing gathered).  The float cases are held within rtol / atol
 2e-5 of JAX's ``predict_large_tile`` / ``predict_tiles_2d`` on the 8 CPU
 devices and of the port's one-process ``g_apply``; the int8 cases within
 JAX's own bounds for its sharded int8 trunk (``tests/test_int8_trunk.py``).
@@ -138,6 +139,8 @@ def _rank_main(rank: int, init_file: str, inputs_path: str) -> None:
                                                  inp["unet_rgb"], mesh)
     out["unet_grid"] = predict_tiles_2d(_unet_task(inp["unet_instance"]), inp["unet_batch"],
                                         grid)
+    out["unet_grid_deepest"] = predict_tiles_2d(_unet_task(inp["unet_instance"]),
+                                                inp["unet_batch_deepest"], grid)
     torch.save(out, os.path.join(os.path.dirname(inputs_path), f"rank{rank}.pt"))
 
 
@@ -196,6 +199,7 @@ def world(tmp_path_factory):
                                                    task.netG.n_blocks, jcalib),
               "stage2": task.build_trunk_q(torch.from_numpy(x), stage2=True),
               "unet_rgb": _tile(5, (1, 3, 128, 128)), "unet_batch": _tile(6, (2, 3, 128, 128)),
+              "unet_batch_deepest": _tile(7, (2, 3, 256, 256)),
               **{f"unet_{norm}": params_from_jax(p) for norm, (_, p) in unets.items()}}
     d = tmp_path_factory.mktemp("torch_spatial")
     path = str(d / "inputs.pt")
@@ -373,6 +377,29 @@ def test_unet_2d_grid_matches_jax_and_one_process(world):
                                jax_create_mesh(("data", "spatial"), shape=(2, 4)))
     np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
     np.testing.assert_allclose(got, _one(_unet_task(inp["unet_instance"]), inp["unet_batch"]),
+                               rtol=TOL, atol=TOL)
+
+
+def test_unet_2d_grid_sharded_to_num_downs_matches_jax_and_one_process(world):
+    """unet_128 on the (2, 2) grid, a batch of 2 of 256^2: two shards of
+    128 rows a sample, so ``unet_depth(256, 2, 7)`` is 7 = ``num_downs``
+    and nothing is gathered whole (the cut of the 2048^2 tile over two
+    ranks on the card, where every k4 s2 conv, transposed conv and norm
+    runs on a shard's slab), within 2e-5 of JAX's ``predict_tiles_2d`` on
+    its (2, 4) mesh and of one process."""
+    from nirgan_tpu.parallel import create_mesh as jax_create_mesh
+    from nirgan_tpu.parallel.spatial import predict_tiles_2d as jax_predict_tiles_2d
+
+    inp = world["inputs"]
+    batch = inp["unet_batch_deepest"]
+    assert unet_depth(batch.shape[2], 2, 7) == 7
+    got = _on_every_rank(world, "unet_grid_deepest")
+    assert got.shape == (2, 1, 256, 256) and got.dtype == np.float32
+    jtask, params = world["unets"]["instance"]
+    ref = jax_predict_tiles_2d(jtask, params, batch,
+                               jax_create_mesh(("data", "spatial"), shape=(2, 4)))
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, _one(_unet_task(inp["unet_instance"]), batch),
                                rtol=TOL, atol=TOL)
 
 
