@@ -232,9 +232,12 @@ lines: a phase's checks read without
 what the phases before it leave set.
 ``python3 chip_smoke.py --times DIR`` times, after phases 0 and 1 run on
 the package of the checkout at DIR (a parent commit's, unpacked), kernel B
-at two shapes, the bf16 forward, the batch-16 step and the instance norm's
-host cost a call (``phase_times``): run it for two checkouts in turns in
-one call to compare them on one card.
+at two shapes, the bf16 forward, the batch-16 step, the instance norm's
+host cost a call, kernel D at its four timed gathers, kernel A at three
+shapes and the int8 forward, profiled last (``phase_times``): run it for
+two checkouts in turns in one call to compare them on one card.
+``python3 chip_smoke.py --split DIR`` times kernel D's wgmma kernel of the
+checkout at DIR rebuilt with parts of its work cut out (``phase_split``).
 
 Before the last line it prints one JSON object with every kernel's route,
 source, launches in the training CLI's run (``per_step``: in one fused
@@ -537,7 +540,11 @@ def phase_device() -> dict:
     return dev
 
 
-def phase_build() -> None:
+def phase_build(instructions: bool = True) -> None:
+    """Build the kernels, refuse any spill and, with ``instructions`` (not
+    for ``--times`` or ``--split`` on another checkout, whose kernels may
+    have other names), require each wgmma and mma.sync kernel's
+    tensor-core instruction."""
     from nirgan_tpu_torch.ops import _lib
 
     path, seconds, report = _lib.build()
@@ -553,6 +560,8 @@ def phase_build() -> None:
               if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
     if spills:
         raise AssertionError(f"a kernel spills registers: {spills}")
+    if not instructions:
+        return
     # the redesigned kernels must reach the tensor cores through wgmma:
     # HGMMA is its machine instruction in bf16, IGMMA in s8
     dump = subprocess.run(
@@ -572,8 +581,10 @@ def phase_build() -> None:
                               ("convt_dw_wgmma_kernel", "HGMMA"),
                               # the head's mma.sync is HMMA.16816
                               ("head_conv_mma_kernel", "HMMA"),
-                              # D: the s8 form of the engine, and mma.sync s8
-                              ("igemm_wgmma_kernelILi256ELb1", "IGMMA"),
+                              # D: the s8 kernel of the engine at both widths,
+                              # and mma.sync s8
+                              ("igemm_s8_kernelILi256", "IGMMA"),
+                              ("igemm_s8_kernelILi128", "IGMMA"),
                               ("int8_conv_kernel", "IMMA"))}
     log("build", f"tensor-core instructions (wgmma = HGMMA, s8 wgmma = IGMMA, "
         f"mma.sync = HMMA, s8 mma.sync = IMMA): {found}")
@@ -1355,7 +1366,7 @@ def within_ulp(got: torch.Tensor, ref: torch.Tensor, what: str,
 
 def check_int8_conv(g: torch.Generator, shape: tuple, co: int,
                     timed: bool = False, border: str = "reflect",
-                    stride: int = 1) -> tuple:
+                    stride: int = 1, ctas: int | None = None, large: bool = False) -> tuple:
     """Kernel D against its plain version on int8 x8 of ``shape`` (B, H, W,
     Cin) and a (co, Cin, 3, 3) int8 weight: the staged bf16 accumulator bit
     for bit (both round the exact int32 sum to f32, then to bf16), the f64
@@ -1364,8 +1375,15 @@ def check_int8_conv(g: torch.Generator, shape: tuple, co: int,
     sums within 1e-5 of their scale sqrt(n Sigma a^2) (Sigma a mixes signs),
     and a second launch bit for bit; in the gather of
     ``border`` at ``stride`` (the output (H - 1) // 2 + 1 a side at stride
-    2; without a border, ``"valid"``, H - 2 and (H - 3) // 2 + 1).  Returns (x8, w8, hb, moments, worst relative moment error) and, if
-    ``timed``, the kernel, plain and kernel A ms and the bound."""
+    2; without a border, ``"valid"``, H - 2 and (H - 3) // 2 + 1); the
+    wgmma kernel on ``ctas`` CTAs where given (longer runs of tiles), else
+    on the wrapper's; with ``large``, accumulator values past 2^22 (the
+    first 3 input rows of image 0 at 56, the first half of the output
+    channels' weights 127: up to 9 x 128 x 56 x 127 at Cin 128, and their
+    sums of squares still below 2^53).  Returns
+    (x8, w8, hb, moments, worst relative moment error) and, if ``timed``,
+    the kernel, plain, kernel A and mma.sync ms, the bound and the
+    yardstick's ms (``int_mm_ms``)."""
     from nirgan_tpu_torch.ops.int8_trunk import (
         _launch,
         conv_moments_cuda,
@@ -1380,7 +1398,16 @@ def check_int8_conv(g: torch.Generator, shape: tuple, co: int,
     x8 = torch.randint(-127, 128, shape, device=dev, generator=g, dtype=torch.int8)
     w8 = torch.randint(-127, 128, (co, ci, 3, 3), device=dev, generator=g,
                        dtype=torch.int8)
-    hb, m = conv_moments_cuda(x8, w8, border, stride)
+    if large:
+        x8[0, :3] = 56
+        w8[:co // 2] = 127
+
+    def launch():
+        if ctas is None:
+            return conv_moments_cuda(x8, w8, border, stride)
+        return _launch(x8, w8, True, border, stride, ctas)
+
+    hb, m = launch()
     rhb, rm = conv_moments_plain(x8, w8, border, stride)
     n = hb.shape[1] * hb.shape[2]
     sides = (out_side(shape[1], stride, border), out_side(shape[2], stride, border))
@@ -1390,18 +1417,20 @@ def check_int8_conv(g: torch.Generator, shape: tuple, co: int,
                              f"staged values differ ({tuple(hb.shape)})")
     e2 = float(((m[:, 1] - rm[:, 1]).abs() / rm[:, 1].abs().clamp(min=1e-30)).max())
     e1 = float(((m[:, 0] - rm[:, 0]).abs() / (n * rm[:, 1]).sqrt().clamp(min=1e-30)).max())
-    hb2, m2 = conv_moments_cuda(x8, w8, border, stride)
+    hb2, m2 = launch()
     again = torch.equal(hb2, hb) and torch.equal(m2, m)
     # the moments are the exact sums of the integers in f64, as the plain
     # version's (equal below 2^53; 1e-15 for sums past it, added in another
     # order), so that a shard's add up to the whole tile's
     e64 = float(((m - rm).abs() / rm.abs().clamp(min=1.0)).max())
+    if large and not float(rhb.float().abs().max()) > 2 ** 22:
+        raise AssertionError(f"int8_conv {shape}: no accumulator value past 2^22")
     if not (m.dtype == torch.float64 and e64 <= 1e-15):
         raise AssertionError(f"int8_conv {shape}->{co} {border} s{stride}: the f64 "
                              f"moments {m.dtype}, {e64}")
     packed = takes_wgmma(ci, co, n)
     log("int8", f"int8_conv {shape}->{co} {border} s{stride} "
-        f"({'wgmma' if packed else 'mma.sync'}): staged "
+        f"({f'wgmma on {ctas or default_ctas(hb, co)} CTAs' if packed else 'mma.sync'}): staged "
         f"accumulator equal to plain bit for bit; Sigma a^2 relative {e2:.3e}, Sigma a "
         f"{e1:.3e} of sqrt(n Sigma a^2) (bounds 1e-5); a second launch bit for bit: "
         f"{again}; the f64 sums {e64:.1e} from the plain ones (bound 1e-15)")
@@ -1425,11 +1454,46 @@ def check_int8_conv(g: torch.Generator, shape: tuple, co: int,
     b, h, w = shape[:3]
     ops = 2 * b * h * w * 9 * ci * co
     least = least_time(ops, nbytes(x8, w8, hb, m), PEAK_INT8_OPS)
+    int_mm_ms = int_mm_yardstick(x8, w8, hb)
     log("int8", f"int8_conv {shape}->{co}: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} "
         f"TOPS, {least[0] / ms * 100:.0f}% of the bound {least[0]:.4f} ms, "
         f"{least[1]}), the mma.sync kernel {mma_ms:.4f} ms, plain (float64 conv) "
-        f"{plain_ms:.4f} ms, kernel A (bf16) at the same shape {a_ms:.4f} ms")
-    return out + (ms, plain_ms, a_ms, mma_ms, least)
+        f"{plain_ms:.4f} ms, kernel A (bf16) at the same shape {a_ms:.4f} ms; "
+        f"torch._int_mm on the same GEMM (M {b * h * w}, K {9 * ci}, N {co}; its "
+        f"im2col made beforehand) {int_mm_ms:.4f} ms")
+    return out + (ms, plain_ms, a_ms, mma_ms, least, int_mm_ms)
+
+
+def default_ctas(hb: torch.Tensor, co: int) -> int:
+    """The wgmma kernel's CTAs that kernel D's wrapper takes for output hb."""
+    from nirgan_tpu_torch.ops.int8_trunk import s8_ctas, sm_count
+
+    return s8_ctas(hb.shape[0] * hb.shape[1] * hb.shape[2], co, sm_count(hb.device.index))
+
+
+def int_mm_yardstick(x8: torch.Tensor, w8: torch.Tensor, hb: torch.Tensor) -> float:
+    """cuBLASLt's s8 GEMM (``torch._int_mm``) on kernel D's GEMM at stride 1
+    with the reflect border: M output pixels, K = 9 Cin, N = Cout, the
+    im2col made before the clock starts.  A yardstick of the card's s8
+    rate for the same operations, not a call that computes D's function
+    (no border, no moments): D's ``library_ms`` stays null.  Checked to give
+    D's accumulator (rounded, D's staged output) before it is timed."""
+    b, h, w, ci = x8.shape
+    co = w8.shape[0]
+    # the reflect border's indices: -1 -> 1, n -> n - 2
+    rows = torch.tensor([1, *range(h), h - 2], device=x8.device)
+    cols = torch.tensor([1, *range(w), w - 2], device=x8.device)
+    xp = x8.index_select(1, rows).index_select(2, cols)
+    a = torch.cat([xp[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)],
+                  dim=3).reshape(b * h * w, 9 * ci)
+    # (K, N) column-major, cuBLASLt's fast layout (row-major took 5.7x as long)
+    wm = w8.permute(2, 3, 1, 0).reshape(9 * ci, co).t().contiguous().t()
+    acc = torch._int_mm(a, wm)
+    if not torch.equal(acc.float().bfloat16().reshape(hb.shape), hb):
+        raise AssertionError("torch._int_mm's GEMM is not D's")
+    ms = time_ms(lambda: torch._int_mm(a, wm), iters=10, run_ahead=True)
+    del a, acc
+    return ms
 
 
 def check_int8_norm(g: torch.Generator, hb: torch.Tensor, m: torch.Tensor,
@@ -1526,15 +1590,19 @@ def phase_int8_kernels(g: torch.Generator) -> None:
         err = max(err, e)
         small = check_int8_norm(g, hb, m)[0]
         e_err = {mode: max(e, small[mode]) for mode, e in e_err.items()}
-    ms, plain_ms, a_ms, mma_ms, least = d_times
+    ms, plain_ms, a_ms, mma_ms, least, int_mm_ms = d_times
     RESULTS["int8_conv"] = entry(
         "int8_conv", "int8_conv.cu", "nirgan_tpu/ops/int8_trunk.py:103", err,
         (serving, ms, plain_ms, None, least,
-         dict(kernel="s8 wgmma (igemm_wgmma.cu)", kernel_a_ms=a_ms,
-              mma_sync_ms=mma_ms, share=least[0] / ms,
+         dict(kernel="s8 wgmma (igemm_wgmma.cu: igemm_s8_kernel)",
+              kernel_a_ms=a_ms, mma_sync_ms=mma_ms, share=least[0] / ms,
+              int_mm_ms=int_mm_ms,
               note="no PyTorch call convolves int8 on a card: library_ms null; "
                    "kernel_a_ms is the bf16 trunk conv at the same shape, "
-                   "mma_sync_ms the mma.sync kernel that other widths take")))
+                   "mma_sync_ms the mma.sync kernel that other widths take, "
+                   "int_mm_ms torch._int_mm (cuBLASLt s8) on the same GEMM with "
+                   "its im2col made beforehand: a yardstick of the s8 rate, "
+                   "not D's function")))
     # max_abs_err: of modes 0 to 2 (mode 3 is an entry of its own), int8
     # steps or stream values, whichever is larger
     RESULTS["int8_norm"] = entry(
@@ -1557,6 +1625,33 @@ GATHER_SHAPES = (
     ("zero", 2, (2, 33, 35, 128), 128), ("zero", 2, (2, 34, 36, 128), 128),
     ("zero", 2, (2, 9, 13, 64), 40), ("zero", 2, (1, 10, 6, 32), 16),
 )
+
+# the cases the wgmma kernel's walk adds, in every gather: 3 images of 15 x
+# 13 output pixels (Cout 256: 585 pixels, 10 grains of 64; tiles that
+# straddle two images; 585 no multiple of 128), and the N = 128 form at 5
+# images of 17 x 19 (7 tiles of 256); each on the wrapper's CTAs (5 and 7:
+# a tile each), on 3 (runs of 3 or 4 grains: a CTA ending on a half tile)
+# and on 1 (one run walking them all)
+WALK_SHAPES = (
+    ("reflect", 1, (3, 15, 13, 128), 256), ("replicate", 1, (3, 15, 13, 128), 256),
+    ("zero", 1, (3, 15, 13, 128), 256), ("zero", 2, (3, 29, 25, 128), 256),
+    ("valid", 1, (3, 17, 15, 128), 256), ("valid", 2, (3, 31, 27, 128), 256),
+    ("reflect", 1, (5, 17, 19, 128), 128),
+)
+
+
+def check_walk_cases(g: torch.Generator) -> float:
+    """Kernel D's wgmma kernel at ``WALK_SHAPES`` on the wrapper's CTAs, on
+    3 and on 1, and with large values, against its plain version
+    (``check_int8_conv``).  Returns the worst relative moment error."""
+    err = 0.0
+    for border, stride, shape, co in WALK_SHAPES:
+        for ctas in (None, 3, 1):
+            err = max(err, check_int8_conv(g, shape, co, border=border, stride=stride,
+                                           ctas=ctas)[-1])
+        err = max(err, check_int8_conv(g, shape, co, border=border, stride=stride,
+                                       large=True)[-1])
+    return err
 
 
 def phase_int8_gathers(g: torch.Generator) -> None:
@@ -1583,7 +1678,7 @@ def phase_int8_gathers(g: torch.Generator) -> None:
     from nirgan_tpu_torch.ops.trunk_conv import trunk_conv_cuda
 
     dev = torch.device("cuda")
-    err = 0.0
+    err = check_walk_cases(g)
     for border, stride, shape, co in GATHER_SHAPES:
         err = max(err, check_int8_conv(g, shape, co, border=border, stride=stride)[-1])
     entries = {}
@@ -4556,6 +4651,8 @@ def validation_entry(launches: dict, name: str) -> dict:
 
 
 PROFILE_GROUPS = (
+    ("igemm_s8_kernel", "D int8 conv, wgmma s8"),
+    ("s8_moments_kernel", "D moments (second launch)"),
     ("igemm_wgmma_kernel<256", "wgmma implicit GEMM, N = 256 (kernel A; B5 dx at u0)"),
     ("igemm_wgmma_kernel<128", "wgmma implicit GEMM, N = 128 (B5 dx at u1)"),
     ("trunk_conv_", "kernel A, WMMA / SIMT"),
@@ -4565,8 +4662,8 @@ PROFILE_GROUPS = (
     ("in_partial_kernel", "streaming sums"),
     ("in_apply_kernel", "streaming elementwise"),
     ("head_conv_mma_kernel", "C head, mma.sync"),
-    ("int8_conv_kernel", "D int8 conv"),
-    ("int8_moments_kernel", "D moments (second launch)"),
+    ("int8_conv_kernel", "D int8 conv, mma.sync"),
+    ("int8_moments_kernel", "D moments, mma.sync (second launch)"),
     ("int8_norm_kernel", "E int8 norm"),
     ("head_conv_kernel", "C head, f32 FMA"),
     ("reflection_pad", "reflect pad"),
@@ -5107,7 +5204,8 @@ def phase_times() -> dict:
     the bf16 serving forward of 4 x 532^2 and the batch-16 fused step of
     ``config_px2px.yaml`` (CUDA events, in turns, the median of three
     rounds); the host's microseconds a call of the public instance norm at
-    (1, 4, 4, 32) bf16 with autograd recording, as the step calls it."""
+    (1, 4, 4, 32) bf16 with autograd recording, as the step calls it;
+    ``int8_times``; last, the int8 forward under the profiler."""
     from nirgan_tpu_torch.config import load_config
     from nirgan_tpu_torch.ops.instance_norm import instance_norm, instance_norm_cuda
     from nirgan_tpu_torch.tasks import Px2PxTask
@@ -5144,10 +5242,204 @@ def phase_times() -> dict:
         instance_norm(xs)
     torch.cuda.synchronize()
     out["instance_norm host us"] = (time.perf_counter() - t0) / 2000 * 1e6
+    del task, state, ex
+    forward_int8 = int8_times(g, out)
     import nirgan_tpu_torch
 
     log("times", f"{os.path.dirname(os.path.dirname(nirgan_tpu_torch.__file__))}: "
         + json.dumps(out))
+    # last: once the profiler has attached, every launch costs the host more
+    out["int8 forward busy"] = profile_window("int8 serving forward, 4 x 532^2",
+                                              forward_int8, 5)
+    return out
+
+
+def d_timed_shapes() -> tuple:
+    """Kernel D's four timed gathers (border, stride, input shape): the
+    serving trunk's reflect (4, 133^2, 256), stage 2's d1 at stride 2, and
+    the VALID and STRIDE2_VALID slabs of shard 0 of the 2048^2 tile over two
+    ranks; Cout 256."""
+    from nirgan_tpu_torch.parallel.spatial import row_ranges
+
+    side = SPATIAL_SIDE + 2 * PAD
+    lo, hi = row_ranges(side, 2)[0]
+    rows = (hi - lo) // 4
+    return (("reflect", 1, (BATCH, SIDE // 4, SIDE // 4, 256)),
+            ("zero", 2, (BATCH, SIDE // 2, SIDE // 2, 128)),
+            ("valid", 1, (1, rows + 2, side // 4 + 2, 256)),
+            ("valid", 2, (1, 2 * rows + 1, side // 2 + 2, 128)))
+
+
+def int8_times(g: torch.Generator, out: dict):
+    """``phase_times``'s int8 part, into ``out``: kernel D at its four timed
+    gathers and kernel A at its serving and train shapes (the median of
+    three rounds of 10 calls after the card's head start), and the int8
+    serving forward of 4 x 532^2 (the plain generator, its trunk calibrated
+    on the batch; CUDA events, the median of three rounds).  Returns the
+    forward, for the profile."""
+    from nirgan_tpu_torch.models import define_G
+    from nirgan_tpu_torch.ops.int8_trunk import (
+        calibrate_trunk,
+        conv_moments_cuda,
+        quantize_trunk,
+    )
+    from nirgan_tpu_torch.ops.trunk_conv import trunk_conv_cuda
+
+    def median_ms(fn):
+        return sorted(time_ms(fn, iters=10, run_ahead=True) for _ in range(3))[1]
+
+    for border, stride, shape in d_timed_shapes():
+        x8 = torch.randint(-127, 128, shape, device="cuda", generator=g, dtype=torch.int8)
+        w8 = torch.randint(-127, 128, (256, shape[3], 3, 3), device="cuda", generator=g,
+                           dtype=torch.int8)
+        out[f"D {border} s{stride} {shape}"] = median_ms(
+            lambda: conv_moments_cuda(x8, w8, border, stride))
+        del x8, w8
+    for shape in ((TRAIN_BATCH, 69, 69, 256), (BATCH, SIDE // 4, SIDE // 4, 256),
+                  (TRAIN_BATCH, T512_SIDE // 4, T512_SIDE // 4, 256)):
+        xb = torch.randn(shape, device="cuda", generator=g).bfloat16()
+        wf = torch.randn((256, 256, 3, 3), device="cuda", generator=g) / 48
+        out[f"A {shape}"] = median_ms(lambda: trunk_conv_cuda(xb, wf))
+        del xb, wf
+    dev = torch.device("cuda")
+    G = define_G(3, 1, 64, "resnet_9blocks", "instance", compute_dtype=torch.bfloat16,
+                 generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
+    x = (torch.rand((BATCH, SIDE, SIDE, 3), generator=torch.Generator().manual_seed(1))
+         * 0.3).to(dev)
+    with torch.inference_mode():
+        calib = calibrate_trunk(G, x)
+    with torch.no_grad():
+        pack = quantize_trunk(G.state_dict(), G.n_blocks, calib)
+
+    def forward_int8():
+        with torch.inference_mode():
+            G(x, trunk_q=pack)
+
+    out["int8 forward"] = sorted(time_ms(forward_int8, iters=10) for _ in range(3))[1]
+    return forward_int8
+
+
+# ---------------------------------------------------------- kernel D's split
+# ``--split ROOT``: kernel D's wgmma kernel from the sources at ROOT (this
+# checkout, or a parent's unpacked beside it), built again with parts of its
+# work cut out by text patches at build time, each variant timed at D's four
+# timed gathers in turns.  A variant's macro is 1 where the part runs.  The
+# parts a source form has: the epilogue (V_EPI; with it cut, its
+# accumulators still go to one xor so that ptxas keeps the products), the
+# products (V_MMA), the ring's fill (V_FILL: the gather and the weight copy),
+# the moments and the stores inside the epilogue (V_MOM, V_ST), the conv
+# kernel itself (V_MAIN: without it, the moments launch alone).
+_SINK = ("{\n int x = 0;\n#pragma unroll\n for (int r = 0; r < R_; ++r)\n#pragma unroll\n"
+         " for (int i = 0; i < I_; ++i) x ^= SRC_;\n"
+         " if (x == 0x7fffffff) out[0] = __float2bfloat16(1.f);\n}\n")
+SPLIT_PATCHES = {
+    # the form of PRs 6-16: igemm_wgmma_kernel<N, S8> with s8_epilogue<N>
+    "tile epilogue": [
+        ("        s8_epilogue<N>(d, tile, m0, M, g.Ho * g.Wo, wg, warp, lane, red, out,\n"
+         "                       part);",
+         "        if (V_EPI) s8_epilogue<N>(d, tile, m0, M, g.Ho * g.Wo, wg, warp, lane, red,\n"
+         "                                  out, part);\n        else "
+         + _SINK.replace("R_", "T::R").replace("I_", "N / 2").replace("SRC_", "d[r][i]")),
+        ("            if constexpr (S8)\n              wgmma_k32_s8<N>(d[r], da, db, (it | k) != 0);",
+         "            if constexpr (S8) {\n              if (V_MMA) wgmma_k32_s8<N>(d[r], da, db, (it | k) != 0);\n"
+         "            }"),
+        ("        if (t == 0) {\n          mbar_arrive_expect_tx(full, T::B_BYTES);",
+         "        if (t == 0 && !(S8 && !V_FILL)) {\n          mbar_arrive_expect_tx(full, T::B_BYTES);"),
+        ("          cp_async16(a_s + swizzled(row, chunk),",
+         "          if (!S8 || V_FILL) cp_async16(a_s + swizzled(row, chunk),"),
+        ("        cp_async_arrive(full);",
+         "        if (S8 && !V_FILL && t == 0) mbar_arrive(full);\n        cp_async_arrive(full);"),
+    ],
+    # this PR's form: igemm_s8_kernel<N> walking runs of grains
+    "grain runs": [
+        ("  constexpr int COLS = JB * 8;\n",
+         "  constexpr int COLS = JB * 8;\n  if (!V_EPI) {\n"
+         + _SINK.replace("R_", "U").replace("I_", "JB * 4").replace("SRC_", "d[r][i]")
+         + "    return;\n  }\n"),
+        ("    for (int pass = 0; pass < 2; ++pass) {", "    for (int pass = 0; pass < 2 * V_MOM; ++pass) {"),
+        ("  // the bf16 rows, 64 columns at a time",
+         "  if (!V_ST) return;\n  // the bf16 rows, 64 columns at a time"),
+        ("  grain_run(blockIdx.x, runs, g0, g1);\n",
+         "  grain_run(blockIdx.x, runs, g0, g1);\n  if (!V_MAIN) return;\n"),
+    ],
+}
+# variant: the macros it sets to 0 (every other macro is 1)
+SPLIT_VARIANTS = {
+    "tile epilogue": {"whole": (), "no epilogue": ("V_EPI",), "no products": ("V_MMA",),
+                      "the ring alone": ("V_EPI", "V_MMA"), "no fill": ("V_FILL",),
+                      "the barriers alone": ("V_EPI", "V_MMA", "V_FILL")},
+    "grain runs": {"whole": (), "no epilogue": ("V_EPI",), "no moments": ("V_MOM",),
+                   "no stores": ("V_ST",), "the moments launch alone": ("V_MAIN",)},
+}
+SPLIT_MACROS = ("V_EPI", "V_MMA", "V_FILL", "V_MOM", "V_ST", "V_MAIN")
+
+
+def phase_split() -> dict:
+    """``--split ROOT`` (the package at ROOT imported, as ``--times`` does):
+    kernel D's wgmma kernel built from ROOT's sources once a variant of
+    ``SPLIT_VARIANTS`` (the form whose patches all apply), each with the
+    wrapper of ROOT at the gathers of ``d_timed_shapes``, timed in turns
+    (forth and back, 20 calls after the card's head start); the whole
+    variant first held equal to the library's result."""
+    import ctypes
+
+    from nirgan_tpu_torch.ops import _lib, int8_trunk
+
+    engine = (_lib.CSRC / "igemm_wgmma.cu").read_text()
+    form = next(f for f, patches in SPLIT_PATCHES.items()
+                if all(engine.count(a) == 1 for a, _ in patches))
+    for old, new in SPLIT_PATCHES[form]:
+        engine = engine.replace(old, new)
+    libs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_split_") as tmp:
+        shutil.copytree(_lib.CSRC, os.path.join(tmp, "csrc"))
+        conv = os.path.join(tmp, "int8_conv.o")
+        procs = [subprocess.Popen([_lib.nvcc(), *_lib.NVCC_FLAGS, "-c", "-o", conv,
+                                   os.path.join(tmp, "csrc", "int8_conv.cu")],
+                                  stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)]
+        objs = {}
+        for i, (name, cut) in enumerate(SPLIT_VARIANTS[form].items()):
+            src = os.path.join(tmp, "csrc", f"split_{i}.cu")
+            with open(src, "w") as f:
+                f.write("".join(f"#define {m} {0 if m in cut else 1}\n" for m in SPLIT_MACROS)
+                        + engine)
+            objs[name] = os.path.join(tmp, f"split_{i}.o")
+            procs.append(subprocess.Popen([_lib.nvcc(), *_lib.NVCC_FLAGS, "-c", "-o",
+                                           objs[name], src],
+                                          stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT))
+        if any(p.wait() for p in procs):
+            raise RuntimeError("a variant of kernel D did not build")
+        for name, obj in objs.items():
+            so = os.path.join(tmp, f"{len(libs)}.so")
+            subprocess.run([_lib.nvcc(), *_lib.ARCH, "-shared", "-o", so, obj, conv], check=True)
+            lib = ctypes.CDLL(so)
+            lib.nirgan_int8_conv.argtypes = list(_lib._SIGNATURES["nirgan_int8_conv"])
+            lib.nirgan_int8_conv.restype = ctypes.c_int
+            libs[name] = lib
+
+    def through(lib, *args):
+        real = _lib.library
+        _lib.library = lambda: lib
+        try:
+            return int8_trunk._launch(*args)
+        finally:
+            _lib.library = real
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {"form": form}
+    for border, stride, shape in d_timed_shapes():
+        x8 = torch.randint(-127, 128, shape, device="cuda", generator=g, dtype=torch.int8)
+        w8 = torch.randint(-127, 128, (256, shape[3], 3, 3), device="cuda", generator=g,
+                           dtype=torch.int8)
+        args = (x8, w8, True, border, stride)
+        ref, got = int8_trunk._launch(*args), through(libs["whole"], *args)
+        if not (torch.equal(ref[0], got[0]) and torch.equal(ref[1], got[1])):
+            raise AssertionError(f"--split: the whole variant differs at {shape}")
+        ms = compare_ms(*[lambda lib=lib: through(lib, *args) for lib in libs.values()],
+                        run_ahead=True)
+        out[f"{border} s{stride} {shape}"] = dict(zip(libs, ms))
+        del x8, w8, ref, got
+    log("split", json.dumps(out))
     return out
 
 
@@ -6663,7 +6955,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False)")
-    if sys.argv[1:2] == ["--times"]:
+    other = sys.argv[1:2] in (["--times"], ["--split"])
+    if other:
         # the package of another checkout (a parent commit's), ahead of this one
         sys.path.insert(0, os.path.abspath(sys.argv[2]))
     import nirgan_tpu_torch  # noqa: F401  (fail before printing anything)
@@ -6671,7 +6964,7 @@ def main() -> None:
     os.chdir(ROOT)  # the training CLI's default configs are relative paths
 
     device = phase_device()
-    phase_build()
+    phase_build(instructions=not other)
     if sys.argv[1:] == ["--profile"]:
         phase_profile()
         return
@@ -6684,6 +6977,9 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--times"]:
         phase_times()
+        return
+    if sys.argv[1:2] == ["--split"]:
+        phase_split()
         return
     phase_kernels()
     per_forward = phase_generator()

@@ -2,10 +2,11 @@
 // mbarriers, cp.async (signalled through an mbarrier, as the wgmma kernels
 // do, or waited for by commit groups, as the instance norm does) and bulk
 // copies into shared memory, 128-byte-swizzled wgmma descriptors and the
-// wgmma instructions themselves (bf16 -> f32 and s8 -> s32), and the
+// wgmma instructions themselves (bf16 -> f32 and s8 -> s32), the
 // warp-level ldmatrix / mma.sync pair for operands that no wgmma descriptor
-// can name.  Everything is inline PTX;
-// nothing here launches a kernel.
+// can name, and stmatrix with 16-byte shared loads for staging an
+// accumulator's rows.  Everything is inline PTX; nothing here launches a
+// kernel.
 //
 // Shared-memory operand tiles are rows of 128 bytes (64 bf16) in the
 // 128-byte swizzle: the 16-byte chunk c of row r lies at chunk c ^ (r % 8),
@@ -114,6 +115,16 @@ __device__ __forceinline__ void bulk_copy(uint32_t smem, const void* gmem,
       : "memory");
 }
 
+// 16 bytes from shared memory
+__device__ __forceinline__ uint4 ld_shared16(uint32_t smem) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(smem)
+               : "memory");
+  return v;
+}
+
 // ------------------------------------------------------------- registers
 template <int N>
 __device__ __forceinline__ void reg_dec() {
@@ -149,6 +160,18 @@ __device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the inverse of ldmatrix_x4: lane l gives the address of row l % 8 of
+// matrix l / 8, and register i of every lane holds its piece of matrix i (as
+// an mma accumulator fragment: row lane / 4, elements 2 (lane % 4) and + 1)
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0, uint32_t r1,
+                                            uint32_t r2, uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+          addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
 }
 
 // ------------------------------------------------------------------- wgmma

@@ -108,17 +108,29 @@ inline bool takes_s8(int N, int Cs, int hw) {
          hw >= tile_rows(N);
 }
 
+// The s8 kernel walks grains of output pixels: 64-row units at N = 256
+// (whole tiles of two, and a half tile where a CTA's run leaves one over),
+// whole tiles at N = 128.
+inline int s8_grain(int N) { return N == 256 ? 64 : tile_rows(N); }
+
+inline long long s8_grains(int N, long long m) {
+  return (m + s8_grain(N) - 1) / s8_grain(N);
+}
+
 // The s8 form, for the int8 trunk: out[m, n] = sum over tap, c of
 // src[pixel(m, tap), c] * W[tap, c, n] in exact s32 sums, rounded once to
-// bf16, src int8 (B, Hs, Ws, Cs) (g.Cs counts int8 channels) with the
-// reflect, replicate or zero border at stride 1 (Ho, Wo = Hs, Ws), the zero
-// border at stride 2, or no border at stride 1 or 2 (Ho, Wo = out_side), wp the int8 weight packed as
-// for bf16 with two channels as one 16-bit element (one image of N rows x
-// 128 bytes a tap and 128 channels).  part (tiles, 2, 2, N) f64 receives
-// each tile's Sigma and Sigma^2 of every column over its rows of its first
-// image (slot 0) and, where it reaches into the next, of that one (slot 1),
-// in a fixed order; tiles = ceil(B Ho Wo / tile_rows(N)).
+// bf16, src int8 (B, Hs, Ws, Cs) with the reflect, replicate or zero border
+// at stride 1 (Ho, Wo = Hs, Ws), the zero border at stride 2, or no border
+// at stride 1 or 2 (Ho, Wo = out_side), wp the int8 weight packed as for
+// bf16 with two channels as one 16-bit element (one image of N rows x 128
+// bytes a tap and 128 channels), and moments (B, 2, N) f64: Sigma a and
+// Sigma a^2 over each image's pixels of every column, exact integer sums
+// added in a fixed order.  ctas CTAs (1 <= ctas <= s8_grains(N, B Ho Wo))
+// each walk an equal run of grains; part (ctas + B - 1, 2, 2, N) f64 is
+// their scratch: each CTA's consumer warpgroup's sums of each image its run
+// touches.  Two launches: the conv, then the sums.
 cudaError_t launch_s8(int N, const void* src, const void* wp, void* out,
-                      double* part, Shape g, cudaStream_t stream);
+                      double* part, double* moments, Shape g, int ctas,
+                      cudaStream_t stream);
 
 }  // namespace igemm

@@ -25,11 +25,14 @@
 // kernels, chosen by shape in the wrapper
 // (ops/int8_trunk.py: takes_wgmma) and named by `packed`:
 //   * Cin % 128 == 0, Cout 128 or 256, an image of at least a tile (the
-//     generator's trunk): the s8 form of kernel A's wgmma engine
-//     (igemm_wgmma.cu: the same gather, ring and swizzle; a 128-byte row is
-//     128 int8 channels; wgmma m64nNk32 s8 -> s32), whose epilogue writes
-//     the staged accumulator and per-tile moments of each image a tile
-//     touches; int8_moments_kernel adds them in a fixed order.
+//     generator's trunk): the s8 kernel of kernel A's wgmma engine
+//     (igemm_wgmma.cu: igemm_s8_kernel; the same gather, ring and swizzle; a
+//     128-byte row is 128 int8 channels; wgmma m64nNk32 s8 -> s32), one CTA
+//     an SM walking an equal run of 64-row grains (half a tile where a run
+//     leaves one over), whose epilogue writes the staged accumulator and
+//     keeps each image's moments as running integer sums, one f64 slot a
+//     (CTA, image); its own second launch adds an image's slots in CTA
+//     order.  Its header has the design and what the card measured.
 //   * other shapes (Cin % 32 == 0, Cout % 8 == 0): an implicit GEMM on
 //     mma.sync.m16n8k32, simple rather than fast: 128 x 128 block tiles of 8
 //     warps (32 x 64 each), K steps of 32 channels (32 bytes) in a
@@ -44,9 +47,9 @@
 // shuffle butterfly and the warps meet in shared memory in a fixed order;
 // the wgmma kernel's epilogue (igemm_wgmma.cu) adds in integers.  No float
 // atomics: a batch repeats bit for bit.  The sums are exact (integers in
-// the wgmma kernel's tiles, f64 of integers in the mma.sync kernel's and
-// across tiles: a value < 2^26, its square < 2^52) and the moments stay
-// f64, so they do not depend on how the pixels are cut into tiles, nor on
+// the wgmma kernel's runs, f64 of integers in the mma.sync kernel's and
+// across tiles and runs: a value < 2^26, its square < 2^52) and the moments
+// stay f64, so they do not depend on how the pixels are cut into tiles, nor on
 // how an H-sharded tile is cut into shards, whose moments are added before
 // kernel E rounds them to f32 (parallel/spatial.py).
 
@@ -222,36 +225,26 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-// moments (B, 2, Co) f64 from the tiles' partial sums, added in a fixed
-// order.
-// A block takes 32 channels of one image: each of its 16 rows of threads adds
-// a contiguous run of the image's tiles in tile order, then row 0 adds the 16
-// runs in row order.  per_image > 0 (the mma.sync kernel): part is (B,
-// per_image, 2, Co) and image b's tiles are b per_image ..; per_image = 0
-// (the wgmma kernel): part is (tiles, 2 slots, 2, Co), image b's pixels lie
-// in tiles b hw / bm .. (b hw + hw - 1) / bm, each holding them in slot b -
-// (the image of the tile's first pixel).
+// moments (B, 2, Co) f64 from the mma.sync kernel's partial sums (B, tiles,
+// 2, Co), added in a fixed order.  A block takes 32 channels of one image:
+// each of its 16 rows of threads adds a contiguous run of the image's tiles
+// in tile order, then row 0 adds the 16 runs in row order.
 constexpr int RED_ROWS = 16;
 
 __global__ void __launch_bounds__(32 * RED_ROWS)
 int8_moments_kernel(const double* __restrict__ part, double* __restrict__ moments,
-                    int Co, int hw, int bm, int per_image) {
+                    int Co, int tiles) {
   __shared__ double red[RED_ROWS][32][2];
   const int b = blockIdx.y, lc = threadIdx.x & 31, row = threadIdx.x >> 5;
   const int c = blockIdx.x * 32 + lc;
-  const int nslot = per_image ? 1 : 2;
-  const long long t0 = per_image ? (long long)b * per_image : (long long)b * hw / bm;
-  const long long t1 = per_image ? t0 + per_image - 1
-                                 : ((long long)b * hw + hw - 1) / bm;
-  const long long run = (t1 - t0 + RED_ROWS) / RED_ROWS;
-  const long long first = t0 + row * run;
-  const long long last = first + run - 1 < t1 ? first + run - 1 : t1;
+  const int run = (tiles + RED_ROWS - 1) / RED_ROWS;
+  const int first = row * run;
+  const int last = first + run < tiles ? first + run : tiles;
   double s1 = 0., s2 = 0.;
   if (c < Co) {
 #pragma unroll 4
-    for (long long t = first; t <= last; ++t) {
-      const int slot = per_image ? 0 : b - (int)(t * bm / hw);
-      const double* src = part + (t * nslot + slot) * 2 * Co + c;
+    for (int t = first; t < last; ++t) {
+      const double* src = part + ((long long)b * tiles + t) * 2 * Co + c;
       s1 = __dadd_rn(s1, src[0]);
       s2 = __dadd_rn(s2, src[Co]);
     }
@@ -273,14 +266,13 @@ int8_moments_kernel(const double* __restrict__ part, double* __restrict__ moment
 
 // x8 (B, H, W, Ci) int8 is contiguous NHWC, hb (B, Ho, Wo, Co) bf16 with
 // (Ho, Wo) = (igemm::out_side(gather, H), igemm::out_side(gather, W)),
-// moments f64 (B, 2, Co).  gather: any
-// igemm::Gather (H, W >= igemm::least_side(gather)).  packed = 1 runs the wgmma
-// kernel, refused unless igemm::takes_s8(Co, Ci, Ho Wo): w is the int8
-// weight packed by ops/int8_trunk.py (pack_weight), part f64 scratch
-// (tiles, 2, 2, Co) with tiles = ceil(B Ho Wo / igemm::tile_rows(Co)).
-// packed = 0 runs the mma.sync kernel, refused for Ci % 32, Co % 8: w is
-// (3, 3, Co, Ci), part (B, tiles, 2, Co) with tiles = ceil(Ho Wo / 128).
-// Returns a cudaError_t.
+// moments f64 (B, 2, Co).  gather: any igemm::Gather (H, W >=
+// igemm::least_side(gather)).  packed = 1 runs the wgmma kernel on `tiles`
+// CTAs (igemm::launch_s8), refused unless igemm::takes_s8(Co, Ci, Ho Wo): w
+// is the int8 weight packed by ops/int8_trunk.py (pack_weight), part f64
+// scratch (tiles + B - 1, 2, 2, Co).  packed = 0 runs the mma.sync kernel,
+// refused for Ci % 32, Co % 8: w is (3, 3, Co, Ci), part (B, tiles, 2, Co)
+// with tiles = ceil(Ho Wo / 128).  Returns a cudaError_t.
 extern "C" int nirgan_int8_conv(int device, const void* x8, const void* w,
                                 void* hb, void* part, void* moments, int B,
                                 int H, int W, int Ci, int Co, int tiles,
@@ -293,28 +285,21 @@ extern "C" int nirgan_int8_conv(int device, const void* x8, const void* w,
     return (int)cudaErrorInvalidValue;
   const int Ho = igemm::out_side(gather, H), Wo = igemm::out_side(gather, W);
   if (packed) {
-    const long long m = (long long)B * Ho * Wo;
-    const int bm = igemm::tile_rows(Co);
-    if (!igemm::takes_s8(Co, Ci, Ho * Wo) || tiles != (m + bm - 1) / bm)
-      return (int)cudaErrorInvalidValue;
     const igemm::Shape g{B, H, W, Ci, Ho, Wo, gather};
-    err = igemm::launch_s8(Co, x8, w, hb, static_cast<double*>(part), g, s);
-    if (err != cudaSuccess) return (int)err;
-  } else {
-    if (Ci <= 0 || Ci % BK || Co <= 0 || Co % 8 ||
-        tiles != (Ho * Wo + BM - 1) / BM)
-      return (int)cudaErrorInvalidValue;
-    dim3 grid((unsigned)tiles, (unsigned)((Co + BN - 1) / BN), (unsigned)B);
-    int8_conv_kernel<<<grid, THREADS, 0, s>>>(
-        static_cast<const int8_t*>(x8), static_cast<const int8_t*>(w),
-        static_cast<__nv_bfloat16*>(hb), static_cast<double*>(part), H, W, Ho,
-        Wo, Ci, Co, gather);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    return (int)igemm::launch_s8(Co, x8, w, hb, static_cast<double*>(part),
+                                 static_cast<double*>(moments), g, tiles, s);
   }
+  if (Ci <= 0 || Ci % BK || Co <= 0 || Co % 8 || tiles != (Ho * Wo + BM - 1) / BM)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)tiles, (unsigned)((Co + BN - 1) / BN), (unsigned)B);
+  int8_conv_kernel<<<grid, THREADS, 0, s>>>(
+      static_cast<const int8_t*>(x8), static_cast<const int8_t*>(w),
+      static_cast<__nv_bfloat16*>(hb), static_cast<double*>(part), H, W, Ho,
+      Wo, Ci, Co, gather);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   dim3 rgrid((unsigned)((Co + 31) / 32), (unsigned)B);
   int8_moments_kernel<<<rgrid, 32 * RED_ROWS, 0, s>>>(
-      static_cast<const double*>(part), static_cast<double*>(moments), Co, Ho * Wo,
-      igemm::tile_rows(Co), packed ? 0 : tiles);
+      static_cast<const double*>(part), static_cast<double*>(moments), Co, tiles);
   return (int)cudaGetLastError();
 }

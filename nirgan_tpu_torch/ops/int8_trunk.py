@@ -33,12 +33,15 @@ moved: bound by the tensor cores, 0.042 ms at the H100's 1,979 TOPS; d1 at
 (4, 266^2, 128) -> (4, 133^2, 256) is 41.7 G operations against 72 MB,
 about 0.022 ms either way.
 The generator's trunk (``takes_wgmma``: Cin % 128 == 0, Cout 128 or 256)
-runs the s8 form of kernel A's wgmma engine (``csrc/igemm_wgmma.cu``: the
+runs the s8 kernel of kernel A's wgmma engine (``csrc/igemm_wgmma.cu``: the
 same gather and ring, 128 int8 channels a 128-byte row, ``wgmma`` s8), the
-weight packed by ``pack_weight``; other widths an implicit GEMM on
-``mma.sync.m16n8k32``.  Each tile's column sums cover the rows of one image
-at a time and go to scratch, and a second launch adds them in tile order,
-so a batch repeats bit for bit.  Its plain version convolves the int8
+weight packed by ``pack_weight``, one CTA an SM walking an equal run of
+64-row grains (``grain_runs``, ``tile_walk``: the last round balanced to
+half a tile); other widths an implicit GEMM on ``mma.sync.m16n8k32``.  The
+wgmma kernel keeps each image's column sums as running integer sums and
+writes one f64 slot a (CTA, image) (``image_slots``), the mma.sync kernel
+one a tile; a second launch adds them in a fixed order, so a batch repeats
+bit for bit.  Its plain version convolves the int8
 values in float64, which is exact (|acc| <= 127^2 * 9 * C, 3.7e7 at C =
 256, far below 2^53; f32 would not be, 3.7e7 > 2^24).
 
@@ -67,6 +70,7 @@ no int8 convolution on a card, so there is no library route.  Stage 2
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -261,10 +265,80 @@ def conv_tiles(hw: int) -> int:
     return -(-hw // 128)
 
 
+UNIT_ROWS = 64  # a consumer warpgroup's rows of the wgmma kernel, and a half tile's
+
+
+def grain_rows(co: int) -> int:
+    """The rows of a grain of the wgmma kernel's walk (igemm::s8_grain): a
+    64-row unit at Cout 256, where a CTA may end its run on a half tile,
+    else a whole tile."""
+    return UNIT_ROWS if co == 256 else tile_rows(co)
+
+
+def s8_ctas(m: int, co: int, sms: int) -> int:
+    """The wgmma kernel's CTAs for m output pixels: one an SM (its shared
+    memory fills one), and no more than there are whole tiles."""
+    return max(1, min(sms, -(-m // tile_rows(co))))
+
+
+def grain_runs(m: int, co: int, ctas: int) -> list[tuple[int, int]]:
+    """The grains [g0, g1) each CTA walks, in order (igemm's grain_run): as
+    equal runs as the grains allow, the longer ones first, so the last
+    round is balanced to a grain (553 tiles of 128 on 132 CTAs: runs of 8
+    or 9 grains of 64, four tiles and at most a half tile, where whole
+    tiles alone take five)."""
+    q, r = divmod(-(-m // grain_rows(co)), ctas)
+    return [(i * q + min(i, r), i * q + min(i, r) + q + (i < r)) for i in range(ctas)]
+
+
+def tile_walk(m: int, co: int, ctas: int) -> list:
+    """The tiles each CTA walks, as the kernel does: (first pixel, pixels),
+    whole tiles of ``tile_rows`` and, where a run leaves one grain over, a
+    half tile of 64 at its end."""
+    gr, bm = grain_rows(co), tile_rows(co)
+    walk = []
+    for g0, g1 in grain_runs(m, co, ctas):
+        mine = []
+        for g in range(g0, g1, bm // gr):
+            rows = bm if g + bm // gr <= g1 else UNIT_ROWS
+            mine.append((g * gr, min(rows, m - g * gr)))
+        walk.append(mine)
+    return walk
+
+
+def image_slots(m: int, co: int, ctas: int, hw: int) -> list[list[int]]:
+    """The scratch slots each image's sums lie in: CTA i writes the images
+    its run touches, image b at slot i + b (and a slot holds one sum a
+    consumer warpgroup), so each image's slots, in CTA order, are the
+    moments' order of addition."""
+    gr = grain_rows(co)
+    spans = [(g0 * gr, min(g1 * gr, m)) for g0, g1 in grain_runs(m, co, ctas)]
+    return [[i + b for i, (r0, r1) in enumerate(spans) if r0 // hw <= b <= (r1 - 1) // hw]
+            for b in range(-(-m // hw))]
+
+
+def scratch_shape(b: int, ho: int, wo: int, co: int, packed: bool,
+                  ctas: int = 1) -> tuple:
+    """The f64 scratch of kernel D's column sums: the wgmma kernel's (ctas +
+    B - 1 slots, 2 warpgroups, 2 sums, Cout) (``image_slots``), the mma.sync
+    kernel's (B, tiles of 128 pixels an image, 2, Cout)."""
+    if packed:
+        return (ctas + b - 1, 2, 2, co)
+    return (b, conv_tiles(ho * wo), 2, co)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: int) -> int:
+    """The card's SMs: the wgmma kernel's most CTAs."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch(x8: torch.Tensor, w8: torch.Tensor, packed: bool,
-            border: str = "reflect", stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
-    """One call of kernel D, the wgmma kernel (``packed``) or the mma.sync
-    kernel; the C entry refuses a shape the one named cannot take."""
+            border: str = "reflect", stride: int = 1,
+            ctas: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One call of kernel D, the wgmma kernel (``packed``, on ``ctas`` CTAs,
+    by default ``s8_ctas``') or the mma.sync kernel; the C entry refuses a
+    shape the one named cannot take."""
     req = _lib.require
     req((border, stride) in GATHERS, CONV_NAME,
         f"no gather for border {border!r} at stride {stride}")
@@ -284,19 +358,20 @@ def _launch(x8: torch.Tensor, w8: torch.Tensor, packed: bool,
     wk = laid_out(w8, x8.device, torch.int8, pack_weight if packed else kernel_weight)
     ho, wo = out_side(h, stride, border), out_side(w, stride, border)
     if packed:
-        tiles = -(-b * ho * wo // tile_rows(co))
-        scratch = (tiles, 2, 2, co)
+        ctas = ctas or s8_ctas(b * ho * wo, co, sm_count(x8.device.index))
+        scratch = scratch_shape(b, ho, wo, co, True, ctas)
+        tiles = ctas
     else:
-        tiles = conv_tiles(ho * wo)
-        scratch = (b, tiles, 2, co)
+        scratch = scratch_shape(b, ho, wo, co, False)
+        tiles = scratch[1]
     hb = torch.empty((b, ho, wo, co), device=x8.device, dtype=torch.bfloat16)
     part = torch.empty(scratch, device=x8.device, dtype=torch.float64)
     moments = torch.empty((b, 2, co), device=x8.device, dtype=torch.float64)
     req(_lib.aligned(x8, wk, hb), CONV_NAME, "tensors must be 16-byte aligned")
     err = _lib.library().nirgan_int8_conv(
         x8.device.index, x8.data_ptr(), wk.data_ptr(), hb.data_ptr(),
-        part.data_ptr(), moments.data_ptr(), b, h, w, ci, co, tiles,
-        int(packed), GATHERS[(border, stride)], _lib.stream_of(x8))
+        part.data_ptr(), moments.data_ptr(), b, h, w, ci, co, tiles, int(packed),
+        GATHERS[(border, stride)], _lib.stream_of(x8))
     _lib.check(err, CONV_NAME)
     return hb, moments
 

@@ -550,3 +550,92 @@ def test_int8_wgmma_weight_image_and_rule():
     assert not port_int8.takes_wgmma(64, 256, 133 * 133)
     assert not port_int8.takes_wgmma(256, 64, 133 * 133)
     assert port_int8.tile_rows(256) == 128 and port_int8.tile_rows(128) == 256
+
+
+def _shard_trunk_pixels(n_shards: int, side: int = 2068) -> list[int]:
+    """The trunk's output pixels on each shard of an H-sharded tile of
+    ``side`` padded rows (parallel/spatial.py): the VALID and STRIDE2_VALID
+    gathers both give (rows // 4, side // 4)."""
+    from nirgan_tpu_torch.parallel.spatial import row_ranges
+
+    return [(hi - lo) // 4 * (side // 4) for lo, hi in row_ranges(side, n_shards)]
+
+
+# kernel D's wgmma shapes, (output pixels, Cout): the serving trunk at 4 x
+# 532^2 in every stride-1 gather and stage 2's d1 at stride 2 (4 x 133^2 out,
+# 553 tiles), a shard's VALID / STRIDE2_VALID slabs of a 2048^2 tile over 2
+# and 4 ranks, the N = 128 form, and small odd counts (5 tiles: a cluster
+# with an idle CTA; tiles across two images)
+_S8_SHAPES = ([(4 * 133 * 133, 256), (4 * 133 * 133, 128), (2 * 27 * 33, 256),
+               (3 * 12 * 11, 256), (23 * 27, 256), (3 * 20 * 30, 128), (3 * 14 * 13, 256)]
+              + [(m, 256) for n in (2, 4) for m in sorted(set(_shard_trunk_pixels(n)))])
+
+
+@pytest.mark.parametrize("m,co,sms", [(m, co, sms) for m, co in _S8_SHAPES
+                                       for sms in (132, 7, 1)])
+def test_int8_wgmma_walk_covers_every_pixel_once(m, co, sms):
+    """Kernel D's wgmma walk (``tile_walk`` mirrors the kernel's): every
+    output pixel in exactly one tile, tiles on grain boundaries, at most
+    one half tile a CTA and only at its end (Cout 256), and no CTA more than
+    a grain behind the mean (553 tiles on 132 CTAs: four tiles and a half,
+    where whole tiles alone take five)."""
+    ctas = port_int8.s8_ctas(m, co, sms)
+    bm, gr = port_int8.tile_rows(co), port_int8.grain_rows(co)
+    assert 1 <= ctas <= sms
+    walk = port_int8.tile_walk(m, co, ctas)
+    spans = sorted(t for mine in walk for t in mine)
+    assert spans[0][0] == 0 and spans[-1][0] + spans[-1][1] == m
+    assert all(a[0] + a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert all(first % gr == 0 and 0 < rows <= bm for first, rows in spans)
+    for mine in walk:
+        halves = [i for i, (first, rows) in enumerate(mine)
+                  if rows <= 64 and first + rows < m]
+        assert co == 256 or not halves
+        assert halves in ([], [len(mine) - 1])
+    grains = -(-m // gr)
+    took = [g1 - g0 for g0, g1 in port_int8.grain_runs(m, co, ctas)]
+    assert sum(took) == grains and max(took) - min(took) <= 1
+    if (m, co, sms) == (4 * 133 * 133, 256, 132):
+        assert ctas == 132 and max(took) == 9  # whole tiles alone: 10
+
+
+@pytest.mark.parametrize("b,ho,wo,co,sms", [
+    (4, 133, 133, 256, 132), (1, 259, 517, 256, 132), (4, 133, 133, 128, 132),
+    (3, 12, 11, 256, 132), (3, 15, 13, 256, 7), (5, 17, 19, 128, 2),
+    (32, 133, 133, 256, 132), (1, 15, 13, 256, 1)])
+def test_int8_scratch_holds_each_image_sum_once(b, ho, wo, co, sms):
+    """The wgmma kernel's moments scratch has one slot a (CTA, image its
+    run touches) pair, slot CTA + image: no two pairs share one, every
+    image has at least one, and the scratch holds them all; the mma.sync
+    kernel's is (B, tiles of 128 pixels an image, 2, Cout)."""
+    m = b * ho * wo
+    ctas = port_int8.s8_ctas(m, co, sms)
+    shape = port_int8.scratch_shape(b, ho, wo, co, True, ctas)
+    assert shape == (ctas + b - 1, 2, 2, co)
+    slots = port_int8.image_slots(m, co, ctas, ho * wo)
+    flat = [x for mine in slots for x in mine]
+    assert len(slots) == b and all(slots)
+    assert len(flat) == len(set(flat)) and max(flat) < shape[0]
+    assert all(mine == sorted(mine) for mine in slots)
+    assert port_int8.scratch_shape(b, ho, wo, co, False) == (b, -(-ho * wo // 128), 2, co)
+
+
+def test_int8_wgmma_plan_constants_match_the_source():
+    """The walk's constants are the kernel's: the grain (a 64-row unit at
+    Cout 256, a tile at 128), the CTAs' runs, the slots, and the C entry's
+    arguments."""
+    import pathlib
+    import re
+
+    csrc = pathlib.Path(port_int8.__file__).parent.parent / "csrc"
+    header = (csrc / "igemm_wgmma.h").read_text()
+    engine = (csrc / "igemm_wgmma.cu").read_text()
+    conv = (csrc / "int8_conv.cu").read_text()
+    assert "inline int s8_grain(int N) { return N == 256 ? 64 : tile_rows(N); }" in header
+    assert port_int8.grain_rows(256) == 64 and port_int8.grain_rows(128) == 256
+    assert "g0 = cta * runs.q + (cta < runs.r ? cta : runs.r);" in engine
+    assert "g1 = g0 + runs.q + (cta < runs.r ? 1 : 0);" in engine
+    assert "const Runs runs{grains / ctas, grains % ctas};" in engine
+    assert "((long long)(blockIdx.x + img) * 2 + wg) * 2 * N" in engine
+    entry = re.search(r'extern "C" int nirgan_int8_conv\((.*?)\)', conv, re.S).group(1)
+    assert len(entry.split(",")) == len(_lib._SIGNATURES["nirgan_int8_conv"])
