@@ -227,17 +227,21 @@ every launch plan its kernels take at the main path's shapes, beside the
 plan that ``launch_plan`` chooses.
 ``python3 chip_smoke.py --phase NAME [NAME ...]`` runs, after phases 0 and
 1, only the named phases (``ALONE``: int8, train, variants, nonsquare,
-param_dtype, export, native, ddp, spatial, train512, unet), with no JSON
-lines: a phase's checks read without
-what the phases before it leave set.
+param_dtype, export, native, ddp, spatial, train512, unet, and profiler:
+the windows in which the profiler counted no kernel of a call, with
+``device_launches``' margin and without it), with no JSON lines: a phase's
+checks read without what the phases before it leave set.
 ``python3 chip_smoke.py --times DIR`` times, after phases 0 and 1 run on
 the package of the checkout at DIR (a parent commit's, unpacked), kernel B
 at two shapes, the bf16 forward, the batch-16 step, the instance norm's
 host cost a call, kernel D at its four timed gathers, kernel A at three
-shapes and the int8 forward, profiled last (``phase_times``): run it for
-two checkouts in turns in one call to compare them on one card.
-``python3 chip_smoke.py --split DIR`` times kernel D's wgmma kernel of the
-checkout at DIR rebuilt with parts of its work cut out (``phase_split``).
+shapes, kernel E in its four modes and with a shard's count (each beside a
+sha256 of its outputs) and the int8 forward, profiled last
+(``phase_times``): run it for two checkouts in turns in one call to
+compare them on one card.
+``python3 chip_smoke.py --split DIR [D] [E]`` times kernel D's wgmma kernel
+and kernel E of the checkout at DIR rebuilt with parts of their work cut
+out (``phase_split``; both by default).
 
 Before the last line it prints one JSON object with every kernel's route,
 source, launches in the training CLI's run (``per_step``: in one fused
@@ -296,9 +300,11 @@ from __future__ import annotations
 
 import ast
 import contextlib
+import hashlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1500,31 +1506,27 @@ def check_int8_norm(g: torch.Generator, hb: torch.Tensor, m: torch.Tensor,
                     timed: bool = False) -> tuple[dict, dict]:
     """Kernel E against its plain version in its four modes on kernel D's
     staged accumulator ``hb`` and moments ``m``, with a bf16 and an f32
-    stream: int8 outputs at most one step apart on at most 1e-4 of them,
-    the stream within one step of its type and one of the norm
+    stream: mode 0 bit for bit (``bit_for_bit``: a true f32 division on
+    either side, no statistic), modes 1-3's int8 outputs at most one step
+    apart on at most 1e-4 of them, the stream within one step of its type and one of the norm
     (``within_ulp``; mode 3's bf16 stream within one bf16 step, its f32
     stream within one f32 step and two of the norm, as mode 2's), a second
-    launch bit for bit.  Returns the largest |kernel - plain| of each mode
-    over its outputs (int8 steps and stream values) and, with ``timed``, the
-    times of each mode, its plain version and the bound, by mode."""
+    launch bit for bit, and on other plans bit for bit (``check_norm_plans``).
+    Returns the largest |kernel - plain| of each mode over its outputs (int8
+    steps and stream values) and, with ``timed``, the times of each mode,
+    its plain version and the bound, by mode."""
     from nirgan_tpu_torch.ops.int8_trunk import norm_quant_cuda, norm_quant_plain
 
     dev = torch.device("cuda")
-    c = hb.shape[3]
     shape = tuple(hb.shape)
-    # per-channel constants of a calibrated trunk's size: eps' = 1e-5 / k^2
-    # with k about the folded weights' scale, scales that put the normalised
-    # values at +-40 quantisation steps or so
-    k = (torch.rand(c, device=dev, generator=g) + 0.5) * m[:, 1].mean().sqrt() / 300
-    eps = 1e-5 / k.square()
-    s = (torch.rand(c, device=dev, generator=g) + 0.5) * 3.0 / 127
+    eps, s = e_constants(g, m)
     x = torch.randn(shape, device=dev, generator=g) * 2.0
     out, err = {}, dict.fromkeys(range(4), 0.0)
     for dtype in (torch.bfloat16, torch.float32):
         xs = x.to(dtype)
         tag = f"int8_norm {shape} stream {dtype}"
         q0 = norm_quant_cuda(0, xs, s)
-        e0 = steps_apart(q0, norm_quant_plain(0, xs, s), f"{tag} mode 0")
+        e0 = bit_for_bit(q0, norm_quant_plain(0, xs, s), f"{tag} mode 0")
         q1 = norm_quant_cuda(1, hb, s, m, eps)
         e1 = steps_apart(q1, norm_quant_plain(1, hb, s, m, eps), f"{tag} mode 1")
         o2, q2 = norm_quant_cuda(2, hb, s, m, eps, xs)
@@ -1547,6 +1549,9 @@ def check_int8_norm(g: torch.Generator, hb: torch.Tensor, m: torch.Tensor,
                 and torch.equal(again3[0], o3) and torch.equal(again3[1], q3)
                 and torch.equal(norm_quant_cuda(1, hb, s, m, eps), q1)):
             raise AssertionError(f"{tag}: a second launch differs")
+        check_norm_plans(tag, ((0, xs, s), q0), ((1, hb, s, m, eps), q1),
+                         ((2, hb, s, m, eps, xs), (o2, q2)),
+                         ((3, hb, s, m, eps, None, dtype), (o3, q3)))
     if not timed:
         return err, out
     xb = x.bfloat16()
@@ -1571,15 +1576,142 @@ def check_int8_norm(g: torch.Generator, hb: torch.Tensor, m: torch.Tensor,
     return err, out
 
 
+def bit_for_bit(got: torch.Tensor, ref: torch.Tensor, what: str) -> int:
+    """The int8 outputs of a kernel equal to its plain version's bit for
+    bit; returns 0, the largest difference in steps."""
+    n = int((got != ref).sum())
+    log("int8", f"{what}: {n} of {got.numel()} int8 outputs differ (bound: none)")
+    if n:
+        d = (got.int() - ref.int()).abs()
+        raise AssertionError(f"{what}: {n} outputs differ, max {int(d.max())} steps")
+    return 0
+
+
+# the 17 values of the last row of ``e_near_halves``, in every channel: NaN,
+# the infinities, zeros, subnormals, values past the clip and far out
+E_SPECIALS = (float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 1e-40, -1e-40, 3e38,
+              -3e38, 1e-30, -1e-30, 1.0, -1.0, 0.015625, -0.015625, 127.49, -127.51)
+
+
+def e_near_halves(g: torch.Generator, dtype: torch.dtype, odd: bool = False) -> tuple:
+    """Kernel E's mode 0 inputs where the product by a rounded reciprocal
+    can round otherwise than the true division: (x (1, 257, 17, 256) in
+    ``dtype``, s (256,) f32).  Row i < 256 of channel c holds the
+    half-integer i - 127.5 times c's base scale, moved by -8 to 8 steps of
+    ``dtype`` along the row; row 256 holds ``E_SPECIALS``.  The scales are
+    calibrated, (0.5-1.5) 3 / 127, but channels 0-7 powers of two (the
+    quotients exactly on a half-integer: ties), 8-15 negative, and 64-255
+    v / h moved by 1-4 steps of 2^-24 either way, for a half-integer h of
+    the channel's own and v a bf16 value near h times a calibrated scale
+    (that element then divides to within a few f32 steps of h, where
+    bf16's own steps reach a half-integer that closely only by chance).  With
+    ``odd``, channel 16's scale is 0 and 17's 2^-70, its values built on
+    2^-70: scales outside [2^-64, 2^64], so that every block divides."""
+    c = 256
+    s = (torch.rand(c, device="cuda", generator=g) + 0.5) * 3.0 / 127
+    s[:8] = 2.0 ** -torch.arange(3, 11, device="cuda", dtype=torch.float32)
+    s[8:16] = -s[8:16]
+    halves = torch.arange(-127.5, 128.0, 1.0, device="cuda", dtype=torch.float64)
+    h = halves[torch.randint(0, 256, (c - 64,), device="cuda", generator=g)]
+    j = torch.randint(1, 5, (c - 64,), device="cuda", generator=g).double()
+    j = j * (torch.randint(0, 2, (c - 64,), device="cuda", generator=g) * 2 - 1)
+    v = (h * s[64:].double()).bfloat16().double()
+    s[64:] = (v / h * (1 + j * 2.0 ** -24)).float()
+    base = s.clone()
+    if odd:
+        s[16], s[17] = 0.0, 2.0 ** -70
+        base[17] = 2.0 ** -70
+    v0 = (halves[:, None] * base.double()[None, :]).to(dtype)
+    itype = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    steps = torch.arange(-8, 9, device="cuda", dtype=itype)
+    x = (v0.view(itype)[:, None, :] + steps[None, :, None]).view(dtype)
+    specials = torch.tensor(E_SPECIALS, device="cuda").to(dtype)
+    x = torch.cat([x, specials[None, :, None].expand(1, len(E_SPECIALS), c)])
+    return x[None].contiguous(), s
+
+
+def check_int8_norm_exact(g: torch.Generator) -> None:
+    """Kernel E's mode 0 bit for bit with ``quantize_plain`` (an IEEE f32
+    division, rounded half to even) on ``e_near_halves``' inputs, bf16 and
+    f32: with calibrated scales, where the guard must settle every element
+    that the bare product by the reciprocal rounds otherwise (some must:
+    the inputs are checked to reach the guard), and with a scale of 0 and
+    one of 2^-70, where every block divides."""
+    from nirgan_tpu_torch.ops.int8_trunk import norm_quant_cuda, q8, quantize_plain
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for odd in (False, True):
+            x, s = e_near_halves(g, dtype, odd)
+            tag = f"int8_norm mode 0 near half-integers {dtype} {'odd' if odd else 'nice'} scales"
+            want = quantize_plain(x, s)
+            bit_for_bit(norm_quant_cuda(0, x, s), want, tag)
+            if not odd:
+                bare = q8(x.float() * torch.reciprocal(s))
+                n = int((bare != want).sum())
+                log("int8", f"{tag}: the bare product differs on {n} of {x.numel()}")
+                if not n:
+                    raise AssertionError(f"{tag}: the inputs do not reach the guard")
+
+
+def check_norm_plans(tag: str, *calls) -> None:
+    """Kernel E's outputs on other plans than its own equal to its own bit
+    for bit: each (arguments of ``norm_quant_cuda``, its outputs) again on
+    one block an image, on two, on a pixel a block (at most 4096 blocks)
+    and on a tenth of the plan's blocks."""
+    from nirgan_tpu_torch.ops import int8_trunk
+
+    for args, want in calls:
+        b, h, w, c = args[1].shape
+        mode = args[0]
+        code = e_code(args)
+        plan = int8_trunk.norm_blocks(b, h * w, c, int8_trunk.norm_slots(0, mode, code, c),
+                                      int8_trunk.norm_pass(mode, code))
+        for blocks in sorted({1, min(2, h * w), min(h * w, 4096), max(1, plan // 10)}):
+            got = int8_trunk._launch_norm(*args, blocks=blocks)
+            pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
+            if not all(torch.equal(a, b) for a, b in pairs if a is not None or b is not None):
+                raise AssertionError(f"{tag} mode {mode} on {blocks} blocks an image "
+                                     f"(the plan's {plan}) differs")
+
+
+def e_code(args: tuple) -> int:
+    """The dtype code (0 f32, 1 bf16) of E's instance for the arguments of
+    ``norm_quant_cuda``: the stream's (mode 0 its source, mode 2 x, mode 3
+    the dtype), the accumulator's bf16 in mode 1."""
+    mode = args[0]
+    dtype = (args[1].dtype if mode in (0, 1) else args[5].dtype if mode == 2 else args[6])
+    return 1 if dtype == torch.bfloat16 else 0
+
+
+def norm_inputs(g: torch.Generator, shape: tuple) -> tuple:
+    """A staged bf16 accumulator of ``shape`` at an int8 conv's scale and
+    its exact f64 moments (B, 2, C), without kernel D: for E at the widths
+    no trunk has."""
+    hb = (torch.randn(shape, device="cuda", generator=g) * 3000
+          + torch.rand(shape[-1], device="cuda", generator=g) * 500).bfloat16()
+    a = hb.double()
+    return hb, torch.stack([a.sum(dim=(1, 2)), a.square().sum(dim=(1, 2))], 1).contiguous()
+
+
+# kernel E's odd shapes (B, H, W, C) beyond those D gives it: a batch of 1
+# whose 63 pixels are no multiple of a pass (UNROLL x rows = 32 at C = 256),
+# C = 8 (one group, 256 rows) and C = 2048 (256 groups, one row), a pixel
+# count below one pass, and 5 images of 221 pixels at C = 64
+NORM_ODD_SHAPES = ((1, 7, 9, 256), (3, 5, 7, 8), (2, 9, 11, 2048), (2, 3, 3, 128),
+                   (5, 13, 17, 64))
+
+
 def phase_int8_kernels(g: torch.Generator) -> None:
     """Kernels D and E against their plain versions at the serving trunk's
     shape (batch 4 of 512^2 tiles padded to 532^2: 133^2, 256 channels) and
     at small odd shapes (a Cout that is no multiple of 128, an image whose
-    pixels end inside a tile, a column of width 3), D timed beside kernel A
-    at its shape, E in each mode."""
+    pixels end inside a tile, a column of width 3; E also at
+    ``NORM_ODD_SHAPES``), D timed beside kernel A at its shape, E in each
+    mode."""
     serving = (BATCH, SIDE // 4, SIDE // 4, 256)
     x8, w8, hb, m, err, *d_times = check_int8_conv(g, serving, 256, timed=True)
     e_err, e_times = check_int8_norm(g, hb, m, timed=True)
+    check_int8_norm_exact(g)
     del x8, w8, hb, m
     # mma.sync: Cout no multiple of 128, an image ending inside a tile, a
     # width of 3; wgmma: tiles that straddle two images (N 256 and 128)
@@ -1589,6 +1721,9 @@ def phase_int8_kernels(g: torch.Generator) -> None:
         _, _, hb, m, e, = check_int8_conv(g, shape, co)
         err = max(err, e)
         small = check_int8_norm(g, hb, m)[0]
+        e_err = {mode: max(e, small[mode]) for mode, e in e_err.items()}
+    for shape in NORM_ODD_SHAPES:
+        small = check_int8_norm(g, *norm_inputs(g, shape))[0]
         e_err = {mode: max(e, small[mode]) for mode, e in e_err.items()}
     ms, plain_ms, a_ms, mma_ms, least, int_mm_ms = d_times
     RESULTS["int8_conv"] = entry(
@@ -4900,19 +5035,61 @@ def phase_sweep() -> None:
         torch.cuda.empty_cache()
 
 
-def device_launches(fn) -> int:
+# device_launches: the host's sleep at each end of the profiler's window,
+# and the windows a count may take where the profiler recorded no kernel
+PROFILE_MARGIN_S = 0.01
+PROFILE_ATTEMPTS = 5
+
+
+def device_launches(fn, margin_s: float = PROFILE_MARGIN_S) -> int:
     """The kernels and device copies that one call of ``fn`` runs on the
-    card, counted by ``torch.profiler``."""
+    card, counted by ``torch.profiler``.  The call sits ``margin_s`` inside
+    each end of the profiler's window: with no margin, about one window in
+    200 recorded no kernel of a call of B (``--phase profiler``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin_s)
         fn()
         torch.cuda.synchronize()
+        time.sleep(margin_s)
     return sum(ev.count for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA
                and not ev.is_user_annotation and ev.device_time_total)
+
+
+def alone_profiler(rounds: int = 250) -> None:
+    """``--phase profiler``: the windows in which ``device_launches``
+    recorded no kernel of one call of B, with its margin and without one,
+    over ``rounds`` rounds of three of ``phase_norm_launches``' shapes, in
+    a fresh process and after a window of 20,000 kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nirgan_tpu_torch.ops.instance_norm import instance_norm_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    calls = []
+    for shape in ((16, 69, 69, 256), (4, 133, 133, 256), (16, 8, 8, 512)):
+        x = (torch.randn(shape, device="cuda", generator=g) * 3.0 + 1.5).bfloat16()
+        calls.append(lambda x=x: instance_norm_cuda(x, relu=True))
+    for stage in ("fresh", "after a window of 20,000 kernels"):
+        if stage != "fresh":
+            y = torch.zeros(1024, device="cuda")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(20000):
+                    y.add_(1.0)
+                torch.cuda.synchronize()
+            prof.key_averages()
+        lost = {0.0: 0, PROFILE_MARGIN_S: 0}
+        for _ in range(rounds):
+            for call in calls:
+                for margin in lost:
+                    lost[margin] += device_launches(call, margin) == 0
+        for margin, n in lost.items():
+            log("profiler", f"{stage}, margin {margin * 1e3:g} ms: no kernel recorded "
+                f"in {n} of {rounds * len(calls)} windows")
 
 
 def plan_entries(node):
@@ -4956,9 +5133,9 @@ def phase_norm_launches() -> None:
                         return instance_norm_cuda(
                             xb, relu=e["relu"], residual=rb if e["skip"] else None)
                 # a call launches a kernel or raises, so a count of 0 is a
-                # trace the profiler lost (seen once in a run of 31 counts):
-                # count that call again, at most twice
-                for _ in range(3):
+                # trace the profiler lost (seen in up to 3 windows in a row
+                # without the window's margins): count that call again
+                for _ in range(PROFILE_ATTEMPTS):
                     counted[key] = device_launches(call)
                     if counted[key]:
                         break
@@ -5272,15 +5449,18 @@ def d_timed_shapes() -> tuple:
 
 def int8_times(g: torch.Generator, out: dict):
     """``phase_times``'s int8 part, into ``out``: kernel D at its four timed
-    gathers and kernel A at its serving and train shapes (the median of
-    three rounds of 10 calls after the card's head start), and the int8
+    gathers, kernel A at its serving and train shapes and kernel E at
+    ``e_calls``' shapes with a sha256 of its outputs (the median of three
+    rounds of 10 calls after the card's head start), D right after E
+    (``d_after_e``), and the int8
     serving forward of 4 x 532^2 (the plain generator, its trunk calibrated
-    on the batch; CUDA events, the median of three rounds).  Returns the
+    on the batch; CUDA events, the median of five rounds).  Returns the
     forward, for the profile."""
     from nirgan_tpu_torch.models import define_G
     from nirgan_tpu_torch.ops.int8_trunk import (
         calibrate_trunk,
         conv_moments_cuda,
+        norm_quant_cuda,
         quantize_trunk,
     )
     from nirgan_tpu_torch.ops.trunk_conv import trunk_conv_cuda
@@ -5301,6 +5481,18 @@ def int8_times(g: torch.Generator, out: dict):
         wf = torch.randn((256, 256, 3, 3), device="cuda", generator=g) / 48
         out[f"A {shape}"] = median_ms(lambda: trunk_conv_cuda(xb, wf))
         del xb, wf
+    # E at e_calls' shapes on inputs of their own seed, so that two
+    # checkouts' outputs compare by their digests
+    calls = e_calls(torch.Generator(device="cuda").manual_seed(SEED))
+    for tag, (args, _) in calls.items():
+        got = norm_quant_cuda(*args)
+        out[f"E {tag} sha256"] = hashlib.sha256(b"".join(
+            t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+            for t in (got if isinstance(got, tuple) else (got,)) if t is not None)).hexdigest()
+        out[f"E {tag}"] = median_ms(lambda: norm_quant_cuda(*args))
+        del got
+    out.update({f"D after {k}": v for k, v in d_after_e(g, calls).items()})
+    del calls
     dev = torch.device("cuda")
     G = define_G(3, 1, 64, "resnet_9blocks", "instance", compute_dtype=torch.bfloat16,
                  generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
@@ -5315,7 +5507,7 @@ def int8_times(g: torch.Generator, out: dict):
         with torch.inference_mode():
             G(x, trunk_q=pack)
 
-    out["int8 forward"] = sorted(time_ms(forward_int8, iters=10) for _ in range(3))[1]
+    out["int8 forward"] = sorted(time_ms(forward_int8, iters=10) for _ in range(5))[2]
     return forward_int8
 
 
@@ -5374,57 +5566,99 @@ SPLIT_VARIANTS = {
 SPLIT_MACROS = ("V_EPI", "V_MMA", "V_FILL", "V_MOM", "V_ST", "V_MAIN")
 
 
-def phase_split() -> dict:
-    """``--split ROOT`` (the package at ROOT imported, as ``--times`` does):
-    kernel D's wgmma kernel built from ROOT's sources once a variant of
-    ``SPLIT_VARIANTS`` (the form whose patches all apply), each with the
-    wrapper of ROOT at the gathers of ``d_timed_shapes``, timed in turns
-    (forth and back, 20 calls after the card's head start); the whole
-    variant first held equal to the library's result."""
+class SplitPatchError(RuntimeError):
+    """A ``--split`` patch that does not apply exactly once to its kernel's
+    source: the patches follow the source's text, so an edit of the kernel
+    needs its patches edited with it."""
+
+
+def patched(text: str, patches: list, what: str) -> str:
+    """``text`` with each (old, new) of ``patches`` applied, each old found
+    in it exactly once, else ``SplitPatchError``."""
+    for old, new in patches:
+        if text.count(old) != 1:
+            raise SplitPatchError(f"{what}: {text.count(old)} matches of the patch {old[:80]!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def split_build(sources: dict, others: tuple = ()) -> tuple[dict, dict]:
+    """Compile each variant's source text (name -> text) with the library's
+    flags, all at once, each linked with the ``others`` (csrc names compiled
+    as they are) into a library of its own.  Returns (name -> the loaded
+    ``ctypes.CDLL``, name -> ptxas's report)."""
     import ctypes
 
+    from nirgan_tpu_torch.ops import _lib
+
+    libs, reports = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_split_") as tmp:
+        shutil.copytree(_lib.CSRC, os.path.join(tmp, "csrc"))
+        procs, shared = [], []
+        for other in others:
+            shared.append(os.path.join(tmp, other + ".o"))
+            procs.append(subprocess.Popen(
+                [_lib.nvcc(), *_lib.NVCC_FLAGS, "-c", "-o", shared[-1],
+                 os.path.join(tmp, "csrc", other)],
+                stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT))
+        objs, logs = {}, {}
+        for i, (name, text) in enumerate(sources.items()):
+            src = os.path.join(tmp, "csrc", f"split_{i}.cu")
+            with open(src, "w") as f:
+                f.write(text)
+            objs[name], logs[name] = os.path.join(tmp, f"split_{i}.o"), os.path.join(tmp, f"{i}.txt")
+            with open(logs[name], "w") as sink:
+                procs.append(subprocess.Popen([_lib.nvcc(), *_lib.NVCC_FLAGS, "-c", "-o",
+                                               objs[name], src],
+                                              stdout=sink, stderr=subprocess.STDOUT))
+        if any(p.wait() for p in procs):
+            raise RuntimeError("a variant did not build: "
+                               + " ".join(open(f).read()[-2000:] for f in logs.values()))
+        for name, obj in objs.items():
+            so = os.path.join(tmp, f"{len(libs)}.so")
+            subprocess.run([_lib.nvcc(), *_lib.ARCH, "-shared", "-o", so, obj, *shared],
+                           check=True)
+            lib = ctypes.CDLL(so)
+            for entry_name, args in _lib._SIGNATURES.items():
+                if hasattr(lib, entry_name):
+                    getattr(lib, entry_name).argtypes = list(args)
+                    getattr(lib, entry_name).restype = ctypes.c_int
+            libs[name] = lib
+            reports[name] = open(logs[name]).read()
+    return libs, reports
+
+
+def through(lib, fn, *args, **kw):
+    """``fn`` of the package's kernel wrappers with ``lib`` as the kernel
+    library."""
+    from nirgan_tpu_torch.ops import _lib
+
+    real = _lib.library
+    _lib.library = lambda: lib
+    try:
+        return fn(*args, **kw)
+    finally:
+        _lib.library = real
+
+
+def split_d() -> dict:
+    """Kernel D's part of ``--split``: its wgmma kernel built from ROOT's
+    sources once a variant of ``SPLIT_VARIANTS`` (the form whose patches all
+    apply), each with the wrapper of ROOT at the gathers of
+    ``d_timed_shapes``, timed in turns (forth and back, 20 calls after the
+    card's head start); the whole variant first held equal to the library's
+    result."""
     from nirgan_tpu_torch.ops import _lib, int8_trunk
 
     engine = (_lib.CSRC / "igemm_wgmma.cu").read_text()
-    form = next(f for f, patches in SPLIT_PATCHES.items()
-                if all(engine.count(a) == 1 for a, _ in patches))
-    for old, new in SPLIT_PATCHES[form]:
-        engine = engine.replace(old, new)
-    libs = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_split_") as tmp:
-        shutil.copytree(_lib.CSRC, os.path.join(tmp, "csrc"))
-        conv = os.path.join(tmp, "int8_conv.o")
-        procs = [subprocess.Popen([_lib.nvcc(), *_lib.NVCC_FLAGS, "-c", "-o", conv,
-                                   os.path.join(tmp, "csrc", "int8_conv.cu")],
-                                  stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)]
-        objs = {}
-        for i, (name, cut) in enumerate(SPLIT_VARIANTS[form].items()):
-            src = os.path.join(tmp, "csrc", f"split_{i}.cu")
-            with open(src, "w") as f:
-                f.write("".join(f"#define {m} {0 if m in cut else 1}\n" for m in SPLIT_MACROS)
-                        + engine)
-            objs[name] = os.path.join(tmp, f"split_{i}.o")
-            procs.append(subprocess.Popen([_lib.nvcc(), *_lib.NVCC_FLAGS, "-c", "-o",
-                                           objs[name], src],
-                                          stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT))
-        if any(p.wait() for p in procs):
-            raise RuntimeError("a variant of kernel D did not build")
-        for name, obj in objs.items():
-            so = os.path.join(tmp, f"{len(libs)}.so")
-            subprocess.run([_lib.nvcc(), *_lib.ARCH, "-shared", "-o", so, obj, conv], check=True)
-            lib = ctypes.CDLL(so)
-            lib.nirgan_int8_conv.argtypes = list(_lib._SIGNATURES["nirgan_int8_conv"])
-            lib.nirgan_int8_conv.restype = ctypes.c_int
-            libs[name] = lib
-
-    def through(lib, *args):
-        real = _lib.library
-        _lib.library = lambda: lib
-        try:
-            return int8_trunk._launch(*args)
-        finally:
-            _lib.library = real
-
+    form = next((f for f, patches in SPLIT_PATCHES.items()
+                 if all(engine.count(a) == 1 for a, _ in patches)), None)
+    if form is None:
+        raise SplitPatchError("igemm_wgmma.cu: no form of SPLIT_PATCHES applies")
+    engine = patched(engine, SPLIT_PATCHES[form], "igemm_wgmma.cu")
+    libs, _ = split_build(
+        {name: "".join(f"#define {m} {0 if m in cut else 1}\n" for m in SPLIT_MACROS) + engine
+         for name, cut in SPLIT_VARIANTS[form].items()}, ("int8_conv.cu",))
     g = torch.Generator(device="cuda").manual_seed(SEED)
     out = {"form": form}
     for border, stride, shape in d_timed_shapes():
@@ -5432,15 +5666,316 @@ def phase_split() -> dict:
         w8 = torch.randint(-127, 128, (256, shape[3], 3, 3), device="cuda", generator=g,
                            dtype=torch.int8)
         args = (x8, w8, True, border, stride)
-        ref, got = int8_trunk._launch(*args), through(libs["whole"], *args)
+        ref, got = int8_trunk._launch(*args), through(libs["whole"], int8_trunk._launch, *args)
         if not (torch.equal(ref[0], got[0]) and torch.equal(ref[1], got[1])):
             raise AssertionError(f"--split: the whole variant differs at {shape}")
-        ms = compare_ms(*[lambda lib=lib: through(lib, *args) for lib in libs.values()],
-                        run_ahead=True)
+        ms = compare_ms(*[lambda lib=lib: through(lib, int8_trunk._launch, *args)
+                          for lib in libs.values()], run_ahead=True)
         out[f"{border} s{stride} {shape}"] = dict(zip(libs, ms))
         del x8, w8, ref, got
     log("split", json.dumps(out))
     return out
+
+
+# ---------------------------------------------------------- kernel E's split
+# ``--split ROOT E``: kernel E (``int8_norm.cu``) from the sources at ROOT,
+# built again with parts of its work cut out by text patches, each variant
+# timed in its four modes at the serving trunk's shape and in mode 1 with a
+# shard's count, in turns.  The patches follow this form of the kernel (a
+# block a run of one image's pixels, passes of LOAD_BYTES, the first ones
+# staged in shared memory during the prologue, the reciprocal and its
+# guard); a source they do not apply to raises ``SplitPatchError``.  The
+# macros: V_ARITH 0 keeps the loads and the stores and drops the arithmetic
+# (q the low bytes of the loaded words: the card's streaming floor for E's
+# bytes and its access pattern); V_PRO 0 drops the prologue (mean 0, rstd
+# 1, scale 1: no moments read, no barrier); V_DIV 0 drops the guard (the
+# bare product by the reciprocal: timed, and held to round otherwise than
+# the library on ``e_near_halves``); V_BYTES the bytes a thread loads for a
+# pass; V_PIPE 0 loads the next pass after this one's arithmetic; V_STAGED
+# the passes staged in shared memory while the prologue runs, in every
+# mode (-1: the source's choice by mode); V_MINB the blocks an SM that
+# ``__launch_bounds__`` asks of ptxas; V_CARVE the shared memory's share of
+# the SM's L1 and shared memory that E asks for, in percent (-1: none
+# asked).
+_E_COPY_RAW = r"""
+// the split's copy: the loaded words stored again, none of the arithmetic
+template <typename S, typename T, int MODE>
+__device__ __forceinline__ void copy_raw(const Raw8<S>& s8, const Raw8<T>& x8, T* out,
+                                         int8_t* q) {
+  uint4 a = s8.w[0];
+  if (sizeof(S) == 4) { a.x ^= s8.w[sizeof(S) / 2 - 1].x; a.y ^= s8.w[sizeof(S) / 2 - 1].y; }
+  if (MODE == 2 || MODE == 3) {
+    uint4* o = reinterpret_cast<uint4*>(out);
+    uint4 v = a;
+    if (MODE == 2) { v = x8.w[0]; v.x ^= a.x; }
+    o[0] = v;
+    if (sizeof(T) == 4) {
+      if (MODE == 2) { v = x8.w[sizeof(T) / 2 - 1]; v.y ^= a.y; }
+      o[1] = v;
+    }
+  }
+  if (MODE != 2 || q) {
+    uint2 b;
+    b.x = __byte_perm(a.x, a.y, 0x6420);
+    b.y = __byte_perm(a.z, a.w, 0x6420);
+    *reinterpret_cast<uint2*>(q) = b;
+  }
+}
+"""
+E_SPLIT_PATCHES = [
+        ("constexpr int LOAD_BYTES = 64;", "constexpr int LOAD_BYTES = V_BYTES;"),
+        ("__global__ void __launch_bounds__(THREADS)\nint8_norm_kernel(",
+         "__global__ void __launch_bounds__(THREADS, V_MINB)\nint8_norm_kernel("),
+        ("template <typename T, int MODE, bool DIVIDED, typename S>\n",
+         _E_COPY_RAW + "\ntemplate <typename T, int MODE, bool DIVIDED, typename S>\n"),
+        ("  float v[8];\n  unpack(a, v);\n",
+         "  if (!V_ARITH) {\n    copy_raw<S, T, MODE>(a, xs, out + off, q + off);\n    return;\n  }\n"
+         "  float v[8];\n  unpack(a, v);\n"),
+        ("  for (int c = threadIdx.x; c < C; c += blockDim.x) {\n    const float sc",
+         "  for (int c = threadIdx.x; V_PRO && c < C; c += blockDim.x) {\n    const float sc"),
+        ("  odd = __syncthreads_or(odd);", "  if (V_PRO) odd = __syncthreads_or(odd);"),
+        ("    k.rcp[e] = rcp_s[c0 + e];\n    if (MODE != 0) {\n      k.mean[e] = mean_s[c0 + e];\n"
+         "      k.rstd[e] = rstd_s[c0 + e];",
+         "    k.rcp[e] = V_PRO ? rcp_s[c0 + e] : 1.f;\n    if (MODE != 0) {\n"
+         "      k.mean[e] = V_PRO ? mean_s[c0 + e] : 0.f;\n"
+         "      k.rstd[e] = V_PRO ? rstd_s[c0 + e] : 1.f;"),
+        ("    if (!(half > __fmul_rn(fabsf(t), GUARD))) near |= 1u << e;",
+         "    if (V_DIV && !(half > __fmul_rn(fabsf(t), GUARD))) near |= 1u << e;"),
+        ("{ return mode == 3 ? 4 : 1; }", "{ return V_STAGED >= 0 ? V_STAGED : mode == 3 ? 4 : 1; }"),
+        ("    fetch(a1, x1, p + step);\n    run(a0, x0, p);\n",
+         "    if (V_PIPE) fetch(a1, x1, p + step);\n    run(a0, x0, p);\n"
+         "    if (!V_PIPE) fetch(a1, x1, p + step);\n"),
+        ("    fetch(a0, x0, p + step);\n    run(a1, x1, p);\n",
+         "    if (V_PIPE) fetch(a0, x0, p + step);\n    run(a1, x1, p);\n"
+         "    if (!V_PIPE) fetch(a0, x0, p + step);\n"),
+        ("  static size_t allowed[MAX_DEVICES][8];\n",
+         "  if (V_CARVE >= 0)\n"
+         "    cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, V_CARVE);\n"
+         "  static size_t allowed[MAX_DEVICES][8];\n"),
+]
+E_SPLIT_DEFAULTS = {"V_ARITH": 1, "V_PRO": 1, "V_DIV": 1, "V_BYTES": 64, "V_STAGED": -1,
+                    "V_PIPE": 1, "V_MINB": 1, "V_CARVE": -1}
+# the variants that keep E's function, held bit for bit with the library
+E_SPLIT_EXACT = ("whole", "a pass of 32 bytes", "a pass of 128 bytes", "one pass in flight",
+                 "one pass staged", "two passes staged", "four passes staged", "no staging",
+                 "3 blocks an SM", "carveout 0", "carveout 30", "carveout 100")
+E_SPLIT_VARIANTS = {
+    "whole": {}, "a pass of 32 bytes": {"V_BYTES": 32}, "a pass of 128 bytes": {"V_BYTES": 128},
+    "one pass in flight": {"V_PIPE": 0}, "one pass staged": {"V_STAGED": 1},
+    "two passes staged": {"V_STAGED": 2}, "four passes staged": {"V_STAGED": 4},
+    "no staging": {"V_STAGED": 0}, "3 blocks an SM": {"V_MINB": 3},
+    "carveout 0": {"V_CARVE": 0}, "carveout 30": {"V_CARVE": 30}, "carveout 100": {"V_CARVE": 100},
+    "no prologue": {"V_PRO": 0},
+    "no guard": {"V_DIV": 0}, "the copy and the prologue": {"V_ARITH": 0},
+    "the copy alone": {"V_ARITH": 0, "V_PRO": 0}}
+
+
+def e_patched(text: str) -> dict:
+    """Each variant's source of ``int8_norm.cu``'s text."""
+    text = patched(text, E_SPLIT_PATCHES, "int8_norm.cu")
+    return {name: "".join(f"#define {m} {v}\n" for m, v in
+                          {**E_SPLIT_DEFAULTS, **cut}.items()) + text
+            for name, cut in E_SPLIT_VARIANTS.items()}
+
+
+def e_registers(report: str) -> dict:
+    """ptxas's registers of each E instance in a build's report, by
+    "dtype mode", with its spill stores in bytes where it spills."""
+    found, name, spill = {}, None, 0
+    for line in report.splitlines():
+        hit = re.search(r"int8_norm_kernelI(13__nv_bfloat16|f)Li(\d)E", line)
+        if "Compiling entry function" in line:
+            name = (f"{'bf16' if hit.group(1) != 'f' else 'f32'} mode {hit.group(2)}"
+                    if hit else None)
+            spill = 0
+        elif name and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif name and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            found[name] = f"{regs} (spills {spill} B)" if spill else regs
+            name = None
+    return found
+
+
+def e_constants(g: torch.Generator, m: torch.Tensor) -> tuple:
+    """E's per-channel constants of a calibrated trunk's size, for the
+    moments m (B, 2, C): eps' = 1e-5 / k^2 with k about the folded weights'
+    scale, scales that put the normalised values at +-40 quantisation steps
+    or so."""
+    c = m.shape[2]
+    k = (torch.rand(c, device=m.device, generator=g) + 0.5) * m[:, 1].mean().sqrt() / 300
+    return 1e-5 / k.square(), (torch.rand(c, device=m.device, generator=g) + 0.5) * 3.0 / 127
+
+
+def e_calls(g: torch.Generator) -> dict:
+    """E's timed calls, (tag -> (mode, the arguments of ``norm_quant_cuda``,
+    the bytes that must move)): the four modes at the serving trunk's shape
+    (4, 133^2, 256) on kernel D's accumulator and moments, with a bf16
+    stream, and mode 1 at shard 0's (1, 259 x 517, 256) of the 2048^2 tile
+    over two ranks with the tile's count."""
+    from nirgan_tpu_torch.ops.int8_trunk import conv_moments_cuda
+    from nirgan_tpu_torch.parallel.spatial import row_ranges
+
+    side = SPATIAL_SIDE + 2 * PAD
+    lo, hi = row_ranges(side, 2)[0]
+    calls = {}
+    for shape, count in (((BATCH, SIDE // 4, SIDE // 4, 256), None),
+                         ((1, (hi - lo) // 4 + 2, side // 4 + 2, 256), (side // 4) ** 2)):
+        x8 = torch.randint(-127, 128, shape, device="cuda", generator=g, dtype=torch.int8)
+        w8 = torch.randint(-127, 128, (256, 256, 3, 3), device="cuda", generator=g,
+                           dtype=torch.int8)
+        hb, m = conv_moments_cuda(x8, w8, "reflect" if count is None else "valid")
+        eps, s = e_constants(g, m)
+        xb = (torch.randn(tuple(hb.shape), device="cuda", generator=g) * 2.0).bfloat16()
+        tag = f"{tuple(hb.shape)}"
+        if count is None:
+            calls[f"mode 0 {tag}"] = ((0, xb, s), nbytes(xb) + xb.numel())
+            calls[f"mode 1 {tag}"] = ((1, hb, s, m, eps), nbytes(hb, m) + hb.numel())
+            calls[f"mode 2 {tag}"] = ((2, hb, s, m, eps, xb),
+                                      nbytes(hb, m, xb, xb) + hb.numel())
+            calls[f"mode 3 {tag}"] = ((3, hb, s, m, eps, None, torch.bfloat16),
+                                      nbytes(hb, m, xb) + hb.numel())
+        else:
+            calls[f"mode 1 {tag} count {count}"] = ((1, hb, s, m, eps, None, None, count),
+                                                    nbytes(hb, m) + hb.numel())
+        del x8, w8
+    return calls
+
+
+def split_e() -> dict:
+    """Kernel E's part of ``--split``: ``int8_norm.cu`` of ROOT built once a
+    variant of ``E_SPLIT_VARIANTS``, each on its own plan (its occupancy)
+    and timed through ROOT's wrapper at ``e_calls``' shapes in turns (forth
+    and back, 20 calls after the card's head start); every variant of
+    ``E_SPLIT_EXACT`` first held bit for bit with the library's result,
+    there and on ``e_near_halves``, where "no guard" must differ; beside
+    each variant its registers (ptxas) and blocks an SM (the occupancy
+    query) by instance; last ``d_after_e`` with E's staged passes and its
+    carveout varied."""
+    from nirgan_tpu_torch.ops import _lib, int8_trunk
+
+    libs, reports = split_build(e_patched((_lib.CSRC / "int8_norm.cu").read_text()))
+    out = {"registers": {n: e_registers(r) for n, r in reports.items()},
+           "blocks_per_sm": {n: {f"{'bf16' if code else 'f32'} mode {mode}":
+                                 lib.nirgan_int8_norm_blocks_per_sm(0, mode, code, 256)
+                                 for mode, code in ((0, 1), (0, 0), (1, 1), (2, 1), (2, 0),
+                                                    (3, 1), (3, 0))}
+                             for n, lib in libs.items()}}
+
+    def runner(lib, args):
+        # a variant on its own plan
+        b, h, w, c = args[1].shape
+        code = e_code(args)
+        per_sm = lib.nirgan_int8_norm_blocks_per_sm(0, args[0], code, c)
+        blocks = int8_trunk.norm_blocks(b, h * w, c, per_sm * int8_trunk.sm_count(0),
+                                        int8_trunk.norm_pass(args[0], code))
+        return lambda: through(lib, int8_trunk._launch_norm, *args, blocks=blocks)
+
+    def held(tag, args, ref):
+        for name in E_SPLIT_EXACT:
+            got = runner(libs[name], args)()
+            pairs = zip(ref, got) if isinstance(ref, tuple) else [(ref, got)]
+            if not all(torch.equal(a, b) for a, b in pairs if a is not None):
+                raise AssertionError(f"--split: E's variant {name!r} differs in {tag}")
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    for dtype in (torch.bfloat16, torch.float32):
+        x, s = e_near_halves(g, dtype)
+        ref = int8_trunk.norm_quant_cuda(0, x, s)
+        bit_for_bit(ref, int8_trunk.quantize_plain(x, s), f"--split near half-integers {dtype}")
+        held(f"near half-integers {dtype}", (0, x, s), ref)
+        n = int((runner(libs["no guard"], (0, x, s))() != ref).sum())
+        out[f"no guard, outputs that differ near half-integers {dtype}"] = n
+        if not n:
+            raise AssertionError(f"--split: without the guard E still equals the library "
+                                 f"near half-integers ({dtype})")
+    calls = e_calls(g)
+    for tag, (args, moved) in calls.items():
+        held(tag, args, int8_trunk.norm_quant_cuda(*args))
+        ms = compare_ms(*[runner(lib, args) for lib in libs.values()], run_ahead=True)
+        out[tag] = {**dict(zip(libs, ms)), "bound_ms": least_time(0, moved)[0]}
+    out["D after"] = d_after_e(g, calls, {
+        f"E mode {mode}, {name}": (libs[name], mode)
+        for mode, names in ((1, ("four passes staged", "no staging")),
+                            (2, ("two passes staged", "one pass staged", "no staging")))
+        for name in names} | {
+        f"E mode {mode}, {name}": (libs[name], mode)
+        for mode in (1, 2) for name in ("carveout 0", "carveout 30", "carveout 100")}, runner)
+    log("split", json.dumps(out))
+    return out
+
+
+def d_after(preds: dict, w8: torch.Tensor, rounds: int = 20) -> dict:
+    """Kernel D's ms at the serving trunk's reflect gather right after each
+    of ``preds`` (name -> a call that returns D's int8 input), as the int8
+    forward runs it: the predecessor, then D on what it returned between
+    CUDA events.  Each round queues every kind once behind a 2 ms spin of
+    the card, so that the host is ahead; the median of ``rounds`` rounds
+    after two."""
+    from nirgan_tpu_torch.ops.int8_trunk import conv_moments_cuda
+
+    times = {name: [] for name in preds}
+    for r in range(rounds + 2):
+        events = []
+        torch.cuda._sleep(2_000_000)
+        for name, pred in preds.items():
+            x8 = pred()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            conv_moments_cuda(x8, w8)
+            b.record()
+            events.append((name, a, b))
+        torch.cuda.synchronize()
+        if r >= 2:
+            for name, a, b in events:
+                times[name].append(a.elapsed_time(b))
+    return {name: sorted(ts)[len(ts) // 2] for name, ts in times.items()}
+
+
+def d_after_e(g: torch.Generator, calls: dict, variants: dict | None = None,
+              runner=None) -> dict:
+    """``d_after`` for kernel D at (4, 133^2, 256) after itself, after E's
+    mode 1 and mode 2 on ``e_calls``' serving inputs (D reading the q that
+    E wrote, as in the int8 forward), after mode 1 then a write of 256 MB
+    (the L2 flushed), and after that write alone; ``variants`` (name ->
+    (a split variant's library, its mode)) adds E's variants through
+    ``runner``."""
+    from nirgan_tpu_torch.ops.int8_trunk import conv_moments_cuda, norm_quant_cuda
+
+    serving = [args for tag, (args, _) in calls.items() if "count" not in tag]
+    by_mode = {args[0]: args for args in serving}
+    q1 = norm_quant_cuda(*by_mode[1])
+    w8 = torch.randint(-127, 128, (256, 256, 3, 3), device="cuda", generator=g,
+                       dtype=torch.int8)
+    flush = torch.empty(256 << 20, device="cuda", dtype=torch.uint8)
+
+    def q_of(got):
+        return got[1] if isinstance(got, tuple) else got
+
+    def flushed(fn):
+        def run():
+            x8 = fn()
+            flush.zero_()
+            return x8
+        return run
+
+    preds = {"D": lambda: (conv_moments_cuda(q1, w8), q1)[1],
+             "E mode 1": lambda: norm_quant_cuda(*by_mode[1]),
+             "E mode 2": lambda: q_of(norm_quant_cuda(*by_mode[2])),
+             "E mode 1, then an L2 flush": flushed(lambda: norm_quant_cuda(*by_mode[1])),
+             "an L2 flush": flushed(lambda: q1)}
+    for name, (lib, mode) in (variants or {}).items():
+        preds[name] = (lambda fn: lambda: q_of(fn()))(runner(lib, by_mode[mode]))
+    out = d_after(preds, w8)
+    del flush
+    return out
+
+
+def phase_split(which: list) -> dict:
+    """``--split ROOT [D] [E]`` (the package at ROOT imported, as
+    ``--times`` does): kernel D's (``split_d``) and kernel E's
+    (``split_e``) variants, both by default."""
+    return {k: {"D": split_d, "E": split_e}[k]() for k in which}
 
 
 # ------------------------------------------------------------- native reader
@@ -6299,16 +6834,14 @@ def check_int8_norm_count(g: torch.Generator, hb: torch.Tensor, m: torch.Tensor,
     on a shard) against its plain version given the same count, in modes 1
     to 3 (int8 outputs at most one step apart on at most 1e-4 of them, the
     streams within one step); and different from E without the count, so
-    the count reached the kernel.  Returns the largest |kernel - plain| over
+    the count reached the kernel; on grids cut short, bit for bit with its
+    plan's (``check_norm_plans``).  Returns the largest |kernel - plain| over
     the three modes' outputs (int8 steps and stream values) and the times in
     mode 1."""
     from nirgan_tpu_torch.ops.int8_trunk import norm_quant_cuda, norm_quant_plain
 
     dev = torch.device("cuda")
-    c = hb.shape[3]
-    k = (torch.rand(c, device=dev, generator=g) + 0.5) * m[:, 1].mean().sqrt() / 300
-    eps = 1e-5 / k.square()
-    s = (torch.rand(c, device=dev, generator=g) + 0.5) * 3.0 / 127
+    eps, s = e_constants(g, m)
     xs = (torch.randn(tuple(hb.shape), device=dev, generator=g) * 2.0).bfloat16()
     tag = f"int8_norm {tuple(hb.shape)} count {count}"
     q1 = norm_quant_cuda(1, hb, s, m, eps, count=count)
@@ -6323,6 +6856,10 @@ def check_int8_norm_count(g: torch.Generator, hb: torch.Tensor, m: torch.Tensor,
     err = max(err, steps_apart(q3, rq3, f"{tag} mode 3"), abs_err(o3, r3))
     if torch.equal(q1, norm_quant_cuda(1, hb, s, m, eps)):
         raise AssertionError(f"{tag}: the count did not reach the kernel")
+    # the grid cut short: the same outputs on fewer blocks than the plan's
+    check_norm_plans(tag, ((1, hb, s, m, eps, None, None, count), q1),
+                     ((2, hb, s, m, eps, xs, None, count), (o2, q2)),
+                     ((3, hb, s, m, eps, None, torch.bfloat16, count), (o3, q3)))
     ms, plain_ms = compare_ms(lambda: norm_quant_cuda(1, hb, s, m, eps, count=count),
                               lambda: norm_quant_plain(1, hb, s, m, eps, count=count),
                               iters=20, run_ahead=True)
@@ -6948,7 +7485,8 @@ def alone_spatial() -> None:
 ALONE = {"int8": alone_int8, "train": alone_train, "variants": phase_variants,
          "nonsquare": phase_nonsquare, "param_dtype": phase_param_dtype,
          "export": alone_export, "native": alone_native, "ddp": alone_ddp,
-         "spatial": alone_spatial, "train512": alone_train512, "unet": alone_unet}
+         "spatial": alone_spatial, "train512": alone_train512, "unet": alone_unet,
+         "profiler": alone_profiler}
 
 
 def main() -> None:
@@ -6979,7 +7517,7 @@ def main() -> None:
         phase_times()
         return
     if sys.argv[1:2] == ["--split"]:
-        phase_split()
+        phase_split(sys.argv[3:] or ["D", "E"])
         return
     phase_kernels()
     per_forward = phase_generator()

@@ -58,7 +58,8 @@ _SIGNATURES = {
     "nirgan_int8_conv": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P),
     "nirgan_int8_norm": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _I, _P),
+                         _I, _I, _P),
+    "nirgan_int8_norm_blocks_per_sm": (_I, _I, _I, _I),
 }
 
 

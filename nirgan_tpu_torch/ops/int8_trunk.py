@@ -55,9 +55,19 @@ next block exists, its quantised input; mode 3 ends stage 2's d1: the ReLU'd
 norm written as the stream and, quantised from that rounded stream, the
 trunk's first input (so the trunk's leading mode-0 pass goes).  Bound by
 memory: 54 MB in mode 1, 127 MB in mode 2 and 91 MB in mode 3 at the
-serving shape, 0.016, 0.038 and 0.027 ms.  It divides
-(``x / s`` is a true f32 division in JAX), rounds half to even and clips to
-+-127, as ``_q8`` does.
+serving shape, 0.016, 0.038 and 0.027 ms.  Its quotient is the true f32
+division's (``x / s`` is one in JAX), rounded half to even and clipped to
++-127, as ``_q8`` does: it multiplies by the channel's rounded reciprocal
+and settles exactly, from the residual v - h s, only the elements whose
+product lies within 2^-21 of its size from a half-integer h, the only place
+the two can round apart (the argument is in the kernel's header).  Its grid
+is one wave (``norm_blocks``: the instance's resident blocks times the SMs,
+``norm_slots``, shared among the images), each block a run of one image's
+pixels, runs as equal as the pixels allow, each thread loading a pass of
+``norm_pass`` pixels of its eight channels before any arithmetic on them,
+the next pass's loads ahead of this one's arithmetic, and the first passes
+(one; four in mode 3) into shared memory before the block
+computes its image's constants.
 
 Each is one operator (``_registry``), ``torch.ops.nirgan.int8_conv_moments``
 and ``torch.ops.nirgan.int8_norm_quant``, and dispatches as the port's
@@ -489,20 +499,53 @@ def norm_quant_plain(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
     return norm_skip_quant_plain(src, moments, eps_adj, x, s, count)
 
 
-def norm_quant_cuda(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
-                    moments: Optional[torch.Tensor] = None,
-                    eps_adj: Optional[torch.Tensor] = None,
-                    x: Optional[torch.Tensor] = None,
-                    dtype: Optional[torch.dtype] = None,
-                    count: Optional[int] = None):
-    """Launch kernel E in ``mode`` (0 to 3) on a card.  ``src``: the
-    stream (mode 0, bf16 or f32) or the staged bf16 accumulator (modes 1 to
-    3), contiguous NHWC; ``s``: the (C,) scale the quantised output is
-    divided by (None in mode 2 after the last block); ``moments`` (B, 2, C)
-    and ``eps_adj`` (C,) f32 in modes 1 to 3; ``x`` the stream the skip
-    adds to, in mode 2; ``dtype`` the stream's (bf16 or f32) in mode 3;
-    ``count`` the pixels the moments sum over (H W by default).  Returns the int8 output (mode 0, 1) or (stream, int8 or None) (modes 2,
-    3)."""
+NORM_THREADS = 256  # kernel E's most threads a block (THREADS in int8_norm.cu)
+NORM_LOAD_BYTES = 64  # the bytes a thread of E loads for a pass of pixels (LOAD_BYTES)
+
+
+def norm_rows(c: int) -> int:
+    """The pixels a block of kernel E takes at once: its threads are C / 8
+    channel groups by these rows."""
+    return max(1, NORM_THREADS // (c // 8))
+
+
+def norm_pass(mode: int, code: int) -> int:
+    """The pixels a thread of E's instance for (mode, dtype code) takes in a
+    pass: those of ``NORM_LOAD_BYTES`` loaded bytes, 16 a pixel of the bf16
+    accumulator or stream (32 of an f32 stream in mode 0), plus the stream's
+    16 or 32 in mode 2; at least 1."""
+    src = 32 if mode == 0 and code == 0 else 16
+    stream = (16 if code else 32) if mode == 2 else 0
+    return max(1, NORM_LOAD_BYTES // (src + stream))
+
+
+def norm_blocks(b: int, hw: int, c: int, slots: int, pass_pixels: int) -> int:
+    """Kernel E's blocks an image: the card's ``slots`` (the blocks of the
+    instance resident at once, blocks an SM times the SMs) shared among the
+    B images, so that the grid is one wave (B blocks where B exceeds it),
+    and no more than an image has passes of ``pass_pixels`` a thread."""
+    return max(1, min(slots // b, -(-hw // (pass_pixels * norm_rows(c)))))
+
+
+@functools.lru_cache(maxsize=None)
+def norm_slots(device: int, mode: int, code: int, c: int) -> int:
+    """The blocks of E's instance for (mode, dtype code) at C channels that
+    the card holds at once: the occupancy query times the SMs."""
+    per_sm = _lib.library().nirgan_int8_norm_blocks_per_sm(device, mode, code, c)
+    _lib.require(per_sm > 0, NORM_NAME, f"no block of mode {mode} at C = {c} fits an SM "
+                 f"({per_sm})")
+    return per_sm * sm_count(device)
+
+
+def _launch_norm(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
+                 moments: Optional[torch.Tensor] = None,
+                 eps_adj: Optional[torch.Tensor] = None,
+                 x: Optional[torch.Tensor] = None,
+                 dtype: Optional[torch.dtype] = None,
+                 count: Optional[int] = None, blocks: Optional[int] = None):
+    """One call of kernel E (``norm_quant_cuda``'s arguments and results) on
+    ``blocks`` blocks an image, by default ``norm_blocks``' plan; the C
+    entry refuses a plan it cannot take."""
     req = _lib.require
     req(mode in (0, 1, 2, 3), NORM_NAME, f"mode must be 0 to 3, got {mode}")
     req(src.is_cuda and src.dim() == 4 and src.is_contiguous(), NORM_NAME,
@@ -539,18 +582,39 @@ def norm_quant_cuda(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
            torch.empty(src.shape, device=src.device, dtype=dtype) if mode == 3 else None)
     tensors = [t for t in (src, x, q, out) if t is not None]
     req(_lib.aligned(*tensors), NORM_NAME, "tensors must be 16-byte aligned")
+    if blocks is None:
+        blocks = norm_blocks(b, h * w, c, norm_slots(src.device.index, mode, code, c),
+                             norm_pass(mode, code))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     err = _lib.library().nirgan_int8_norm(
         src.device.index, mode, code, src.data_ptr(), ptr(moments), ptr(eps32),
-        ptr(s32), ptr(x), ptr(out), ptr(q), b, h * w, c, int(count or h * w),
+        ptr(s32), ptr(x), ptr(out), ptr(q), b, h * w, c, int(count or h * w), blocks,
         _lib.stream_of(src))
     _lib.check(err, NORM_NAME)
+    return (out, q) if mode in (2, 3) else q
+
+
+def norm_quant_cuda(mode: int, src: torch.Tensor, s: Optional[torch.Tensor],
+                    moments: Optional[torch.Tensor] = None,
+                    eps_adj: Optional[torch.Tensor] = None,
+                    x: Optional[torch.Tensor] = None,
+                    dtype: Optional[torch.dtype] = None,
+                    count: Optional[int] = None):
+    """Launch kernel E in ``mode`` (0 to 3) on a card.  ``src``: the
+    stream (mode 0, bf16 or f32) or the staged bf16 accumulator (modes 1 to
+    3), contiguous NHWC; ``s``: the (C,) scale the quantised output is
+    divided by (None in mode 2 after the last block); ``moments`` (B, 2, C)
+    and ``eps_adj`` (C,) f32 in modes 1 to 3; ``x`` the stream the skip
+    adds to, in mode 2; ``dtype`` the stream's (bf16 or f32) in mode 3;
+    ``count`` the pixels the moments sum over (H W by default).  Returns the
+    int8 output (mode 0, 1) or (stream, int8 or None) (modes 2, 3)."""
+    out = _launch_norm(mode, src, s, moments, eps_adj, x, dtype, count)
     norm_quant_cuda.launches += 1
     norm_quant_cuda.by_mode[mode] = norm_quant_cuda.by_mode.get(mode, 0) + 1
-    return (out, q) if mode in (2, 3) else q
+    return out
 
 
 norm_quant_cuda.launches = 0

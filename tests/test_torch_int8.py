@@ -639,3 +639,217 @@ def test_int8_wgmma_plan_constants_match_the_source():
     assert "((long long)(blockIdx.x + img) * 2 + wg) * 2 * N" in engine
     entry = re.search(r'extern "C" int nirgan_int8_conv\((.*?)\)', conv, re.S).group(1)
     assert len(entry.split(",")) == len(_lib._SIGNATURES["nirgan_int8_conv"])
+
+
+# ---------------------------------------------------------- kernel E's plan
+# kernel E's shapes, (B, pixels an image, C): the serving trunk at 4 x 532^2,
+# a shard's trunk of a 2048^2 tile over 2 and 4 ranks (with the tile's
+# count), a batch of 1 whose 63 pixels are no multiple of a pass, C = 8
+# (one channel group, 256 rows) and C = 2048 (256 groups, one row), fewer
+# pixels than a pass, and five images of 221 pixels at C = 64
+_NORM_SHAPES = ([(4, 133 * 133, 256)]
+                + [(1, m, 256) for n in (2, 4) for m in sorted(set(_shard_trunk_pixels(n)))]
+                + [(1, 63, 256), (3, 35, 8), (2, 99, 2048), (2, 9, 128), (5, 221, 64)])
+
+
+def _norm_runs(hw, blocks):
+    """The pixels [p0, p1) of an image each of E's blocks walks, as the
+    kernel computes them (``test_int8_norm_plan_constants_match_the_source``
+    holds its formula): runs as equal as the pixels allow, the longer ones
+    first.  A block never leaves its image."""
+    q, r = divmod(hw, blocks)
+    return [(i * q + min(i, r), i * q + min(i, r) + q + (i < r)) for i in range(blocks)]
+
+
+def _norm_walk(hw, c, blocks):
+    """The pixels of one image each thread of each of E's blocks visits, as
+    the kernel walks them: thread (group, row) of a block covers p0 + row,
+    p0 + row + rows, ... below p1 (``norm_pass`` of them a pass), the eight
+    channels 8 group to 8 group + 7; every group of a row visits the same
+    pixels."""
+    rows = port_int8.norm_rows(c)
+    return [[range(p0 + r, p1, rows) for r in range(rows)] for p0, p1 in _norm_runs(hw, blocks)]
+
+
+@pytest.mark.parametrize("b,hw,c,sms", [(b, hw, c, sms) for b, hw, c in _NORM_SHAPES
+                                         for sms in (132, 7, 1)])
+def test_int8_norm_walk_covers_every_pixel_once(b, hw, c, sms):
+    """Kernel E's walk (``_norm_walk`` mirrors the kernel's): each block a
+    run of one image's pixels, runs at most a pixel apart, every (pixel,
+    channel group) of an image visited by exactly one thread, and one wave
+    on the card's slots (5 blocks an SM) where the images allow it."""
+    slots = 5 * sms
+    per_pass = port_int8.norm_pass(1, 1)
+    blocks = port_int8.norm_blocks(b, hw, c, slots, per_pass)
+    rows, groups = port_int8.norm_rows(c), c // 8
+    assert 1 <= blocks <= hw and rows * groups <= port_int8.NORM_THREADS
+    assert blocks * b <= max(slots, b)  # one wave, or a block an image
+    assert blocks == min(max(1, slots // b), -(-hw // (per_pass * rows)))
+    runs = _norm_runs(hw, blocks)
+    assert runs[0][0] == 0 and runs[-1][1] == hw
+    assert all(a[1] == b_[0] for a, b_ in zip(runs, runs[1:]))
+    took = [p1 - p0 for p0, p1 in runs]
+    assert min(took) >= 1 and max(took) - min(took) <= 1 and took == sorted(took, reverse=True)
+    walk = _norm_walk(hw, c, blocks)
+    seen = np.zeros(hw, np.int64)
+    for (p0, p1), threads in zip(runs, walk):
+        assert len(threads) == rows
+        visited = np.concatenate([np.arange(t.start, t.stop, t.step) for t in threads])
+        assert visited.size == 0 or (visited.min() >= p0 and visited.max() < p1)
+        np.add.at(seen, visited, 1)
+    # each thread's pixels are seen by all C / 8 groups of its row, once
+    assert (seen == 1).all()
+    if (b, hw, c, sms) == (4, 133 * 133, 256, 132):
+        assert blocks == 165 and blocks * b == slots
+
+
+def test_int8_norm_plan_constants_match_the_source():
+    """E's plan constants, its run formula and walk, its pass of 64 loaded
+    bytes and its C entries' arguments are the kernel's."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(port_int8.__file__).parent.parent / "csrc" / "int8_norm.cu").read_text()
+    assert f"constexpr int THREADS = {port_int8.NORM_THREADS};" in src
+    assert f"constexpr int LOAD_BYTES = {port_int8.NORM_LOAD_BYTES};" in src
+    assert "const int per = HW / gridDim.x, longer = HW % gridDim.x;" in src
+    assert "const int p0 = blockIdx.x * per + min((int)blockIdx.x, longer);" in src
+    assert "const int p1 = p0 + per + ((int)blockIdx.x < longer ? 1 : 0);" in src
+    assert "return c8 * (c8 >= THREADS ? 1 : THREADS / c8);" in src
+    # _norm_walk's: thread row r from p0 + r, U pixels rows apart a pass
+    assert "const int c0 = threadIdx.x % c8 * 8, r = threadIdx.x / c8;" in src
+    assert "const int step = U * rows;  // the pixels of a pass" in src
+    assert "  int p = p0 + r;\n" in src and "      if (p + u * rows < p1)\n" in src
+    assert ("constexpr int bytes = (int)sizeof(Raw8<S>) + (MODE == 2 ? (int)sizeof(Raw8<T>) : 0);"
+            in src)
+    assert "return LOAD_BYTES / bytes > 0 ? LOAD_BYTES / bytes : 1;" in src
+    # (mode, dtype code) -> pixels a pass: 16 bytes a bf16 pixel, 32 an f32 one
+    assert {(m, c): port_int8.norm_pass(m, c) for m in range(4) for c in (0, 1)} == {
+        (0, 0): 2, (0, 1): 4, (1, 0): 4, (1, 1): 4, (2, 0): 1, (2, 1): 2, (3, 0): 4, (3, 1): 4}
+    for name in ("nirgan_int8_norm", "nirgan_int8_norm_blocks_per_sm"):
+        args = re.search(rf'extern "C" int {name}\((.*?)\)', src, re.S).group(1)
+        assert len(args.split(",")) == len(_lib._SIGNATURES[name])
+
+
+_RINT_MAGIC = np.float32(12582912.0)  # 1.5 * 2^23, int8_norm.cu's RINT_MAGIC
+
+
+def _nice(s):
+    """int8_norm.cu's ``nice``: 2^-64 <= |s| <= 2^64."""
+    a = np.abs(np.asarray(s, np.float32))
+    with np.errstate(invalid="ignore"):
+        return (a >= np.float32(2.0 ** -64)) & (a <= np.float32(2.0 ** 64))
+
+
+def _q8_near(v, s, t):
+    """int8_norm.cu's ``q8_near`` in numpy: t NaN -> 0, |t| >= 128 -> +-127;
+    else h, the half-integer nearest t, and the residual e = v - h s, one
+    FMA (here the float64 difference, exact, rounded once to float32);
+    rint(h) where |e| <= |s| ulp(h) / 2, else h's integer on the side that
+    e's sign (times s's) gives.  Returns (q, where e was exact)."""
+    v, s, t = (np.asarray(a, np.float32) for a in (v, s, t))
+    with np.errstate(all="ignore"):
+        n = np.rint(t)
+        h = np.where(t >= n, n + np.float32(0.5), n - np.float32(0.5)).astype(np.float32)
+        e64 = v.astype(np.float64) - h.astype(np.float64) * s.astype(np.float64)
+        e = e64.astype(np.float32)
+        ulp = ((np.abs(h).view(np.int32) & 0x7F800000) - (23 << 23)).view(np.float32)
+        lo = np.nan_to_num(h - np.float32(0.5)).astype(np.int64)
+        on_h = np.abs(e) <= np.abs(s) * (np.float32(0.5) * ulp)
+        k = np.where(on_h, lo + (lo % 2), np.where((e > 0) == (s > 0), lo + 1, lo))
+        k = np.where(np.abs(t) < 128, k, np.where(t > 0, 127, -127))
+        k = np.where(np.isnan(t), 0, k)
+        exact = ~np.isfinite(t) | (np.abs(t) >= 128) | (e64 == e.astype(np.float64))
+    return np.clip(k, -127, 127).astype(np.int32), exact
+
+
+def _q8_reference(v, s):
+    """E's quotient as a true division, ``clip127(__float2int_rn(v == 0 ? 0
+    : __fdiv_rn(v, s)))``: the f32 quotient rounded half to even, clipped
+    to +-127, NaN -> 0."""
+    v, s = np.asarray(v, np.float32), np.asarray(s, np.float32)
+    with np.errstate(all="ignore"):
+        x = np.where(v == 0, np.float32(0), v / s)
+        return np.clip(np.nan_to_num(np.rint(x), nan=0.0), -127, 127).astype(np.int32)
+
+
+def _q8_guarded(v, s):
+    """Kernel E's quotient in numpy float32 (each product, reciprocal and
+    sum one IEEE rounding, as the ``_rn`` intrinsics): t = v * r, r = 1 / s
+    rounded, clipped to +-127 and rounded by the add of 1.5 * 2^23 (the
+    int8 the low byte of the sum), the guard sending the elements near a
+    half-integer to ``_q8_near``; where s is not nice, the true division
+    (the kernel's blocks with such a scale divide).  Returns (q, where the
+    guard took ``_q8_near``, the bare product's q), after asserting that
+    every residual the guard's path used was exact."""
+    v, s = np.broadcast_arrays(np.asarray(v, np.float32), np.asarray(s, np.float32))
+    with np.errstate(all="ignore"):
+        t = v * (np.float32(1) / s)
+        c = np.fmin(np.fmax(t, np.float32(-127)), np.float32(127))
+        m = c + _RINT_MAGIC
+        half = np.float32(0.5) - np.abs(c - (m - _RINT_MAGIC))
+        fast = (m.view(np.int32) & 0xFF).astype(np.uint8).view(np.int8).astype(np.int32)
+        near = ~(half > np.abs(t) * np.float32(2.0 ** -21))
+        bare = np.clip(np.nan_to_num(np.rint(t)), -127, 127).astype(np.int32)
+    q_near, exact = _q8_near(v, s, t)
+    assert exact[near & _nice(s)].all()
+    q = np.where(_nice(s), np.where(near, q_near, fast), _q8_reference(v, s))
+    return q, near & _nice(s), bare
+
+
+def _bf16(v):
+    """f32 values rounded to bf16 (nearest, ties to even), as f32."""
+    bits = np.asarray(v, np.float32).view(np.uint32)
+    bits = (bits + np.uint32(0x7FFF) + ((bits >> 16) & 1)) & np.uint32(0xFFFF0000)
+    return bits.view(np.float32)
+
+
+def test_int8_norm_division_guard_equals_the_true_division():
+    """The reciprocal with the guard gives ``q8(v / s)`` exactly: on 10^6
+    seeded values at calibrated scales (a channel's scale (0.5-1.5) * 3 /
+    127, the values to about +-170 steps, past the clip), on the same
+    values rounded to bf16 (a bf16 stream in modes 0 and 2), with zeros and
+    values far out; on values within +-8 ulp of every half-integer from
+    -127.5 to 127.5 at 72 scales (8 negative) and at the nice range's ends, where the
+    bare product rounds otherwise than the division and the guard must
+    settle them; on exact midpoints between floats beside a half-integer;
+    and on the special cases (NaN, infinities, zeros, scales that are not
+    nice)."""
+    rng = np.random.default_rng(18)
+    s = ((rng.random(10 ** 6) + 0.5) * 3.0 / 127).astype(np.float32)
+    v = (rng.standard_normal(10 ** 6) * 2.0).astype(np.float32)
+    v[:1000] = 0.0
+    v[1000:2000] = -0.0
+    v[2000:3000] = rng.choice([-1, 1], 1000) * 10.0 ** rng.uniform(3, 30, 1000)
+    for values in (v, _bf16(v)):
+        q, near, _ = _q8_guarded(values, s)
+        assert np.array_equal(q, _q8_reference(values, s))
+        # the guard: a few in 10^5 of the values at the trunk's scales
+        assert 0 < near[3000:].mean() < 1e-4
+    scales = np.concatenate([(rng.random(64) + 0.5) * 3.0 / 127, -(rng.random(8) + 0.5) / 50,
+                             [2.0 ** -64, 2.0 ** -63 * 1.7, 2.0 ** 63 * 1.3, 2.0 ** 64]])
+    scales = scales.astype(np.float32)
+    halves = np.arange(-127.5, 128.0, 1.0, dtype=np.float32)
+    v0 = (halves[None, :].astype(np.float64) * scales[:, None]).astype(np.float32)
+    steps = np.arange(-8, 9, dtype=np.int32)
+    near_v = (v0[..., None].view(np.int32) + steps).view(np.float32)
+    sv = np.broadcast_to(scales[:, None, None], near_v.shape)
+    q, near, bare = _q8_guarded(near_v, sv)
+    ref = _q8_reference(near_v, sv)
+    assert np.array_equal(q, ref)
+    assert (bare != ref).any() and near.any()
+    # quotients exactly on a float midpoint next to a half-integer: s a
+    # power of two, v = (h +- half an ulp of h) s
+    h = halves.astype(np.float64)
+    spacing = np.ldexp(1.0, np.frexp(np.abs(h))[1] - 24)
+    for side in (-0.5, 0.5):
+        for p2 in (2.0 ** -7, 2.0 ** -3, 0.5):
+            vm = ((h + side * spacing) * p2).astype(np.float32)
+            assert np.array_equal(_q8_guarded(vm, np.float32(p2))[0],
+                                  _q8_reference(vm, np.float32(p2)))
+    special_v = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0, -3.0, 1e-45, 3e38, -2.5],
+                         np.float32)
+    special_s = np.array([np.nan, np.inf, 0.0, -0.0, 1e-45, 1e-39, 2.0 ** -126, 1e38, 3e38,
+                          1.0, 0.02, -0.02], np.float32)
+    vs, ss = np.meshgrid(special_v, special_s)
+    assert np.array_equal(_q8_guarded(vs, ss)[0], _q8_reference(vs, ss))
