@@ -100,9 +100,15 @@ never prints the final ``"ok": true`` line:
    RGBN ``.npy`` tiles of 512^2): every kernel against its plain version
    at the 532^2 step's shapes (A at (16, 133^2, 256), B and B4 at the six
    norm shapes, B5 at u1 and u0, C at (16, 538^2, 64); >= 40 dB in bf16),
-   timed beside its bound and library call; one step at batch 16 (launches,
-   gradients, bit for bit again, the plain route's terms), its ms and peak
-   memory; the f32 step card against the CPU at batch 2 of 512^2; the
+   timed beside its bound and library call; the trunk backward's reflect
+   pad and its adjoint (``phase_reflect_pad``: bit for bit with the plain
+   ops at (16, 133^2, 256) and (16, 69^2, 256) bf16, at odd shapes, H or
+   W = 2 and in f32, each timed beside its byte bound); one step at batch
+   16 (launches, the pads' 18 + 18 among them, gradients, bit for bit
+   again, the plain route's terms), its ms and peak memory; the same step
+   with the trunk backward's pads on the plain ops, every gradient and
+   term bit for bit (``pads_in_step``); the f32 step card against the CPU
+   at batch 2 of 512^2; the
    train CLI for one epoch and a validation at 512^2 on the Python loader
    and on the native reader.  Then the concat route (6 blocks): one forward and
    one step, kernels against the plain route.  One flagship step with the
@@ -227,7 +233,8 @@ every launch plan its kernels take at the main path's shapes, beside the
 plan that ``launch_plan`` chooses.
 ``python3 chip_smoke.py --phase NAME [NAME ...]`` runs, after phases 0 and
 1, only the named phases (``ALONE``: int8, train, variants, nonsquare,
-param_dtype, export, native, ddp, spatial, train512, unet, and profiler:
+param_dtype, export, native, ddp, spatial, train512, unet, reflect_pad,
+and profiler:
 the windows in which the profiler counted no kernel of a call, with
 ``device_launches``' margin and without it), with no JSON lines: a phase's
 checks read without what the phases before it leave set.
@@ -264,6 +271,10 @@ replaced (``old_ms``), the two-call library route and ``share`` =
 ``bound_ms / ms``; the trunk conv's
 ``pad0`` entries hold its times on a pre-padded input, and the
 ``trunk_conv_pad0`` entry its calls on the replicate and zero trunks;
+the ``reflect_pad`` and ``reflect_pad_adjoint`` entries (the trunk
+backward's pad and its adjoint) their times and byte bound at the 532^2
+step's trunk shape, ``train276`` at the 276^2 step's, and
+``train512_step`` their launches in one 532^2 step beside the 18 wanted;
 the instance norm's ``unet`` and ``unet_128`` entries its calls in the
 unet_256 and unet_128 forward and step, and ``unet_shapes`` (and
 ``unet_128_shapes``) its times at the U-Net's shapes; every kernel's
@@ -435,6 +446,22 @@ def library_routes():
             "head_conv_library": head_conv.head_conv_library}
 
 
+def pad_kernels():
+    """The trunk backward's reflect pad and its adjoint."""
+    from nirgan_tpu_torch.ops import reflect_pad
+
+    return {"reflect_pad": reflect_pad.reflect_pad_cuda,
+            "reflect_pad_adjoint": reflect_pad.reflect_pad_adjoint_cuda}
+
+
+# a step of a 9-block reflect trunk: one pad and one adjoint a trunk conv
+PAD_STEP_LAUNCHES = {"reflect_pad": 18, "reflect_pad_adjoint": 18}
+
+
+def pad_counts() -> dict:
+    return {name: fn.launches for name, fn in pad_kernels().items()}
+
+
 def split_norm_kernels():
     """B's split forward, the H-sharded tile's instance norm."""
     from nirgan_tpu_torch.ops import instance_norm
@@ -444,7 +471,8 @@ def split_norm_kernels():
 
 
 def reset_counts() -> None:
-    for table in (kernels(), int8_kernels(), library_routes(), split_norm_kernels()):
+    for table in (kernels(), int8_kernels(), library_routes(), split_norm_kernels(),
+                  pad_kernels()):
         for fn in table.values():
             fn.launches = 0
     for fn in int8_kernels().values():
@@ -495,6 +523,18 @@ def int8_plain_route():
 
 
 @contextlib.contextmanager
+def plain_pads():
+    """The trunk backward's pad and adjoint on their plain versions (the
+    ops they replace), every other kernel as it is."""
+    from nirgan_tpu_torch.ops import reflect_pad
+
+    with mock.patch.object(reflect_pad, "reflect_pad_cuda", reflect_pad.reflect_pad_plain), \
+         mock.patch.object(reflect_pad, "reflect_pad_adjoint_cuda",
+                           reflect_pad.reflect_pad_adjoint_plain):
+        yield
+
+
+@contextlib.contextmanager
 def plain_route():
     """Send CUDA tensors to the plain versions instead of the kernels, to
     compare whole paths (the package itself has no such switch)."""
@@ -519,7 +559,8 @@ def plain_route():
          mock.patch.object(head_conv, "head_conv_cuda",
                            head_conv.head_conv_plain), \
          mock.patch.object(convt_bwd, "convt_k3s2_bwd_cuda",
-                           convt_bwd.convt_k3s2_bwd_plain):
+                           convt_bwd.convt_k3s2_bwd_plain), \
+         plain_pads():
         yield
 
 
@@ -2409,7 +2450,8 @@ def hold_f32_step(what: str, lr: float, ref: dict, got: dict) -> None:
 
 def held_step(name: str, cfg, batch: dict) -> dict:
     """One fused step of ``cfg`` from the seed on ``batch`` (NCHW host
-    arrays), bf16 on the kernels: launches equal ``STEP_LAUNCHES``, no
+    arrays), bf16 on the kernels: launches equal ``STEP_LAUNCHES`` and the
+    trunk backward's pads ``PAD_STEP_LAUNCHES``, no
     library route, a finite non-zero gradient on every parameter; the same
     seeded step again bit for bit (every sum on the path runs in a fixed
     order); its loss terms within 2% + 1e-3 of the plain route's.  The
@@ -2434,11 +2476,13 @@ def held_step(name: str, cfg, batch: dict) -> dict:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     hook.remove()
-    per_step = counts()
+    per_step, pads = counts(), pad_counts()
     no_library(f"{name}: step")
-    log("train", f"{name}: launches per step {per_step} (want {STEP_LAUNCHES})")
-    if per_step != STEP_LAUNCHES:
-        raise AssertionError(f"launches {per_step} != {STEP_LAUNCHES}")
+    log("train", f"{name}: launches per step {per_step} (want {STEP_LAUNCHES}), the trunk "
+        f"backward's pads {pads} (want {PAD_STEP_LAUNCHES})")
+    if per_step != STEP_LAUNCHES or pads != PAD_STEP_LAUNCHES:
+        raise AssertionError(f"launches {per_step}, {pads} != {STEP_LAUNCHES}, "
+                             f"{PAD_STEP_LAUNCHES}")
     check_gradients(task)
     again = Px2PxTask(cfg, device="cuda", seed=SEED)
     repeat = loss_terms(again.train_step(again.init_state(), ex))
@@ -2461,7 +2505,7 @@ def held_step(name: str, cfg, batch: dict) -> dict:
     check_terms(f"{name}: bf16 step 1, kernels vs plain route", got, ref, 2e-2, 1e-3)
     return {"task": task, "state": state, "ex": ex, "plain": plain,
             "plain_state": plain_state, "metrics": metrics, "terms": got,
-            "per_step": per_step, "peak": peak, "g_input": tuple(seen[0])}
+            "per_step": per_step, "pads": pads, "peak": peak, "g_input": tuple(seen[0])}
 
 
 def steps_ms(task, state, batches, n: int = 8) -> float:
@@ -2805,6 +2849,134 @@ def train512_kernels(g: torch.Generator) -> dict:
     return out
 
 
+# odd shapes of the trunk backward's pads: ragged blocks, channels that are
+# not a power of two, H or W = 2 and 3 (where a row or column takes both of
+# its side's mirrors), channels that fill no 16-byte vector (one element a
+# thread)
+PAD_ODD_SHAPES = ((3, 15, 13, 128), (5, 17, 19, 96), (2, 2, 9, 64), (2, 7, 2, 8),
+                  (1, 2, 2, 256), (4, 3, 3, 32), (2, 3, 11, 24), (2, 7, 9, 12),
+                  (3, 5, 6, 3), (1, 4, 3, 1))
+
+
+def wide(g: torch.Generator, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    """Normal values scaled by powers of two from 2^-8 to 2^8, so that the
+    adjoint's every rounding counts."""
+    dev = torch.device("cuda")
+    scale = torch.exp2(torch.randint(-8, 9, shape, device=dev, generator=g).float())
+    return (torch.randn(shape, device=dev, generator=g) * scale).to(dtype)
+
+
+def pads_equal(g: torch.Generator, shape: tuple, dtype: torch.dtype,
+               unaligned: bool = False) -> tuple:
+    """The pad kernel on x of ``shape`` and the adjoint kernel on a padded
+    cotangent against the plain ops on the card, bit for bit; returns x and
+    the cotangent.  ``unaligned``: both inputs one element past a 16-byte
+    boundary, so the kernels move one element a thread."""
+    from nirgan_tpu_torch.ops import reflect_pad as rp
+
+    b, h, w, c = shape
+    x, gp = wide(g, shape, dtype), wide(g, (b, h + 2, w + 2, c), dtype)
+    if unaligned:
+        x, gp = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape) for t in (x, gp))
+        assert x.data_ptr() % 16 and gp.data_ptr() % 16 and x.is_contiguous()
+    xp, dx = rp.reflect_pad_cuda(x), rp.reflect_pad_adjoint_cuda(gp)
+    xp_ref, dx_ref = rp.reflect_pad_plain(x), rp.reflect_pad_adjoint_plain(gp)
+    torch.cuda.synchronize()
+    bad = {what: int((got != ref).sum()) if got.shape == ref.shape else -1
+           for what, got, ref in (("pad", xp, xp_ref), ("adjoint", dx, dx_ref))}
+    if any(bad.values()) or not (xp.is_contiguous() and dx.is_contiguous()):
+        raise AssertionError(f"reflect pad {shape} {dtype}: elements apart from the plain "
+                             f"ops {bad}")
+    return x, gp
+
+
+def phase_reflect_pad() -> dict:
+    """The trunk backward's reflect pad and its adjoint
+    (``ops/reflect_pad.py``): bit for bit with the plain ops they replace
+    (``reflect_pad2d`` and ``reflect_pad2d_adjoint`` at pad 1, run on the
+    card) at the 532^2 step's trunk shape (16, 133^2, 256) and the 276^2
+    step's (16, 69^2, 256) in bf16, and at ``PAD_ODD_SHAPES`` and (2,
+    133^2, 256) in bf16, f32 and f16, aligned and one element past a 16-byte
+    boundary; then each kernel timed at those two shapes over rotated inputs
+    beside the plain ops, the one library call (ATen's reflect pad, which
+    writes NCHW; its backward, which adds with atomics) and the byte bound
+    (each input read once, each output written once)."""
+    from nirgan_tpu_torch.ops import reflect_pad as rp
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    n, s = TRAIN_BATCH, T512_SIDE
+    shapes = ((n, s // 4, s // 4, 256), (n, TRAIN_SIDE // 4, TRAIN_SIDE // 4, 256))
+    for shape in PAD_ODD_SHAPES + ((2, s // 4, s // 4, 256),):
+        for dtype in (torch.bfloat16, torch.float32, torch.float16):
+            for unaligned in (False, True):
+                pads_equal(g, shape, dtype, unaligned)
+    log("reflect_pad", f"pad and adjoint bit for bit with the plain ops at {PAD_ODD_SHAPES} "
+        f"and (2, {s // 4}^2, 256), bf16, f32 and f16, aligned and not")
+
+    def aten_pad(x):
+        return F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+
+    def aten_adjoint(gp, x):
+        return torch.ops.aten.reflection_pad2d_backward(gp.permute(0, 3, 1, 2),
+                                                       x.permute(0, 3, 1, 2), [1, 1, 1, 1])
+
+    out = {}
+    for shape in shapes:
+        x, gp = pads_equal(g, shape, torch.bfloat16)
+        moved = nbytes(x, gp)
+        pad_sets, adj_sets = rotation(x), rotation(gp, x)
+        del x, gp
+        # each call takes a set: (x,) for the pad, (gp, x) for the adjoint
+        for name, fns, sets in (
+                ("reflect_pad", (rp.reflect_pad_cuda, rp.reflect_pad_plain, aten_pad),
+                 pad_sets),
+                ("reflect_pad_adjoint", (lambda gp, x: rp.reflect_pad_adjoint_cuda(gp),
+                                         lambda gp, x: rp.reflect_pad_adjoint_plain(gp),
+                                         aten_adjoint), adj_sets)):
+            ms, plain_ms, library_ms = compare_ms(*(rotating(fn, sets) for fn in fns),
+                                                  run_ahead=True)
+            bound = least_time(0.0, moved)
+            log("reflect_pad", f"{name} {shape} bf16: {ms:.4f} ms, bound {bound[0]:.4f} "
+                f"({bound[0] / ms:.1%}), plain ops {plain_ms:.4f}, library call "
+                f"{library_ms:.4f}")
+            if bound[0] > ms:
+                raise AssertionError(f"{name} {shape}: {ms} ms under its bound {bound}")
+            out.setdefault(name, []).append(times(shape, ms, plain_ms, library_ms, bound))
+        del pad_sets, adj_sets
+        torch.cuda.empty_cache()
+    return out
+
+
+def pads_in_step(name: str, cfg, ex: dict) -> None:
+    """One seeded step on the kernels and the same step with the trunk
+    backward's pad and adjoint on the plain ops (``plain_pads``): every
+    gradient and parameter of G and D and the loss terms bit for bit, the
+    pads launched 18 + 18 on the kernels' side and none on the other."""
+    from nirgan_tpu_torch.tasks import Px2PxTask
+
+    tasks, terms, launched = [], [], []
+    for plain in (False, True):
+        task = Px2PxTask(cfg, device="cuda", seed=SEED)
+        reset_counts()
+        with plain_pads() if plain else contextlib.nullcontext():
+            terms.append(loss_terms(task.train_step(task.init_state(), ex)))
+        torch.cuda.synchronize()
+        launched.append(pad_counts())
+        tasks.append(task)
+    differ = [f"{tag}.{k}" for tag, a, b in (("G", tasks[0].netG, tasks[1].netG),
+                                             ("D", tasks[0].netD, tasks[1].netD))
+              for (k, p), q in zip(a.named_parameters(), b.parameters())
+              if not (torch.equal(p.grad, q.grad) and torch.equal(p, q))]
+    n = sum(1 for net in (tasks[0].netG, tasks[0].netD) for _ in net.parameters())
+    log("train512", f"{name}: the step with the pad kernels against the plain pads: "
+        f"{len(differ)} of {n} gradients or parameters differ, terms equal: "
+        f"{terms[0] == terms[1]}; pads launched {launched}")
+    quiet = {k: 0 for k in PAD_STEP_LAUNCHES}
+    if differ or terms[0] != terms[1] or launched != [PAD_STEP_LAUNCHES, quiet]:
+        raise AssertionError(f"{name}: the pads moved the step: {differ}, {terms}, {launched}")
+
+
 def phase_train512(tmp: str) -> dict:
     """Training on 512^2 tiles, the S2 datasets' configuration
     (``S2_75k_settings``, ``config_px2px.yaml:39-48``; batch 16, reflect-
@@ -2836,6 +3008,7 @@ def phase_train512(tmp: str) -> dict:
     t0 = time.perf_counter()
     with cudnn_tf32(False):
         kernels = train512_kernels(torch.Generator(device="cuda").manual_seed(SEED))
+    pads = phase_reflect_pad()
     kernels_s = time.perf_counter() - t0
 
     # --- one fused step at batch 16, kernels vs plain route
@@ -2862,8 +3035,11 @@ def phase_train512(tmp: str) -> dict:
         f"median of three rounds of {T512_TIMED} {ms:.3f} ms ({TRAIN_BATCH / ms * 1e3:.2f} "
         f"images/s; rounds {[round(r, 3) for r in rounds]}), plain route {plain_ms:.3f} ms")
     step_s = time.perf_counter() - t0
-    per_step, peak = held["per_step"], held["peak"]
-    del task, state, ex, plain, plain_state, held
+    per_step, pads_per_step, peak = held["per_step"], held["pads"], held["peak"]
+    del task, state, plain, plain_state, held
+    torch.cuda.empty_cache()
+    pads_in_step(name, cfg, ex)
+    del ex
     torch.cuda.empty_cache()
 
     # --- the f32 step, card against the CPU, at batch 2 of 512^2
@@ -2897,7 +3073,8 @@ def phase_train512(tmp: str) -> dict:
             RESULTS[name_]["max_abs_err"] = max(RESULTS[name_]["max_abs_err"], got["err"])
     return {"step_ms": ms, "step_ms_rounds": rounds, "plain_step_ms": plain_ms,
             "peak_bytes": peak, "per_step": per_step, "cli": cli_out,
-            "batch": TRAIN_BATCH, "side": T512_SIDE}
+            "batch": TRAIN_BATCH, "side": T512_SIDE, "reflect_pad": pads,
+            "pads_per_step": pads_per_step}
 
 
 def phase_concat() -> None:
@@ -3511,11 +3688,13 @@ def phase_ngf16() -> None:
     reset_counts()
     got = model_terms(task.train_step(task.init_state(), ex))
     torch.cuda.synchronize()
-    step, libs = counts(), library_counts()
-    log("ngf16", f"step: kernels {step}, library routes {libs}")
+    step, libs, pads = counts(), library_counts(), pad_counts()
+    log("ngf16", f"step: kernels {step}, library routes {libs}, the trunk backward's "
+        f"pads (64 channels) {pads}")
     if (libs != want or step["trunk_conv"] or step["head_conv"]
-            or step["convt_bwd"] != 2 or step["instance_norm_bwd"] != 32):
-        raise AssertionError(f"ngf 16 step: {step}, {libs}")
+            or step["convt_bwd"] != 2 or step["instance_norm_bwd"] != 32
+            or pads != PAD_STEP_LAUNCHES):
+        raise AssertionError(f"ngf 16 step: {step}, {libs}, {pads}")
     check_gradients(task)
     with plain_route():
         ref = model_terms(plain.train_step(plain.init_state(), ex))
@@ -7486,7 +7665,7 @@ ALONE = {"int8": alone_int8, "train": alone_train, "variants": phase_variants,
          "nonsquare": phase_nonsquare, "param_dtype": phase_param_dtype,
          "export": alone_export, "native": alone_native, "ddp": alone_ddp,
          "spatial": alone_spatial, "train512": alone_train512, "unet": alone_unet,
-         "profiler": alone_profiler}
+         "reflect_pad": phase_reflect_pad, "profiler": alone_profiler}
 
 
 def main() -> None:
@@ -7587,6 +7766,16 @@ def main() -> None:
                                   "per_step": unet128["per_step"][name]}
         # one fused step of the 512^2 training configuration
         kernel["train512_step"] = {"per_step": train512["per_step"][name]}
+    # the trunk backward's pad and adjoint: times at the 532^2 and 276^2
+    # steps' trunk shapes beside the byte bound, launches in a 532^2 step
+    for name in PAD_STEP_LAUNCHES:
+        at532, at276 = train512["reflect_pad"][name]
+        entries.append({**at532, "name": name, "route": "cuda",
+                        "source": "nirgan_tpu_torch/csrc/reflect_pad.cu",
+                        "replaces": "XLA's pad and its transpose in the trunk's backward",
+                        "max_abs_err": 0.0, "train276": at276,
+                        "train512_step": {"per_step": train512["pads_per_step"][name],
+                                          "want": PAD_STEP_LAUNCHES[name]}})
     # A's VALID mode (conv3x3_pallas): the replicate and zero trunks, a
     # serving forward and a step each
     a = RESULTS["trunk_conv"]

@@ -30,7 +30,8 @@ PKG_ROOT = Path(__file__).resolve().parent.parent
 CSRC = PKG_ROOT / "csrc"
 BUILD_DIR = PKG_ROOT / "_build"
 SOURCES = ("trunk_conv.cu", "instance_norm.cu", "head_conv.cu",
-           "convt_bwd.cu", "igemm_wgmma.cu", "int8_conv.cu", "int8_norm.cu")
+           "convt_bwd.cu", "igemm_wgmma.cu", "int8_conv.cu", "int8_norm.cu",
+           "reflect_pad.cu")
 HEADERS = ("hopper.cuh", "igemm_wgmma.h")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
@@ -60,6 +61,8 @@ _SIGNATURES = {
     "nirgan_int8_norm": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _P),
     "nirgan_int8_norm_blocks_per_sm": (_I, _I, _I, _I),
+    "nirgan_reflect_pad": (_I, _I, _P, _P, _I, _I, _I, _I, _P),
+    "nirgan_reflect_pad_adjoint": (_I, _I, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -22,7 +22,8 @@ Backward (the operator's autograd formula, once differentiable): PyTorch's
 own convolution gradients on the reflect-padded input,
 then the adjoint of the pad (fixed-order adds, so a step's gradients repeat
 bit for bit), as the JAX package trains the trunk through XLA's
-convolutions (``pallas_trunk.py`` has no backward kernel).
+convolutions (``pallas_trunk.py`` has no backward kernel).  The pad and its
+adjoint are ``reflect_pad``'s operators, one kernel each on a card.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ from torch.autograd.function import once_differentiable
 
 from nirgan_tpu_torch.ops import _lib, _registry
 from nirgan_tpu_torch.ops._pack import laid_out, pack_b128, taps_first
-from nirgan_tpu_torch.ops.pad import reflect_pad2d, reflect_pad2d_adjoint
+from nirgan_tpu_torch.ops.pad import reflect_pad2d
+from nirgan_tpu_torch.ops.reflect_pad import reflect_pad, reflect_pad_adjoint
 from nirgan_tpu_torch.utils import spans
 
 NAME = "trunk_conv"
@@ -177,10 +179,10 @@ def trunk_conv_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
     dbias), each None where ``needs`` says so.  The weight gradient is
     taken in x's dtype, as the JAX convolution casts the weight, then
     returned in the weight's dtype; the bias gradient is an f32 sum.  The
-    pad and its adjoint are the spans ``trunk_bwd/pad`` and
+    pad (0 or 1) and its adjoint are the spans ``trunk_bwd/pad`` and
     ``trunk_bwd/pad_adjoint``."""
     with spans.span("trunk_bwd/pad", device=x.is_cuda):
-        xp = reflect_pad2d(x, pad) if pad else x
+        xp = reflect_pad(x) if pad else x
     gn = g.permute(0, 3, 1, 2)
     dxp, dw, _ = torch.ops.aten.convolution_backward(
         gn, xp.permute(0, 3, 1, 2), weight.to(x.dtype), None, [1, 1], [0, 0],
@@ -188,7 +190,9 @@ def trunk_conv_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
     dx = None
     if needs[0]:
         with spans.span("trunk_bwd/pad_adjoint", device=x.is_cuda):
-            dx = reflect_pad2d_adjoint(dxp.permute(0, 2, 3, 1), pad).contiguous()
+            dx = dxp.permute(0, 2, 3, 1).contiguous()
+            if pad:
+                dx = reflect_pad_adjoint(dx)
     dw = dw.to(weight.dtype) if needs[1] else None
     db = g.float().sum(dim=(0, 1, 2)) if needs[2] else None
     return dx, dw, db

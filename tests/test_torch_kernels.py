@@ -6,6 +6,8 @@ wrappers refuse CPU tensors; other devices raise), and the autograd wiring
 of every op with a kernel.  The CUDA kernels themselves are checked on the
 card by ``chip_smoke.py``."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -25,8 +27,10 @@ from nirgan_tpu_torch.ops import _lib
 from nirgan_tpu_torch.ops import convt_bwd as convt_mod
 from nirgan_tpu_torch.ops import head_conv as head_mod
 from nirgan_tpu_torch.ops import instance_norm as in_mod
+from nirgan_tpu_torch.ops import reflect_pad as pad_mod
 from nirgan_tpu_torch.ops import trunk_conv as trunk_mod
 from nirgan_tpu_torch.ops.instance_norm import instance_norm
+from nirgan_tpu_torch.ops.pad import reflect_pad2d, reflect_pad2d_adjoint
 
 
 def _oihw(w_hwio: np.ndarray) -> torch.Tensor:
@@ -35,7 +39,8 @@ def _oihw(w_hwio: np.ndarray) -> torch.Tensor:
 
 KERNELS = (trunk_mod.trunk_conv_cuda, in_mod.instance_norm_cuda,
            in_mod.instance_norm_bwd_cuda, head_mod.head_conv_cuda,
-           convt_mod.convt_k3s2_bwd_cuda)
+           convt_mod.convt_k3s2_bwd_cuda, pad_mod.reflect_pad_cuda,
+           pad_mod.reflect_pad_adjoint_cuda)
 
 
 @pytest.fixture(autouse=True)
@@ -417,7 +422,9 @@ def _kernel_standins(monkeypatch):
             (in_mod, "instance_norm_cuda", in_mod.instance_norm_plain),
             (in_mod, "instance_norm_bwd_cuda", in_mod.instance_norm_bwd_plain),
             (head_mod, "head_conv_cuda", head_mod.head_conv_plain),
-            (convt_mod, "convt_k3s2_bwd_cuda", convt_mod.convt_k3s2_bwd_plain)):
+            (convt_mod, "convt_k3s2_bwd_cuda", convt_mod.convt_k3s2_bwd_plain),
+            (pad_mod, "reflect_pad_cuda", pad_mod.reflect_pad_plain),
+            (pad_mod, "reflect_pad_adjoint_cuda", pad_mod.reflect_pad_adjoint_plain)):
         monkeypatch.setattr(mod, name, as_kernel(plain))
 
 
@@ -506,8 +513,10 @@ def test_kernel_route_keeps_the_graph(monkeypatch):
     lambda x: head_mod.head_conv_cuda(x, torch.zeros(1, 8, 7, 7)),
     lambda x: convt_mod.convt_k3s2_bwd_cuda(torch.zeros(1, 16, 16, 8), x,
                                             torch.zeros(8, 8, 3, 3)),
+    pad_mod.reflect_pad_cuda,
+    pad_mod.reflect_pad_adjoint_cuda,
 ], ids=["trunk_conv", "instance_norm", "instance_norm_bwd", "head_conv",
-        "convt_bwd"])
+        "convt_bwd", "reflect_pad", "reflect_pad_adjoint"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA tensor"):
         call(torch.zeros(1, 8, 8, 8))
@@ -518,7 +527,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
     lambda x: trunk_mod.trunk_conv(x, torch.zeros(8, 8, 3, 3, device="meta")),
     lambda x: instance_norm(x),
     lambda x: head_mod.head_conv(x, torch.zeros(1, 8, 7, 7, device="meta")),
-], ids=["trunk_conv", "instance_norm", "head_conv"])
+    pad_mod.reflect_pad,
+    pad_mod.reflect_pad_adjoint,
+], ids=["trunk_conv", "instance_norm", "head_conv", "reflect_pad", "reflect_pad_adjoint"])
 def test_other_devices_raise(call):
     with pytest.raises(RuntimeError, match="no kernel and no plain route"):
         call(torch.zeros(1, 8, 8, 8, device="meta"))
@@ -709,6 +720,123 @@ def test_convt_bwd_launch_plan_raises_on_what_no_kernel_takes(dtype, z_shape, ct
                                                              w_shape, message):
     with pytest.raises(ValueError, match=message):
         convt_mod.launch_plan(dtype, z_shape, ct_shape, w_shape)
+
+
+# ------------------------------------------- the trunk backward's pad kernels
+@pytest.mark.parametrize("dtype,shape,adjoint,want", [
+    # the 532^2 step's trunk, its 276^2 step's and serving's widths
+    (torch.bfloat16, (16, 133, 133, 256), False, (16, 135, 135, 256)),
+    (torch.bfloat16, (16, 135, 135, 256), True, (16, 133, 133, 256)),
+    (torch.bfloat16, (16, 69, 69, 256), False, (16, 71, 71, 256)),
+    (torch.float32, (2, 133, 133, 256), False, (2, 135, 135, 256)),
+    (torch.float32, (2, 135, 135, 256), True, (2, 133, 133, 256)),
+    # the ngf-16 trunk (the library route of kernel A), odd shapes, H or W = 2
+    (torch.bfloat16, (2, 17, 17, 64), False, (2, 19, 19, 64)),
+    (torch.bfloat16, (3, 15, 13, 128), False, (3, 17, 15, 128)),
+    (torch.bfloat16, (5, 17, 19, 96), True, (5, 15, 17, 96)),
+    (torch.float32, (5, 17, 19, 96), False, (5, 19, 21, 96)),
+    (torch.bfloat16, (1, 2, 9, 8), False, (1, 4, 11, 8)),
+    (torch.float32, (1, 4, 4, 4), True, (1, 2, 2, 4)),
+    # channels that fill no 16-byte vector, and f16
+    (torch.bfloat16, (2, 9, 9, 12), False, (2, 11, 11, 12)),
+    (torch.float32, (2, 9, 9, 6), True, (2, 7, 7, 6)),
+    (torch.float16, (2, 9, 9, 64), False, (2, 11, 11, 64)),
+    (torch.float16, (1, 5, 4, 3), True, (1, 3, 2, 3)),
+])
+def test_reflect_pad_launch_plan_chooses_by_shape(dtype, shape, adjoint, want):
+    assert pad_mod.launch_plan(dtype, shape, adjoint) == want
+
+
+@pytest.mark.parametrize("dtype,shape,adjoint,message", [
+    (torch.float64, (2, 9, 9, 64), False, "not supported"),
+    (torch.int8, (2, 9, 9, 64), True, "not supported"),
+    (torch.bfloat16, (2, 1, 9, 64), False, "H, W >= 2"),
+    (torch.bfloat16, (2, 9, 3, 64), True, "H, W >= 2"),
+    (torch.bfloat16, (9, 9, 64), False, r"\(B, H, W, C\)"),
+    (torch.bfloat16, (2 ** 11, 2 ** 10, 2 ** 10, 64), False, "2\\^31"),
+    (torch.bfloat16, (0, 9, 9, 64), False, "2\\^31"),
+    (torch.float32, (2, 9, 9, 0), True, "2\\^31"),
+])
+def test_reflect_pad_launch_plan_raises_on_what_no_kernel_takes(dtype, shape, adjoint,
+                                                                message):
+    with pytest.raises(ValueError, match=message):
+        pad_mod.launch_plan(dtype, shape, adjoint)
+
+
+@pytest.mark.parametrize("dtype,c", [
+    (torch.bfloat16, 256), (torch.bfloat16, 64), (torch.bfloat16, 8), (torch.float32, 4),
+    (torch.float32, 96), (torch.bfloat16, 12), (torch.float32, 6), (torch.float16, 256),
+    (torch.float64, 256),
+])
+def test_reflect_pad_routes_a_card_tensor_by_shape(monkeypatch, dtype, c):
+    """On a card (the device rule stubbed) every tensor goes to the kernels,
+    whatever its dtype and channels: no second path beside them, and
+    ``launch_plan`` refuses what they do not take (f64 here).  On the CPU
+    both ops take the plain versions."""
+    x = torch.zeros((1, 4, 4, c), dtype=dtype)
+    assert pad_mod.pad_route(x) is pad_mod.reflect_pad_plain
+    assert pad_mod.adjoint_route(x) is pad_mod.reflect_pad_adjoint_plain
+    monkeypatch.setattr(pad_mod._lib, "route", lambda t, name: True)
+    assert pad_mod.pad_route(x) is pad_mod.reflect_pad_cuda
+    assert pad_mod.adjoint_route(x) is pad_mod.reflect_pad_adjoint_cuda
+    if dtype == torch.float64:
+        with pytest.raises(ValueError, match="not supported"):
+            pad_mod.launch_plan(dtype, tuple(x.shape), False)
+    else:
+        assert pad_mod.launch_plan(dtype, tuple(x.shape), False) == (1, 6, 6, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+def test_reflect_pad_operators_trace_on_fake_cuda_tensors(dtype):
+    """The pad and the adjoint on CUDA fake tensors (a trace of the trunk
+    conv's backward, as ``trunk_conv_bwd`` calls them) reach their fake
+    implementations: the shapes, dtype and device come out, nothing
+    launches and no data pointer is read; ``launch_plan`` refuses there
+    what the kernels do not take."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        x = torch.empty((2, 9, 7, 64), device="cuda", dtype=dtype)
+        xp = pad_mod.reflect_pad(x)
+        dx = pad_mod.reflect_pad_adjoint(xp)
+        with pytest.raises(ValueError, match="not supported"):
+            pad_mod.reflect_pad(x.double())
+    assert (xp.shape, xp.dtype, xp.device.type) == ((2, 11, 9, 64), dtype, "cuda")
+    assert (dx.shape, dx.dtype, dx.device.type) == ((2, 9, 7, 64), dtype, "cuda")
+    assert xp.is_contiguous() and dx.is_contiguous()
+    _assert_no_launches()
+
+
+@pytest.mark.parametrize("pad", [1, 0])
+def test_trunk_conv_backward_on_the_cpu_takes_the_plain_pads(pad):
+    """A CPU trunk conv's gradients are today's: PyTorch's convolution
+    gradients on ``reflect_pad2d(x, pad)`` and ``reflect_pad2d_adjoint`` of
+    the padded input's gradient, bit for bit (pad 0: the VALID conv's own
+    gradients); nothing launches."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 7, 6, 16), generator=gen).bfloat16().requires_grad_(True)
+    w = (torch.randn((16, 16, 3, 3), generator=gen) / 12).requires_grad_(True)
+    g = torch.randn((2, 7 - 2 * (1 - pad), 6 - 2 * (1 - pad), 16), generator=gen).bfloat16()
+    trunk_mod.trunk_conv(x, w, None, pad).backward(g)
+    xp = reflect_pad2d(x.detach(), pad)
+    dxp, dw, _ = torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), xp.permute(0, 3, 1, 2), w.detach().bfloat16(), None, [1, 1],
+        [0, 0], [1, 1], False, [0, 0], 1, [True, True, False])
+    assert torch.equal(x.grad, reflect_pad2d_adjoint(dxp.permute(0, 2, 3, 1), pad))
+    assert torch.equal(w.grad, dw.float())
+    _assert_no_launches()
+
+
+def test_every_entry_point_has_a_signature():
+    """Each ``extern "C"`` entry point of the sources has an ``_SIGNATURES``
+    row with as many arguments, and each row names an entry point."""
+    entries = {}
+    for name in _lib.SOURCES:
+        text = (_lib.CSRC / name).read_text()
+        for fn, args in re.findall(r'extern "C" int (\w+)\((.*?)\)', text, re.S):
+            entries[fn] = len(args.split(","))
+    assert {"nirgan_reflect_pad", "nirgan_reflect_pad_adjoint"} <= set(entries)
+    assert entries == {k: len(v) for k, v in _lib._SIGNATURES.items()}
 
 
 def test_kernel_sources_and_headers_exist_and_key_the_build():

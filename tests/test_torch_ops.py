@@ -3,6 +3,9 @@ the same seeded numpy inputs: reflect padding and its adjoint, conv and
 transposed conv, the matrix-form bilinear resize and skimage-exact
 histogram matching."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -156,3 +159,80 @@ def test_resize_matrix_kept_from_inference_mode_serves_autograd():
     y.sum().backward()
     torch.testing.assert_close(y.detach(), served, rtol=0, atol=0)
     assert xg.grad is not None and bool(torch.isfinite(xg.grad).all())
+
+
+# the trunk backward's adjoint kernel (csrc/reflect_pad.cu): its terms, in
+# the order its source adds them
+_ADJOINT_SOURCE = Path(__file__).resolve().parent.parent / "nirgan_tpu_torch/csrc/reflect_pad.cu"
+_EDGES = {"TOP": ("i", 1), "BOTTOM": ("i", -2), "LEFT": ("j", 1), "RIGHT": ("j", -2)}
+
+
+def _adjoint_terms() -> list:
+    """[(edges, rows, cols)]: each mirror term of the adjoint kernel, the
+    edges an element must lie on to take it and the term's offset from the
+    element's own cotangent in padded rows and columns."""
+    src = _ADJOINT_SOURCE.read_text()
+    terms = []
+    for cond, off in re.findall(r"if \(([^;]*?)\) a\.add\(__ldg\(s ([^)]*)\)\);", src):
+        edges = re.findall(r"e & (TOP|BOTTOM|LEFT|RIGHT)", cond)
+        rows = cols = 0
+        for sign, what in re.findall(r"([-+]) (rows2|cols2)", off):
+            step = 2 if sign == "+" else -2
+            rows, cols = (rows + step, cols) if what == "rows2" else (rows, cols + step)
+        terms.append((edges, rows, cols))
+    return terms
+
+
+def _gather_adjoint(g: torch.Tensor) -> torch.Tensor:
+    """The adjoint kernel's arithmetic on the CPU: every element of dx
+    starts from its own cotangent and adds, term by term in the source's
+    order, each mirror term its position takes, rounding each sum to g's
+    dtype as the kernel does."""
+    b, hp, wp, c = g.shape
+    h, w = hp - 2, wp - 2
+    i = torch.arange(h).view(h, 1).expand(h, w)
+    j = torch.arange(w).view(1, w).expand(h, w)
+    pos = {"i": i, "j": j}
+    side = {"i": h, "j": w}
+
+    def at(dr, dc):
+        return g[:, (i + 1 + dr).clamp(0, hp - 1), (j + 1 + dc).clamp(0, wp - 1)]
+
+    v = at(0, 0).clone()
+    for edges, dr, dc in _adjoint_terms():
+        mask = torch.ones(h, w, dtype=torch.bool)
+        for e in edges:
+            axis, k = _EDGES[e]
+            mask &= pos[axis] == (k if k > 0 else side[axis] + k)
+        v = torch.where(mask[None, :, :, None], v + at(dr, dc), v)
+    return v
+
+
+def test_adjoint_kernel_source_states_the_plain_order():
+    """The source adds the top, bottom, left and right mirrors, then the
+    corners top-left, top-right, bottom-left, bottom-right: the plain
+    version's order."""
+    assert _adjoint_terms() == [
+        (["TOP"], -2, 0), (["BOTTOM"], 2, 0), (["LEFT"], 0, -2), (["RIGHT"], 0, 2),
+        (["TOP", "LEFT"], -2, -2), (["TOP", "RIGHT"], -2, 2),
+        (["BOTTOM", "LEFT"], 2, -2), (["BOTTOM", "RIGHT"], 2, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16],
+                         ids=["bf16", "f32", "f16"])
+@pytest.mark.parametrize("shape", [(2, 2, 2, 8), (1, 3, 3, 16), (2, 2, 5, 8), (1, 3, 7, 4),
+                                   (3, 13, 15, 8), (1, 9, 2, 24), (2, 6, 3, 8)])
+@pytest.mark.parametrize("seed", range(3))
+def test_adjoint_gather_equals_reflect_pad2d_adjoint(dtype, shape, seed):
+    """The kernel's per-element gather (index map and order of additions
+    as ``csrc/reflect_pad.cu`` states them) equals ``reflect_pad2d_adjoint``
+    at pad 1 bit for bit, in bf16, f32 and f16, H and W down to 2 and 3 (where a
+    row or column takes both of its side's mirrors).  Wide values make
+    every rounding count."""
+    b, h, w, c = shape
+    gen = torch.Generator().manual_seed(seed)
+    g = (torch.randn((b, h + 2, w + 2, c), generator=gen)
+         * torch.exp2(torch.randint(-8, 9, (b, h + 2, w + 2, c), generator=gen))).to(dtype)
+    want = reflect_pad2d_adjoint(g, 1)
+    got = _gather_adjoint(g)
+    assert got.dtype == want.dtype and torch.equal(got, want)

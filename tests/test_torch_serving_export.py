@@ -41,6 +41,7 @@ from nirgan_tpu_torch.ops import convt_bwd as convt_mod
 from nirgan_tpu_torch.ops import head_conv as head_mod
 from nirgan_tpu_torch.ops import instance_norm as in_mod
 from nirgan_tpu_torch.ops import int8_trunk as int8_mod
+from nirgan_tpu_torch.ops import reflect_pad as pad_mod
 from nirgan_tpu_torch.ops import trunk_conv as trunk_mod
 from nirgan_tpu_torch.ops.conv import _convt_k3s2
 from nirgan_tpu_torch.tasks import Px2PxTask
@@ -70,6 +71,7 @@ def _cases():
     eps = torch.from_numpy((1e-5 / (1.0 + rng.random(16)) ** 2).astype(np.float32))
     s = torch.from_numpy((rng.random(16) * 0.05 + 0.01).astype(np.float32))
     stream = _t(rng, 2, 7, 6, 16)
+    gp = _t(rng, 2, 7, 6, 16)
     parts = torch.stack([in_mod.instance_norm_sums_plain(xn[:, :2]),
                          in_mod.instance_norm_sums_plain(xn[:, 2:])], 1)
     ops = torch.ops.nirgan
@@ -83,6 +85,9 @@ def _cases():
         "instance_norm_bwd": (ops.instance_norm_bwd, (xn, g, stats, True),
                               in_mod.instance_norm_bwd_plain(xn, g, stats, True)),
         "head_conv": (ops.head_conv, (xh, wh, bh), head_mod.head_conv_plain(xh, wh, bh)),
+        "reflect_pad": (ops.reflect_pad, (x,), pad_mod.reflect_pad_plain(x)),
+        "reflect_pad_adjoint": (ops.reflect_pad_adjoint, (gp,),
+                                pad_mod.reflect_pad_adjoint_plain(gp)),
         "convt_k3s2": (ops.convt_k3s2, (z, wt), _convt_k3s2(z, wt)),
         "convt_k3s2_bwd": (ops.convt_k3s2_bwd, (ct, z, wt, True, True),
                            convt_mod.convt_k3s2_bwd_plain(ct, z, wt)),
@@ -136,13 +141,13 @@ def _equal(a, b):
 
 def test_every_kernel_is_an_operator():
     """The registry defines one operator a kernel entry point (A, B, B4, C,
-    B5, D, E, and B's split forward for the H-sharded tile) and the
-    transposed conv whose gradient B5 is; every case below exercises
-    each."""
+    B5, D, E, B's split forward for the H-sharded tile, and the trunk
+    backward's pad and its adjoint) and the transposed conv whose gradient
+    B5 is; every case below exercises each."""
     assert sorted(_registry.OPERATORS) == sorted(
         ["trunk_conv", "instance_norm", "instance_norm_bwd", "head_conv", "convt_k3s2",
          "convt_k3s2_bwd", "int8_conv_moments", "int8_norm_quant", "instance_norm_sums",
-         "instance_norm_apply"])
+         "instance_norm_apply", "reflect_pad", "reflect_pad_adjoint"])
     assert {name.split()[0] for name in CASES} == set(_registry.OPERATORS)
 
 
